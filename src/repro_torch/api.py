@@ -29,13 +29,13 @@ ALGORITHMS = {
     "hashmin": "repro_torch.algorithms.hashmin",
     "pagerank": "repro_torch.algorithms.pagerank",
     "sssp": "repro_torch.algorithms.sssp",
+    "gcn": "repro_torch.train.gcn",
 }
 #: algorithms of the reference that later slices of the port bring
 LATER = {
     "sv": "the request-respond (Ch_req) slice",
     "msf": "the request-respond (Ch_req) slice",
     "attr_bcast": "the request-respond (Ch_req) slice",
-    "gcn": "the gSpMM and GCN slice",
 }
 
 

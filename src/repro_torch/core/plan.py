@@ -22,6 +22,16 @@ Two runtime paths:
 * ``combine_sorted`` — runtime targets: per-row stable sort + segmented
   reduce + one flat (n_pad,) scatter.
 
+Payloads are scalar, one value per lane, or feature-blocked with ONE
+trailing feature axis ``(..., F)`` (``feat_mask``/``feat_shape``).  A
+feature-blocked plan combine runs in row chunks (``vec_chunk_rows``): each
+chunk's lanes are computed from an ``EdgeMap`` (the edge maps composed,
+never a whole ``(E, F)`` array), combined by the vector kernel, and merged
+straight into the ``(n_blocks, nb, F)`` inbox by block, so neither the
+packed lanes, nor the kernel output, nor the reference's
+``(n_segs, nb, F)`` segment buffer exists whole.  At n=4M vertices and
+F=64 each of those would be 22-46 GB.
+
 Kernel dispatch (``set_kernel_mode``): ``"auto"`` sends CUDA tensors to the
 kernel and CPU tensors to its plain version; ``"kernel"`` always calls the
 kernel (CPU tensors then raise); ``"ref"`` always takes the plain version.
@@ -31,7 +41,7 @@ plan (``device_plan``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -43,6 +53,9 @@ from repro_torch.kernels.segment_combine.ref import (
 DEFAULT_NB = 128
 DEFAULT_EB = 128
 CPU_NB = 32
+#: what one chunk of a feature-blocked plan combine may hold: its packed
+#: lanes (rows, eb, F) plus the kernel's output (rows, nb, F)
+VEC_CHUNK_BYTES = 1 << 30
 
 _MODES = ("auto", "kernel", "ref")
 _KERNEL_MODE = "auto"
@@ -110,11 +123,56 @@ def scatter_hits(n: int, idx: torch.Tensor, hits: torch.Tensor
                       flags) > 0
 
 
-def _scalar_only(values: torch.Tensor, lane_ndim: int) -> None:
-    if values.dim() != lane_ndim:
-        raise NotImplementedError(
-            "feature-blocked (vector) payloads come with the vector kernel "
-            "in a later slice of the port")
+def feat_mask(mask: torch.Tensor, values: torch.Tensor,
+              lane_ndim: int) -> torch.Tensor:
+    """Broadcast a lane mask over an optional trailing feature axis.  A
+    value array is lane-shaped (``lane_ndim`` axes, one value per lane) or
+    carries ONE trailing feature axis ``(..., F)``; scalar inputs get
+    ``mask`` unchanged, so the scalar path evaluates exactly what it did
+    before vector payloads existed."""
+    return mask if values.dim() == lane_ndim else mask[..., None]
+
+
+def feat_shape(values: torch.Tensor, lane_ndim: int) -> tuple:
+    """() for scalar payloads, (F,) for feature-blocked ones."""
+    feat = tuple(values.shape[lane_ndim:])
+    if len(feat) > 1:
+        raise ValueError(f"payloads carry at most one feature axis: "
+                         f"{tuple(values.shape)} over {lane_ndim} lane axes")
+    return feat
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeMap:
+    """Feature-blocked per-edge payloads, (E, F), described instead of
+    held: ``take(e)`` computes the values of the edges ``e`` (an int64
+    index tensor of any shape) with a trailing feature axis.  The channels
+    build one by composing their edge maps (source gather, relay, mask), so
+    a plan combine computes only the lanes of the chunk at hand."""
+    take: Callable[[torch.Tensor], torch.Tensor]
+    n_edges: int
+    feat: int
+    dtype: torch.dtype
+    device: torch.device
+
+    @classmethod
+    def of(cls, values: torch.Tensor) -> "EdgeMap":
+        """The map of an (E, F) array that is already in memory."""
+        return cls(values.__getitem__, values.shape[0], values.shape[1],
+                   values.dtype, values.device)
+
+    def where(self, keep: torch.Tensor, ident) -> "EdgeMap":
+        """Edges with ``keep`` (E,) False carry ``ident`` in every
+        feature."""
+        take = self.take
+        return dataclasses.replace(self, take=lambda e: torch.where(
+            keep[e][..., None], take(e), ident))
+
+    def materialize(self) -> torch.Tensor:
+        return self.take(torch.arange(self.n_edges, device=self.device))
+
+
+Payload = Union[torch.Tensor, EdgeMap]
 
 
 @dataclasses.dataclass
@@ -152,6 +210,7 @@ class DevicePlan:
     row_valid: torch.Tensor    # (n_rows, eb) bool
     row_local: torch.Tensor    # (n_rows, eb) int32 (the kernel's idx)
     row_seg: torch.Tensor      # (n_rows,) int64
+    row_blk: torch.Tensor      # (n_rows,) int64 global block of each row
     seg_blk: torch.Tensor      # (n_segs,) int64
     seg_worker: torch.Tensor   # (n_segs,) int64
     gather_max: int            # largest flat edge index a row reads
@@ -166,12 +225,15 @@ def device_plan(plan: EdgePlan, device) -> DevicePlan:
         def up(a, dtype):
             return torch.as_tensor(np.ascontiguousarray(a), device=device
                                    ).to(dtype)
+        seg_blk = up(plan.seg_blk, torch.int64)
+        row_seg = up(plan.row_seg, torch.int64)
         dp = DevicePlan(
             row_gather=up(plan.row_gather, torch.int64),
             row_valid=up(plan.row_valid, torch.bool),
             row_local=up(plan.row_local, torch.int32),
-            row_seg=up(plan.row_seg, torch.int64),
-            seg_blk=up(plan.seg_blk, torch.int64),
+            row_seg=row_seg,
+            row_blk=seg_blk[row_seg],
+            seg_blk=seg_blk,
             seg_worker=up(plan.seg_worker, torch.int64),
             gather_max=int(plan.row_gather.max()) if plan.n_rows else -1)
         plan.device_cache[key] = dp
@@ -280,11 +342,13 @@ def _pack_edge_plan(flat_idx: np.ndarray, src_w: np.ndarray,
 
 def _combine_rows(packed: torch.Tensor, row_local: torch.Tensor, op: str,
                   nb: int) -> torch.Tensor:
-    """Dispatch one (n_rows, eb) -> (n_rows, nb) block combine."""
+    """Dispatch one (n_rows, eb[, F]) -> (n_rows, nb[, F]) block
+    combine."""
     if _KERNEL_MODE == "ref":
         out = segment_combine_blocks_ref(packed, row_local, op, nb)
     elif _KERNEL_MODE == "kernel":
-        out = sc_kernel.launch(packed, row_local, op, nb)
+        launch = sc_kernel.launch_vec if packed.dim() == 3 else sc_kernel.launch
+        out = launch(packed, row_local, op, nb)
     else:
         out = sc_kernel.segment_combine_blocks(packed, row_local, op, nb)
     # The kernel's float min/max identities are finite sentinels; map
@@ -306,14 +370,14 @@ def combine_rows_subset(plan: EdgePlan, flat_vals: torch.Tensor,
     """Combine one subset of plan rows (a pipeline chunk): gather the rows'
     packed lanes and run the same dispatched block combine as the
     whole-plan path.  ``rows_ok`` masks padded chunk slots (their lanes
-    combine to the op identity)."""
-    _scalar_only(flat_vals, 1)
+    combine to the op identity).  ``flat_vals`` is (E,) or (E, F)."""
+    feat_shape(flat_vals, 1)
     dp = device_plan(plan, flat_vals.device)
     rows = rows.long()
     ident = identity_of(op, flat_vals.dtype)
     valid = rows_ok[:, None] & dp.row_valid[rows]
     gathered = flat_vals[dp.row_gather[rows]]
-    packed = torch.where(valid, gathered, ident)
+    packed = torch.where(feat_mask(valid, gathered, 2), gathered, ident)
     rloc = torch.where(valid, dp.row_local[rows], -1)
     return _combine_rows(packed, rloc, op, plan.nb)
 
@@ -332,25 +396,69 @@ def plan_seg_hits(plan: EdgePlan, flat_hits: torch.Tensor) -> torch.Tensor:
     return scatter_op("max", sh, dp.row_seg, rh) > 0
 
 
-def combine_with_plan(plan: EdgePlan, flat_vals: torch.Tensor, op: str,
+def vec_chunk_rows(plan: EdgePlan, F: int, itemsize: int = 4) -> int:
+    """Plan rows one chunk of an F-wide combine takes: its packed lanes
+    and kernel output stay within ``VEC_CHUNK_BYTES``."""
+    return max(1, VEC_CHUNK_BYTES // ((plan.eb + plan.nb) * F * itemsize))
+
+
+def vec_chunks(plan: EdgePlan, F: int, itemsize: int = 4) -> int:
+    """Chunks (vector kernel launches) of one F-wide combine of ``plan``."""
+    return -(-plan.n_rows // vec_chunk_rows(plan, F, itemsize))
+
+
+def _combine_plan_vec(plan: EdgePlan, dp: DevicePlan, values: EdgeMap,
+                      op: str) -> torch.Tensor:
+    """The feature-blocked plan combine, chunk by chunk: a chunk's lanes
+    come from ``values``, its (rows, nb, F) blocks from the kernel, and
+    they merge straight into the (n_blocks, nb, F) inbox by block.  Rows
+    are independent in the kernel, so min/max equal the whole-plan
+    combine bitwise; sums merge rows in another order than the
+    reference's segment-then-block scatter."""
+    ident = identity_of(op, values.dtype)
+    glob = torch.full((plan.n_blocks, plan.nb, values.feat), ident,
+                      dtype=values.dtype, device=values.device)
+    itemsize = torch.empty((), dtype=values.dtype).element_size()
+    step = vec_chunk_rows(plan, values.feat, itemsize)
+    for r0 in range(0, plan.n_rows, step):
+        rows = slice(r0, r0 + step)
+        packed = torch.where(dp.row_valid[rows][..., None],
+                             values.take(dp.row_gather[rows]), ident)
+        out = _combine_rows(packed, dp.row_local[rows], op, plan.nb)
+        del packed
+        scatter_op(op, glob, dp.row_blk[rows], out)
+    return glob.view(plan.M_dst, plan.B_per_w * plan.nb,
+                     values.feat)[:, :plan.n_loc]
+
+
+def combine_with_plan(plan: EdgePlan, flat_vals: Payload, op: str,
                       count_cross: bool = True,
                       log_of: Optional[np.ndarray] = None,
                       M_out: Optional[int] = None,
                       flat_hits: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, Optional[Tuple]]:
-    """Combine per-edge values (flattened (M_src*E,)) into a (M_dst, n_loc)
+    """Combine per-edge values (flattened (M_src*E,), or feature-blocked
+    (M_src*E, F) as an array or an ``EdgeMap``) into a (M_dst, n_loc[, F])
     inbox.  Returns (inbox, (msgs_combined, per_worker_combined) | None):
     the paper's combined-message metric, distinct (source worker,
     destination vertex) pairs that received at least one real message
     (``flat_hits``, the runtime send mask), destination owned by another
     worker.  ``log_of`` maps the physical shards of a split partition back
     to the ``M_out`` logical workers."""
-    _scalar_only(flat_vals, 1)
+    if isinstance(flat_vals, torch.Tensor) and flat_vals.dim() == 2:
+        flat_vals = EdgeMap.of(flat_vals)
+    vector = isinstance(flat_vals, EdgeMap)
+    if not vector and flat_vals.dim() != 1:
+        raise ValueError("pass per-edge values flattened: (E,) or "
+                         f"feature-blocked (E, F), got "
+                         f"{tuple(flat_vals.shape)}")
     device = flat_vals.device
+    n_edges = flat_vals.n_edges if vector else flat_vals.shape[0]
+    feat = (flat_vals.feat,) if vector else ()
     M_out = M_out if M_out is not None else plan.M_src
     ident = identity_of(op, flat_vals.dtype)
     if plan.n_rows == 0:
-        inbox = torch.full((plan.M_dst, plan.n_loc), ident,
+        inbox = torch.full((plan.M_dst, plan.n_loc) + feat, ident,
                            dtype=flat_vals.dtype, device=device)
         if count_cross:
             return inbox, (torch.zeros((), dtype=torch.int64, device=device),
@@ -358,20 +466,24 @@ def combine_with_plan(plan: EdgePlan, flat_vals: torch.Tensor, op: str,
                                        device=device))
         return inbox, None
     dp = device_plan(plan, device)
-    if dp.gather_max >= flat_vals.shape[0]:
+    if dp.gather_max >= n_edges:
         raise ValueError("plan does not match this edge set: it reads edge "
-                         f"{dp.gather_max} of {flat_vals.shape[0]}")
+                         f"{dp.gather_max} of {n_edges}")
 
-    packed = torch.where(dp.row_valid, flat_vals[dp.row_gather], ident)
-    row_out = _combine_rows(packed, dp.row_local, op, plan.nb)
+    if vector:
+        inbox = _combine_plan_vec(plan, dp, flat_vals, op)
+    else:
+        packed = torch.where(dp.row_valid, flat_vals[dp.row_gather], ident)
+        row_out = _combine_rows(packed, dp.row_local, op, plan.nb)
 
-    seg_buf = torch.full((plan.n_segs, plan.nb), ident,
-                         dtype=flat_vals.dtype, device=device)
-    seg_out = scatter_op(op, seg_buf, dp.row_seg, row_out)
-    glob = torch.full((plan.n_blocks, plan.nb), ident,
-                      dtype=flat_vals.dtype, device=device)
-    glob = scatter_op(op, glob, dp.seg_blk, seg_out)
-    inbox = glob.view(plan.M_dst, plan.B_per_w * plan.nb)[:, :plan.n_loc]
+        seg_buf = torch.full((plan.n_segs, plan.nb), ident,
+                             dtype=flat_vals.dtype, device=device)
+        seg_out = scatter_op(op, seg_buf, dp.row_seg, row_out)
+        glob = torch.full((plan.n_blocks, plan.nb), ident,
+                          dtype=flat_vals.dtype, device=device)
+        glob = scatter_op(op, glob, dp.seg_blk, seg_out)
+        inbox = glob.view(plan.M_dst,
+                          plan.B_per_w * plan.nb)[:, :plan.n_loc]
 
     stats = None
     if count_cross:
@@ -396,9 +508,11 @@ def combine_with_plan(plan: EdgePlan, flat_vals: torch.Tensor, op: str,
 def _segment_reduce(op: str, values: torch.Tensor, seg_id: torch.Tensor,
                     num: int) -> torch.Tensor:
     """``jax.ops.segment_{min,max,sum}``: empty segments hold the op's
-    identity (dtype max for min, dtype min for max, 0 for sum)."""
-    buf = torch.full((num,), identity_of(op, values.dtype),
-                     dtype=values.dtype, device=values.device)
+    identity (dtype max for min, dtype min for max, 0 for sum).
+    ``values`` is (N,) or (N, F)."""
+    buf = torch.full((num,) + tuple(values.shape[1:]),
+                     identity_of(op, values.dtype), dtype=values.dtype,
+                     device=values.device)
     return scatter_op(op, buf, seg_id, values)
 
 
@@ -407,20 +521,22 @@ def sorted_segments(targets: torch.Tensor, values: torch.Tensor,
     """Per-row stable sort + segmented reduce of runtime (R, K) target
     rows.  Returns ``(real, seg_t, seg_val, seg_row, ident)``: for every
     live (row, distinct target) segment its validity, target, combined
-    value and source row."""
-    _scalar_only(values, 2)
+    value and source row.  ``values`` is (R, K) or (R, K, F)."""
     ident = identity_of(op, values.dtype)
+    feat = feat_shape(values, 2)
     R, K = targets.shape
     t = torch.where(mask, targets, n_pad)        # sentinel sorts last
     order = torch.argsort(t, dim=1, stable=True)
     ts = torch.gather(t, 1, order)
-    vs = torch.gather(torch.where(mask, values, ident), 1, order)
+    vs = torch.gather(torch.where(feat_mask(mask, values, 2), values, ident),
+                      1, feat_mask(order, values, 2).expand(values.shape))
 
     first = torch.cat([torch.ones((R, 1), dtype=torch.bool,
                                   device=t.device),
                        ts[:, 1:] != ts[:, :-1]], dim=1)
     seg_id = torch.cumsum(first.reshape(-1), 0) - 1
-    seg_val = _segment_reduce(op, vs.reshape(-1), seg_id, R * K)
+    seg_val = _segment_reduce(op, vs.reshape((R * K,) + feat), seg_id,
+                              R * K)
     seg_t = _segment_reduce("min", ts.reshape(-1), seg_id, R * K)
     rows = torch.arange(R, dtype=torch.int32, device=t.device
                         )[:, None].expand(R, K)
@@ -438,12 +554,15 @@ def _flat_combine(real: torch.Tensor, seg_t: torch.Tensor,
     the mask-driven crossness of the segments (a live segment IS >= 1 real
     message, whatever its combined value)."""
     n_pad = M * n_loc
-    buf = torch.full((n_pad,), ident, dtype=seg_val.dtype,
+    feat = feat_shape(seg_val, 1)
+    buf = torch.full((n_pad,) + feat, ident, dtype=seg_val.dtype,
                      device=seg_val.device)
     buf = scatter_op(op, buf, torch.where(real, seg_t, 0),
-                     torch.where(real, seg_val, ident))
+                     torch.where(feat_mask(real, seg_val, 1), seg_val,
+                                 ident))
     cross = real & (torch.div(seg_t, n_loc, rounding_mode="floor") != seg_w)
-    return buf.view(M, n_loc), (cross.sum(), per_worker(seg_w, cross, M))
+    return (buf.view((M, n_loc) + feat),
+            (cross.sum(), per_worker(seg_w, cross, M)))
 
 
 def combine_sorted(targets: torch.Tensor, values: torch.Tensor,
@@ -477,13 +596,14 @@ def sorted_segments_flat(targets: torch.Tensor, values: torch.Tensor,
                          op: str, n_pad: int):
     """Flat-(E,) twin of ``sorted_segments``: sort by (worker, target),
     segmented reduce.  Returns ``(real, seg_t, seg_val, seg_w, ident)``,
-    one entry per distinct live (source worker, target) pair."""
-    _scalar_only(values, 1)
+    one entry per distinct live (source worker, target) pair.  ``values``
+    is (E,) or (E, F)."""
     ident = identity_of(op, values.dtype)
+    feat_shape(values, 1)
     E = targets.shape[0]
     t = torch.where(mask, targets, n_pad)        # sentinel sorts last
     order, ws, ts, first = sort_by_worker_target(src_worker, t)
-    vs = torch.where(mask, values, ident)[order]
+    vs = torch.where(feat_mask(mask, values, 1), values, ident)[order]
 
     seg_id = torch.cumsum(first, 0) - 1
     seg_val = _segment_reduce(op, vs, seg_id, E)
@@ -508,8 +628,8 @@ def combine_sorted_flat(targets: torch.Tensor, values: torch.Tensor,
     ident = identity_of(op, values.dtype)
     device = values.device
     if targets.shape[0] == 0:
-        return (torch.full((M, n_loc), ident, dtype=values.dtype,
-                           device=device),
+        return (torch.full((M, n_loc) + feat_shape(values, 1), ident,
+                           dtype=values.dtype, device=device),
                 (torch.zeros((), dtype=torch.int64, device=device),
                  torch.zeros(M, dtype=torch.int64, device=device)))
     real, seg_t, seg_val, seg_w, ident = sorted_segments_flat(

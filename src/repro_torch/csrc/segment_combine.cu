@@ -1,6 +1,8 @@
-// Blocked segment combine for Hopper (sm_90a): the port's kernel for
-// src/repro/kernels/segment_combine/kernel.py::_kernel, the TPU kernel
-// behind segment_combine_blocks (scalar payloads).
+// Blocked segment combine for Hopper (sm_90a): the port's kernels for
+// src/repro/kernels/segment_combine/kernel.py::_kernel (scalar payloads)
+// and ::_kernel_vec (feature-blocked payloads), the TPU kernels behind
+// segment_combine_blocks.  This header is the scalar kernel's; the vector
+// kernel's is further down, above segment_combine_vec_kernel.
 //
 // What it computes.  vals and idx are (R, eb) row-major; idx holds
 // block-local destinations in [0, nb) and -1 for padding.  For every row r
@@ -40,10 +42,10 @@
 // within a warp are of one address (a broadcast), so there are no bank
 // conflicts.
 //
-// Interface: a plain C function, built with nvcc into a shared library and
+// Interface: plain C functions, built with nvcc into one shared library and
 // called through ctypes (repro_torch/kernels/segment_combine/kernel.py).
-// It launches on the caller's stream, allocates nothing, does not
-// synchronise, and returns cudaGetLastError().
+// They launch on the caller's stream, allocate nothing, do not
+// synchronise, and return cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -155,6 +157,128 @@ void launch(const void* vals, const void* idx, void* out, long long R,
       static_cast<T*>(out), R, eb, nb, rpb, lane_tile);
 }
 
+
+// ---------------------------------------------------------------------------
+// Feature-blocked payloads: the port of _kernel_vec
+// ---------------------------------------------------------------------------
+//
+// What it computes.  vals is (R, eb, F) row-major, idx (R, eb) as above,
+// out (R, nb, F):
+//     out[r, n, f] = op over the lanes e of row r with idx[r, e] == n
+//                    of vals[r, e, f]
+// Features never mix.  Identities, accumulation types and the int32 wrap
+// are the scalar kernel's, and so is the order: each slot combines its
+// lanes in lane order, so F=1 gives the scalar kernel's result bit for bit.
+//
+// The TPU kernel contracts an (eb, nb) one-hot hit matrix with the
+// (eb, 128) value tile on the MXU for sum, and for min/max walks 8-column
+// chunks of an (eb, nb, 8) select: R*eb*nb*F operations.  Every lane hits
+// exactly one slot, so an indexed accumulate does R*eb*F instead, and that
+// is what runs here.
+//
+// What bounds it.  Bytes: every value and index read once and every
+// output written once, R*eb*(4F+4) + R*nb*4F.  The output is dense
+// (nb slots per row whatever the lanes hit), so it outweighs the input:
+// the Ch_msg plan at n=4M (1,387,616 rows x eb=64, nb=128) moves 34.5 GB
+// at F=32 and 68.6 GB at F=64, 10.3 ms and 20.5 ms at 3.35 TB/s; the
+// work is one combine per lane and feature, far below the card's rate.
+// What the design does about the bytes: a warp owns one (row, 32-feature
+// tile); lane t of the warp owns feature column f0+t.  The warp reads the
+// row's indices once, 32 at a time, coalesced, and passes each to every
+// lane with a shuffle; the values vals[r, e, f0:f0+32] of a lane e are
+// one coalesced 128-byte read, issued kBatch lanes ahead of their use.
+// Each lane keeps its column's nb accumulators in shared memory
+// (acc[n][t], 32 words per slot: a warp's accesses at one slot touch 32
+// banks, no conflicts) and writes them out at the end, nb coalesced
+// 128-byte stores.  No atomics, no block-wide barriers: a lane reads and
+// writes only its own column.
+//
+// Layout of one launch.  A block holds wpb warps, as many as fit in
+// kVecSmemBytes of accumulators (nb*32*4 bytes a warp: 4 warps at nb=128,
+// one at nb=1024, which needs 128 KB and the opt-in above 48 KB).  Warp w
+// of block b takes task b*wpb + w, which is row task / n_ft and feature
+// tile task % n_ft; lanes past F in the last tile only take part in the
+// shuffles.
+
+constexpr int kVecSmemBytes = 64 * 1024;  // accumulators a block aims for
+constexpr int kVecMaxWarps = 8;
+constexpr int kBatch = 8;                // lanes whose values load together
+
+template <typename T, int OP>
+__global__ void __launch_bounds__(kVecMaxWarps * 32)
+segment_combine_vec_kernel(const T* __restrict__ vals,
+                           const int32_t* __restrict__ idx,
+                           T* __restrict__ out, long long tasks, int n_ft,
+                           int eb, int nb, int F) {
+  typedef Combiner<T, OP> C;
+  typedef typename C::Acc Acc;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long task =
+      static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (task >= tasks) return;  // a whole warp: no barrier follows
+  Acc* acc = reinterpret_cast<Acc*>(smem)
+             + static_cast<size_t>(warp) * nb * 32 + lane;
+  const long long r = task / n_ft;
+  const int f = static_cast<int>(task - r * n_ft) * 32 + lane;
+  const bool live = f < F;
+  for (int n = 0; n < nb; ++n) acc[n * 32] = C::init();
+
+  const T* v = vals + r * eb * static_cast<long long>(F) + f;
+  const int32_t* ix = idx + r * eb;
+  for (int e0 = 0; e0 < eb; e0 += 32) {
+    const int len = min(32, eb - e0);
+    const int mine = lane < len ? ix[e0 + lane] : -1;
+    int j = 0;
+    for (; j + kBatch <= len; j += kBatch) {
+      T x[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        x[k] = live ? v[static_cast<long long>(e0 + j + k) * F] : T(0);
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int s = __shfl_sync(0xffffffffu, mine, j + k);
+        if (live && s >= 0 && s < nb) acc[s * 32] = C::step(acc[s * 32], x[k]);
+      }
+    }
+    for (; j < len; ++j) {
+      const int s = __shfl_sync(0xffffffffu, mine, j);
+      if (live && s >= 0 && s < nb) {
+        acc[s * 32] =
+            C::step(acc[s * 32], v[static_cast<long long>(e0 + j) * F]);
+      }
+    }
+  }
+  if (live) {
+    T* o = out + r * nb * static_cast<long long>(F) + f;
+    for (int n = 0; n < nb; ++n) {
+      o[static_cast<long long>(n) * F] = C::out(acc[n * 32]);
+    }
+  }
+}
+
+template <typename T, int OP>
+cudaError_t launch_vec(const void* vals, const void* idx, void* out,
+                       long long tasks, int n_ft, int eb, int nb, int F,
+                       int wpb, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(wpb) * nb * 32 * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        segment_combine_vec_kernel<T, OP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const long long blocks = (tasks + wpb - 1) / wpb;
+  segment_combine_vec_kernel<T, OP>
+      <<<static_cast<unsigned>(blocks), wpb * 32, smem, stream>>>(
+          static_cast<const T*>(vals), static_cast<const int32_t*>(idx),
+          static_cast<T*>(out), tasks, n_ft, eb, nb, F);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // vals, idx, out: device pointers of (R, eb), (R, eb) int32 and (R, nb)
@@ -190,5 +314,42 @@ extern "C" int segment_combine_launch(const void* vals, const void* idx,
     else if (op == kMin) launch<float, kMin>(vals, idx, out, R, eb, nb, rpb, lane_tile, grid, s);
     else launch<float, kMax>(vals, idx, out, R, eb, nb, rpb, lane_tile, grid, s);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// vals, idx, out: device pointers of (R, eb, F), (R, eb) int32 and
+// (R, nb, F) contiguous arrays; dtype and op as above.  Returns a
+// cudaError_t (0 on success).
+extern "C" int segment_combine_vec_launch(const void* vals, const void* idx,
+                                          void* out, long long R, int eb,
+                                          int nb, int F, int dtype, int op,
+                                          int device, void* stream) {
+  if (R <= 0 || F <= 0) return 0;
+  if (nb < 1 || nb > 1024 || eb < 0 || (dtype != kInt32 && dtype != kFloat32)
+      || op < kSum || op > kMax) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int wpb = kVecSmemBytes / (nb * 32 * 4);
+  if (wpb < 1) wpb = 1;
+  if (wpb > kVecMaxWarps) wpb = kVecMaxWarps;
+  const int n_ft = (F + 31) / 32;
+  const long long tasks = R * n_ft;
+  if ((tasks + wpb - 1) / wpb > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (tasks < wpb) wpb = static_cast<int>(tasks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kInt32) {
+    if (op == kSum) err = launch_vec<int32_t, kSum>(vals, idx, out, tasks, n_ft, eb, nb, F, wpb, s);
+    else if (op == kMin) err = launch_vec<int32_t, kMin>(vals, idx, out, tasks, n_ft, eb, nb, F, wpb, s);
+    else err = launch_vec<int32_t, kMax>(vals, idx, out, tasks, n_ft, eb, nb, F, wpb, s);
+  } else {
+    if (op == kSum) err = launch_vec<float, kSum>(vals, idx, out, tasks, n_ft, eb, nb, F, wpb, s);
+    else if (op == kMin) err = launch_vec<float, kMin>(vals, idx, out, tasks, n_ft, eb, nb, F, wpb, s);
+    else err = launch_vec<float, kMax>(vals, idx, out, tasks, n_ft, eb, nb, F, wpb, s);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,17 +1,21 @@
-"""The hand-written CUDA kernel for sender-side message combining, and its
-wrapper.
+"""The hand-written CUDA kernels for sender-side message combining, and
+their wrappers.
 
 ``segment_combine_blocks`` is the port of the TPU kernel
-``repro.kernels.segment_combine.kernel.segment_combine_blocks`` (scalar
-payloads).  The kernel is ``repro_torch/csrc/segment_combine.cu`` (its
-header says what it computes, what bounds it and how it is laid out).  It is
-compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
+``repro.kernels.segment_combine.kernel.segment_combine_blocks``: scalar
+``(R, eb)`` payloads go to one kernel (``launch``), feature-blocked
+``(R, eb, F)`` payloads to the other (``launch_vec``), as the TPU kernel
+dispatches on ``vals.ndim == 3``.  Both kernels are in
+``repro_torch/csrc/segment_combine.cu`` (its comments say what each
+computes, what bounds it and how it is laid out).  The source is compiled
+with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
 interface at first use, never at import, into ``build/repro_torch/`` at the
 root of the checkout, and rebuilt when the source changes.
 
 Dispatch: a CPU tensor goes to the plain version (``ref.py``); a CUDA tensor
-goes to the kernel or raises.  ``segment_combine_blocks.launches`` counts
-the kernel's launches.
+goes to a kernel or raises.  ``segment_combine_blocks.launches`` counts the
+scalar kernel's launches and ``segment_combine_blocks.launches_vec`` the
+vector kernel's.
 """
 from __future__ import annotations
 
@@ -84,23 +88,24 @@ def _library() -> ctypes.CDLL:
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn = lib.segment_combine_vec_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def launch(vals: torch.Tensor, idx: torch.Tensor, op: str,
-           nb: int) -> torch.Tensor:
-    """Run the CUDA kernel on ``vals``/``idx`` (both on one CUDA device).
-    Raises on anything the kernel does not take; never falls back."""
+def _check(vals: torch.Tensor, idx: torch.Tensor, op: str, nb: int,
+           dim: int) -> None:
+    """Raise on anything the kernels do not take; never fall back."""
     if op not in _OPS:
         raise ValueError(f"unknown op {op!r}; use one of {tuple(_OPS)}")
     if not (vals.is_cuda and idx.is_cuda and vals.device == idx.device):
         raise ValueError("the segment_combine kernel takes tensors on one "
                          f"CUDA device, got {vals.device} and {idx.device}")
-    if vals.dim() == 3:
-        raise NotImplementedError(
-            "feature-blocked (n_blocks, eb, F) payloads need the vector "
-            "kernel, which a later slice of the port adds")
     if vals.dtype in (torch.bfloat16, torch.float16):
         raise NotImplementedError(
             f"{vals.dtype} combines on the card come in a later slice of "
@@ -109,13 +114,28 @@ def launch(vals: torch.Tensor, idx: torch.Tensor, op: str,
         raise TypeError(f"unsupported value dtype {vals.dtype}")
     if idx.dtype != torch.int32:
         raise TypeError(f"idx must be int32, got {idx.dtype}")
-    if vals.dim() != 2 or vals.shape != idx.shape:
-        raise ValueError(f"vals {tuple(vals.shape)} and idx "
-                         f"{tuple(idx.shape)} must be the same 2-D shape")
+    if vals.dim() != dim or idx.dim() != 2 or vals.shape[:2] != idx.shape:
+        raise ValueError(f"vals {tuple(vals.shape)} must be {dim}-D with "
+                         f"idx {tuple(idx.shape)} as its leading axes")
     if not (vals.is_contiguous() and idx.is_contiguous()):
         raise ValueError("vals and idx must be contiguous")
     if not 1 <= nb <= MAX_NB:
         raise ValueError(f"nb={nb} outside [1, {MAX_NB}]")
+
+
+def _raise_on(rc: int, what: str, vals: torch.Tensor, nb: int,
+              op: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} "
+                           f"(vals {tuple(vals.shape)}, nb={nb}, "
+                           f"{vals.dtype}, {op})")
+
+
+def launch(vals: torch.Tensor, idx: torch.Tensor, op: str,
+           nb: int) -> torch.Tensor:
+    """Run the scalar CUDA kernel on ``vals``/``idx`` (R, eb), both on one
+    CUDA device.  Raises on anything the kernel does not take."""
+    _check(vals, idx, op, nb, 2)
     R, eb = vals.shape
     out = torch.empty((R, nb), dtype=vals.dtype, device=vals.device)
     if R == 0:
@@ -124,23 +144,43 @@ def launch(vals: torch.Tensor, idx: torch.Tensor, op: str,
     rc = _library().segment_combine_launch(
         vals.data_ptr(), idx.data_ptr(), out.data_ptr(), R, eb, nb,
         _DTYPES[vals.dtype], _OPS[op], vals.device.index or 0, stream)
-    if rc != 0:
-        raise RuntimeError(f"segment_combine kernel launch failed: CUDA "
-                           f"error {rc} (R={R}, eb={eb}, nb={nb}, "
-                           f"{vals.dtype}, {op})")
+    _raise_on(rc, "segment_combine", vals, nb, op)
     segment_combine_blocks.launches += 1
+    return out
+
+
+def launch_vec(vals: torch.Tensor, idx: torch.Tensor, op: str,
+               nb: int) -> torch.Tensor:
+    """Run the vector CUDA kernel on ``vals`` (R, eb, F) and ``idx``
+    (R, eb), both on one CUDA device; returns (R, nb, F).  Raises on
+    anything the kernel does not take."""
+    _check(vals, idx, op, nb, 3)
+    R, eb, F = vals.shape
+    out = torch.empty((R, nb, F), dtype=vals.dtype, device=vals.device)
+    if R == 0 or F == 0:
+        return out
+    stream = torch.cuda.current_stream(vals.device).cuda_stream
+    rc = _library().segment_combine_vec_launch(
+        vals.data_ptr(), idx.data_ptr(), out.data_ptr(), R, eb, nb, F,
+        _DTYPES[vals.dtype], _OPS[op], vals.device.index or 0, stream)
+    _raise_on(rc, "segment_combine_vec", vals, nb, op)
+    segment_combine_blocks.launches_vec += 1
     return out
 
 
 def segment_combine_blocks(vals: torch.Tensor, idx: torch.Tensor, op: str,
                            nb: int) -> torch.Tensor:
-    """vals: (n_blocks, eb) int32/float32; idx: (n_blocks, eb) int32
-    block-local destinations, -1 padding.  Returns the (n_blocks, nb)
-    combined blocks: the kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+    """vals: (n_blocks, eb) or feature-blocked (n_blocks, eb, F), int32 or
+    float32; idx: (n_blocks, eb) int32 block-local destinations, -1
+    padding.  Returns the (n_blocks, nb) / (n_blocks, nb, F) combined
+    blocks: a kernel for CUDA tensors, the plain version for CPU
+    tensors."""
     if vals.device.type == "cpu":
         return segment_combine_blocks_ref(vals, idx, op, nb)
+    if vals.dim() == 3:
+        return launch_vec(vals, idx, op, nb)
     return launch(vals, idx, op, nb)
 
 
 segment_combine_blocks.launches = 0
+segment_combine_blocks.launches_vec = 0

@@ -45,26 +45,31 @@ def pack_edges(dst: np.ndarray, n_out: int, nb: int = 256,
 
 def pack_values(vals: np.ndarray, order: np.ndarray, idx_local: np.ndarray,
                 op: str = "sum") -> np.ndarray:
-    """Scatter per-edge values into the packed (n_blocks, Eb) layout
-    aligned with ``pack_edges``.  The packed array keeps ``vals.dtype``;
-    padding slots hold the op identity for that dtype."""
+    """Scatter per-edge values, (E,) or feature-blocked (E, F), into the
+    packed (n_blocks, Eb) / (n_blocks, Eb, F) layout aligned with
+    ``pack_edges``.  The packed array keeps ``vals.dtype``; padding slots
+    hold the op identity for that dtype."""
     vals = np.asarray(vals)
-    if vals.ndim != 1:
-        raise NotImplementedError("feature-blocked payloads come with the "
-                                  "vector kernel in a later slice")
+    if vals.ndim not in (1, 2):
+        raise ValueError(f"per-edge values must be (E,) or (E, F), got "
+                         f"{vals.shape}")
     n_blocks, eb = idx_local.shape
+    feat = vals.shape[1:]
     valid = idx_local.reshape(-1) >= 0
-    out = np.full((n_blocks, eb), _identity(op, vals.dtype), vals.dtype)
-    out.reshape(-1)[valid] = vals[order]
+    out = np.full((n_blocks, eb) + feat, _identity(op, vals.dtype),
+                  vals.dtype)
+    out.reshape((-1,) + feat)[valid] = vals[order]
     return out
 
 
 def segment_combine(packed_vals: torch.Tensor, packed_idx: torch.Tensor,
                     op: str, nb: int, n_out: int,
                     use_kernel: bool = True) -> torch.Tensor:
-    """Combine packed edge messages into (n_out,) destination values."""
+    """Combine packed edge messages into (n_out,) destination values, or
+    (n_out, F) when ``packed_vals`` carries a feature axis."""
     fn = segment_combine_blocks if use_kernel else segment_combine_blocks_ref
-    return fn(packed_vals, packed_idx, op, nb).reshape(-1)[:n_out]
+    out = fn(packed_vals, packed_idx, op, nb)
+    return out.reshape((-1,) + tuple(out.shape[2:]))[:n_out]
 
 
 def segment_combine_rows(packed_vals: torch.Tensor, packed_idx: torch.Tensor,

@@ -16,7 +16,7 @@ import time
 import numpy as np
 
 GRAPH_NAMES = ("powerlaw", "road", "erdos")
-ALGOS = ("hashmin", "pagerank", "sssp")
+ALGOS = ("hashmin", "pagerank", "sssp", "gcn")
 
 
 def make_graph(graph: str, n: int, seed: int):
@@ -71,6 +71,16 @@ def main(argv=None):
     ap.add_argument("--split-factor", type=float, default=1.2,
                     help="split workers whose edge load exceeds this "
                          "multiple of the mean (balance=split)")
+    ap.add_argument("--feat-dim", type=int, default=32,
+                    help="gcn: embedding feature dimension F, the "
+                         "vector-payload width every channel join carries "
+                         "as a trailing (lanes, F) block")
+    ap.add_argument("--hidden", type=int, default=64,
+                    help="gcn: hidden width of the 2-layer GCN")
+    ap.add_argument("--classes", type=int, default=8,
+                    help="gcn: number of synthetic label classes")
+    ap.add_argument("--epochs", type=int, default=10,
+                    help="gcn: full-graph AdamW steps")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (cuda, or cpu)")
     args = ap.parse_args(argv)
@@ -99,6 +109,25 @@ def main(argv=None):
         pg = eng.partition(gw.symmetrized(), args.workers, tau=tau,
                            seed=args.seed)
         res = eng.run("sssp", pg, source=int(pg.perm[0]))
+    elif args.algo == "gcn":
+        from repro_torch.core.gspmm import gspmm_stats
+        from repro_torch.train.gcn import normalize_adjacency
+        gw = normalize_adjacency(
+            make_graph(args.graph, args.n, args.seed).symmetrized())
+        pg = eng.partition(gw, args.workers, tau=tau, seed=args.seed)
+        res = eng.run("gcn", pg, feat_dim=args.feat_dim,
+                      hidden=args.hidden, n_classes=args.classes,
+                      epochs=args.epochs, seed=args.seed)
+        losses = res.history
+        print(f"[gcn] F={args.feat_dim} hidden={args.hidden} "
+              f"classes={args.classes}: loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} over "
+              f"{args.epochs} epochs")
+        # message accounting for ONE aggregation join (the training step
+        # runs 4 per epoch: 2 forward + 2 backward-cotangent joins)
+        _, res.stats = gspmm_stats(pg, "u_mul_e_sum", res.state["emb"],
+                                   backend=args.backend,
+                                   use_mirroring=mirror)
     else:
         params = {"n_iters": 30} if args.algo == "pagerank" else {}
         res = eng.run(args.algo, pg, **params)

@@ -205,5 +205,6 @@ def test_unknown_backend_and_relay_raise():
         tch.push_combined(t, v, m, "min", 2, 3, backend="xla")
     with pytest.raises(ValueError, match="relay"):
         tch.relay_values(v, v, "pow_w")
-    with pytest.raises(NotImplementedError):
-        tch.push_combined(t, v[..., None], m, "min", 2, 3)
+    # one trailing feature axis at most (vector payloads are (M, K, F))
+    with pytest.raises(ValueError, match="feature axis"):
+        tch.push_combined(t, v[..., None, None], m, "min", 2, 3)

@@ -89,6 +89,29 @@ def test_graph_run_cpu_prints_the_reference_lines(capsys):
         assert tag in out
 
 
+def test_graph_run_gcn_cpu_prints_the_reference_lines(capsys):
+    graph_run.main(["--algo", "gcn", "--n", "400", "--workers", "4",
+                    "--backend", "pallas", "--layout", "csr",
+                    "--feat-dim", "8", "--hidden", "16", "--classes", "4",
+                    "--epochs", "3", "--device", "cpu"])
+    out = capsys.readouterr().out
+    for tag in ("[graph] powerlaw", "[gcn] F=8 hidden=16 classes=4: loss",
+                "[run] gcn: 3 supersteps", "msgs_total", "msgs_mirror",
+                "balance[per_worker_total]"):
+        assert tag in out
+
+
+def test_gcn_entry_point_defaults_to_cuda_and_raises_without_it(no_cuda):
+    g = tgen.powerlaw(60, seed=0).symmetrized()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tapi.Engine(backend="pallas", layout="csr").run("gcn", g, M=2)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        graph_run.main(["--algo", "gcn", "--n", "60", "--workers", "2"])
+    res = tapi.Engine(backend="pallas", layout="csr", device="cpu").run(
+        "gcn", g, M=2, epochs=1, feat_dim=4, hidden=8, n_classes=2)
+    assert res.state["emb"].device.type == "cpu"
+
+
 def _run_chip_smoke(cwd: Path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""          # no card, even if one exists
