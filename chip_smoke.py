@@ -6,8 +6,9 @@
 Phases; any failure exits non-zero and prints no result:
 
 1. device: CUDA must be present; prints the card's name and power limit
-   (nvidia-smi) and builds both segment_combine kernels (one source) from
-   ``src/``.
+   (nvidia-smi) and builds the three kernel sources from ``src/``
+   (segment_combine, flash_attention, ssd_scan: one nvcc each, started
+   together), printing each ``-Xptxas -v`` report.
 2. kernels vs plain: random cases (sum/min/max x int32/float32 x several
    (eb, nb), for the vector kernel x F in {1, 3, 32, 64, 130}; -1 padding,
    values at the int32 bounds and +-inf) against the plain PyTorch version
@@ -53,8 +54,35 @@ Phases; any failure exits non-zero and prints no result:
    (bytes over 3.35 TB/s), each timed on every launch of its counted run
    (the scalar kernel in a replay of the algorithm runs, the vector kernel
    on the recorded join inputs), so that its times and launches cover the
-   same runs.  One JSON line ``{"kernels": [...]}``, then the last line
-   ``{"ok": true, "device": {...}}``.
+   same runs.
+7. serve Hymba-1.5B at full width (32 layers, d_model 1600, 25/5 heads,
+   window 1024 with layers 16 and 32 global, a Mamba-2 mixer beside the
+   attention in every layer; 1.64B parameters in float32 from
+   ``torch.Generator(seed)`` on the card; TF32 off).  First the two new
+   kernels against their plain versions in float64 on random cases (flash:
+   causal on/off x window 0/16/1024 x n_rep 1/5 x d 16/64/128 x S
+   64/100/2048/2112, within 1e-5 of max|v|, and bfloat16 within 2e-2;
+   SSD: S a chunk multiple and ragged x (P, N) (64, 16)/(64, 128) x groups
+   1/2, y and final state within 1e-4 of their max).  Then B=4 random
+   prompts of 2048 tokens (twice the window, so the masks and ring buffers
+   wrap): prefill and 63 greedy decode steps through ``model_zoo``, timed
+   with CUDA events.  Checks: (a) both kernels on every launch's recorded
+   inputs against the float64 plain version; (b) each layer's update with
+   the kernels against the plain path ("ref") on the same input; (c) the
+   prefill + decode path against the no-cache forward over the 2112 tokens
+   (both kernels at that ragged length), layer by layer with teacher
+   forcing at positions 2047..2110, and the logits through the last layer;
+   (d) 32 flash and 32 SSD launches in the prefill, none in decode; (e)
+   finite logits, the padded vocabulary at -2^30.  The whole-model logits
+   (kernels vs plain, served decode vs forward) are printed but not held to
+   a bound: the random-weight 32-layer model amplifies float32 rounding.
+   ``[serve]`` lines give the prefill and decode device times, tokens/s
+   and peak memory; ``[kernel]`` lines each kernel's time, plain time,
+   library time (SDPA for flash; none for the scan) and bound over the 32
+   launches of a prefill.
+
+One JSON line ``{"kernels": [...]}`` with all four kernels, then the last
+line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -87,6 +115,36 @@ GRAD_RTOL = 1e-4
 # of 0 may take the other side of the relu, each moving the step by about
 # 1e-4 of its norm
 STEP_RTOL = 1e-3
+LM_ARCH = "hymba_1_5b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 64
+FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:27"
+SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan/kernel.py:20"
+# Tolerances of the serve phase.  Random cases (scores ~N(0, 1)): the
+# flash kernel sums each query's d-long products and Sk weighted rows in
+# float32 in another order than the plain version, ~1e-6 of max|v|.
+FLASH_F32_TOL = 1e-5
+FLASH_BF16_TOL = 2e-2      # bfloat16 output rounding, as the JAX tests
+LIB_TOL = 1e-4             # SDPA (another float32 order) vs float64
+# the chunked scan takes exp of differences of float32 cumulative sums
+# (|cum| up to ~100 in a chunk: ~1e-5 relative), the oracle is the float64
+# recurrence
+SSD_RTOL = 1e-4
+# On the path's own inputs the scores reach the hundreds, and rounding a
+# score to float32 (~1e-5 there) becomes a relative error of its softmax
+# weight: both the kernel and the float32 plain version sit ~5e-5 of
+# max|v| from float64, above the 1e-5 that holds for random cases.  There
+# each kernel is held to the larger of its random-case bound and
+# PLAIN_FACTOR times the float32 plain version's own distance from the
+# float64 oracle: no less accurate than the plain float32 computation.
+PLAIN_FACTOR = 4.0
+# a layer's update on the same input, kernels vs plain path, or prefill +
+# decode vs the no-cache forward: float32 order and the conditioning
+# above (attention, scan and MLP errors of ~1e-5..1e-4 of the update's
+# max); a mask, GQA, state or ring-buffer fault moves it by O(1)
+LAYER_RTOL = 1e-3
+LOGIT_RTOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -125,13 +183,24 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def build_kernel(kernel):
-    info = kernel.build_library()
-    log(f"[build] {info['path'].name}: built={info['built']} in "
-        f"{info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"[ptxas] {line.strip()}")
+def build_kernels():
+    """Build the three kernel sources, one nvcc each, all started together,
+    and print each build's -Xptxas -v report."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.segment_combine import kernel as sc
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    t0 = time.perf_counter()
+    infos = _build.build_libraries([(m.SOURCE, m.LIB_NAME)
+                                    for m in (sc, flash, ssd)])
+    for info in infos:
+        log(f"[build] {info['path'].name}: built={info['built']} in "
+            f"{info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if ("registers" in line or "spill" in line or "Compiling" in line
+                    or "smem" in line):
+                log(f"[ptxas] {info['name']}: {line.strip()}")
+    log(f"[build] all sources in {time.perf_counter() - t0:.2f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -940,6 +1009,608 @@ def parity_small(torch, np, args, dev, phases):
         f"{hist['dense']} (atol=1e-6; it falls by {fall:.3g})")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: serve Hymba-1.5B at full width
+# ---------------------------------------------------------------------------
+
+def flash_pairs(S: int, window: int) -> int:
+    """Query-key pairs a causal mask (and a window, if any) keeps for
+    Sq = Sk = S."""
+    if window <= 0:
+        return S * (S + 1) // 2
+    return sum(min(q + 1, window) for q in range(S))
+
+
+def flash_random_cases(torch, np, dev, seed):
+    """The flash kernel against its plain version in float64 (the oracle)
+    over causal x window x n_rep x d x S, float32 within FLASH_F32_TOL of
+    max|v|; bfloat16 inputs against the float32 plain version within
+    FLASH_BF16_TOL.  Returns the largest |kernel - oracle| in float32."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    gen = torch.Generator(dev).manual_seed(seed + 7)
+    worst, worst_plain, n = 0.0, 0.0, 0
+    for S in (64, 100, 2048, 2112):
+        for d in (16, 64, 128):
+            for n_rep in (1, 5):
+                BKV = 2
+                q = torch.randn((BKV * n_rep, S, d), generator=gen, device=dev)
+                k = torch.randn((BKV, S, d), generator=gen, device=dev)
+                v = torch.randn((BKV, S, d), generator=gen, device=dev)
+                q64, k64, v64 = q.double(), k.double(), v.double()
+                for causal in (True, False):
+                    for window in (0, 16, 1024):
+                        got = fk.launch(q, k, v, causal=causal, window=window)
+                        want = flash_attention_ref(q64, k64, v64,
+                                                   causal=causal,
+                                                   window=window)
+                        plain = flash_attention_ref(q, k, v, causal=causal,
+                                                    window=window)
+                        torch.cuda.synchronize()
+                        err = float((got.double() - want).abs().max())
+                        lim = FLASH_F32_TOL * float(v.abs().max())
+                        if not err <= lim:
+                            fail(f"flash kernel vs float64 plain: |err| {err:.3g}"
+                                 f" > {lim:.3g} (S={S}, d={d}, n_rep={n_rep}, "
+                                 f"causal={causal}, window={window})")
+                        worst = max(worst, err)
+                        worst_plain = max(worst_plain, float(
+                            (plain.double() - want).abs().max()))
+                        n += 1
+    log(f"[kernel] flash_attention: {n} random float32 cases within "
+        f"{FLASH_F32_TOL} x max|v| of the float64 plain version (max |err| "
+        f"{worst:.3g}; the float32 plain version's own {worst_plain:.3g})")
+    bf_worst = 0.0
+    for S, window in ((2048, 0), (2048, 1024), (2112, 16)):
+        q = torch.randn((10, S, 64), generator=gen, device=dev)
+        k = torch.randn((2, S, 64), generator=gen, device=dev)
+        v = torch.randn((2, S, 64), generator=gen, device=dev)
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        got = fk.launch(qb, kb, vb, causal=True, window=window)
+        want = flash_attention_ref(qb.float(), kb.float(), vb.float(),
+                                   causal=True, window=window)
+        torch.cuda.synchronize()
+        if got.dtype != torch.bfloat16:
+            fail(f"flash kernel returned {got.dtype} for bfloat16 inputs")
+        err = float((got.float() - want).abs().max())
+        if not err <= FLASH_BF16_TOL:
+            fail(f"bfloat16 flash kernel vs float32 plain: |err| {err:.3g} > "
+                 f"{FLASH_BF16_TOL} (S={S}, window={window})")
+        bf_worst = max(bf_worst, err)
+    log(f"[kernel] flash_attention: 3 bfloat16 cases within {FLASH_BF16_TOL} "
+        f"of the float32 plain version (max |err| {bf_worst:.3g})")
+    return worst
+
+
+def ssd_case_err(torch, got, want):
+    """max |got - want| / max |want| (0 for an all-zero want)."""
+    scale = float(want.abs().max())
+    return float((got.double() - want).abs().max()) / max(scale, 1e-30)
+
+
+def ssd_random_cases(torch, np, dev, seed):
+    """The SSD kernel against the float64 recurrence (its plain version in
+    float64): y and the final state within SSD_RTOL of their max, at S a
+    multiple of the chunk and ragged, (P, N) in {(64, 16), (64, 128)},
+    groups 1 and 2, with and without an initial state."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref_model
+    gen = torch.Generator(dev).manual_seed(seed + 8)
+    worst, n = 0.0, 0
+    for S in (256, 200, 2112):
+        for P, N in ((64, 16), (64, 128)):
+            for g, init in ((1, False), (2, True)):
+                b, h, chunk = 2, 4, 128
+                x = torch.randn((b, S, h, P), generator=gen, device=dev)
+                dt = torch.nn.functional.softplus(torch.randn(
+                    (b, S, h), generator=gen, device=dev) - 1.0)
+                A = -torch.exp(0.5 * torch.randn((h,), generator=gen,
+                                                 device=dev))
+                B = torch.randn((b, S, g, N), generator=gen, device=dev)
+                C = torch.randn((b, S, g, N), generator=gen, device=dev)
+                s0 = (torch.randn((b, h, P, N), generator=gen, device=dev)
+                      if init else None)
+                y, st = sk.launch(x, dt, A, B, C, chunk=chunk, init_state=s0)
+                y64, st64 = ssd_scan_ref_model(
+                    x.double(), dt.double(), A.double(), B.double(),
+                    C.double(), None if s0 is None else s0.double())
+                torch.cuda.synchronize()
+                ey = ssd_case_err(torch, y, y64)
+                es = ssd_case_err(torch, st, st64)
+                if not (ey <= SSD_RTOL and es <= SSD_RTOL):
+                    fail(f"SSD kernel vs float64 recurrence: y {ey:.3g}, "
+                         f"state {es:.3g} of max (limit {SSD_RTOL}; S={S}, "
+                         f"P={P}, N={N}, g={g}, init={init})")
+                worst = max(worst, ey, es)
+                n += 1
+    log(f"[kernel] ssd_scan: {n} random cases, y and final state within "
+        f"{SSD_RTOL} of their max against the float64 recurrence (max "
+        f"{worst:.3g})")
+    return worst
+
+
+def _slice_tree(tree, i):
+    return {k: _slice_tree(v, i) if isinstance(v, dict) else v[i:i + 1]
+            for k, v in tree.items()}
+
+
+def one_layer_stages(params, cfg):
+    """Every layer of the model as a one-layer stage, in order:
+    (StageSpec, stage params), run by the model's own apply_stage_seq /
+    apply_stage_decode."""
+    from repro_torch.models.transformer import StageSpec, build_stages
+    out = []
+    for sp, stage in zip(params["stages"], build_stages(cfg)):
+        for i in range(stage.n_layers):
+            out.append((StageSpec(stage.kind, 1, stage.window),
+                        {"layers": _slice_tree(sp["layers"], i)}))
+    return out
+
+
+def record_launches(mods, fn):
+    """Run ``fn`` with each module's ``launch`` wrapped to keep a copy of
+    every launch's arguments; returns {module name: [(args, kw), ...]}."""
+    seen = {name: [] for name in mods}
+    saved = {name: m.launch for name, m in mods.items()}
+
+    def wrap(name):
+        def rec(*a, **kw):
+            seen[name].append((tuple(t.clone() if hasattr(t, "clone") else t
+                                     for t in a), dict(kw)))
+            return saved[name](*a, **kw)
+        return rec
+    for name, m in mods.items():
+        m.launch = wrap(name)
+    try:
+        fn()
+    finally:
+        for name, m in mods.items():
+            m.launch = saved[name]
+    return seen
+
+
+def flash_rows(torch, launches, fk, flash_ref):
+    """Time the flash kernel on each recorded launch of the counted prefill
+    (kernel, plain version, and SDPA on kv repeated, with the window as a
+    boolean mask), hold the kernel against the float64 plain version and
+    SDPA against the float32 plain version; one row per launch."""
+    F = torch.nn.functional
+    rows = []
+    for idx, ((q, k, v), kw) in enumerate(launches):
+        BH, S, d = q.shape
+        BKV = k.shape[0]
+        rep = BH // BKV
+        window = kw["window"]
+        kr = torch.repeat_interleave(k, rep, dim=0)[None]
+        vr = torch.repeat_interleave(v, rep, dim=0)[None]
+        if window:
+            pos = torch.arange(S, device=q.device)
+            dq = pos[:, None] - pos[None, :]
+            mask = (dq >= 0) & (dq < window)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q[None], kr, vr, attn_mask=mask)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q[None], kr, vr, is_causal=True)
+        fns = {"ms": lambda: fk.launch(q, k, v, **kw),
+               "plain_ms": lambda: flash_ref(q, k, v, **kw),
+               "library_ms": lib}
+        if idx == 0:                                   # warm-up, not timed
+            for fn in fns.values():
+                fn()
+        row = {"launch": f"layer{idx}", "window": window, "BH": BH,
+               "S": S, "d": d, "n_rep": rep}
+        outs = {}
+        for key, fn in fns.items():
+            outs[key], row[key] = event_ms(torch, fn)
+        want = flash_ref(q.double(), k.double(), v.double(), **kw)
+        vmax = float(v.abs().max())
+        row["max_abs_err"] = float((outs["ms"].double() - want).abs().max())
+        row["plain_err"] = float((outs["plain_ms"].double() - want).abs().max())
+        row["rel_err"] = row["max_abs_err"] / vmax
+        row["plain_rel_err"] = row["plain_err"] / vmax
+        lim = max(FLASH_F32_TOL * vmax, PLAIN_FACTOR * row["plain_err"])
+        if not row["max_abs_err"] <= lim:
+            fail(f"flash kernel at the path's shapes (layer {idx}): |err| "
+                 f"{row['max_abs_err']:.3g} > {lim:.3g} (the float32 plain "
+                 f"version's {row['plain_err']:.3g}, max|v| {vmax:.3g})")
+        lib_err = float((outs["library_ms"][0].double() - want).abs().max())
+        if not lib_err <= LIB_TOL * vmax:
+            fail(f"SDPA does not compute the flash kernel's function (layer "
+                 f"{idx}): |err| {lib_err:.3g}")
+        if not kw["causal"]:
+            fail(f"a non-causal flash launch on the serving path (layer {idx})")
+        pairs = flash_pairs(S, window)
+        row["ops"] = 4 * d * pairs * BH
+        row["bytes"] = 4 * (2 * BH * S * d + 2 * BKV * S * d)
+        rows.append(row)
+        del want, outs, kr, vr
+    return rows
+
+
+def ssd_rows(torch, launches, sk, ssd_ref):
+    """Time the SSD kernel on each recorded launch of the counted prefill
+    (kernel and plain version; no single PyTorch call computes the scan)
+    and hold y and the final state against the float64 recurrence; one
+    row per launch."""
+    rows = []
+    for idx, ((x, dt, A, B, C), kw) in enumerate(launches):
+        b, S, h, P = x.shape
+        g, N = B.shape[2], B.shape[3]
+        Q = kw["chunk"]
+        fns = {"ms": lambda: sk.launch(x, dt, A, B, C, **kw),
+               "plain_ms": lambda: ssd_ref(x, dt, A, B, C)}
+        if idx == 0:
+            for fn in fns.values():
+                fn()
+        row = {"launch": f"layer{idx}", "b": b, "S": S, "h": h, "P": P,
+               "N": N, "g": g, "chunk": Q}
+        outs = {}
+        for key, fn in fns.items():
+            outs[key], row[key] = event_ms(torch, fn)
+        y64, st64 = ssd_ref(x.double(), dt.double(), A.double(), B.double(),
+                            C.double())
+        y, st = outs["ms"]
+        ey, es = ssd_case_err(torch, y, y64), ssd_case_err(torch, st, st64)
+        py, ps = outs["plain_ms"]
+        row["plain_rel_err"] = max(ssd_case_err(torch, py, y64),
+                                   ssd_case_err(torch, ps, st64))
+        lim = max(SSD_RTOL, PLAIN_FACTOR * row["plain_rel_err"])
+        if not (ey <= lim and es <= lim):
+            fail(f"SSD kernel at the path's shapes (layer {idx}): y {ey:.3g},"
+                 f" state {es:.3g} of max (limit {lim:.3g}; the float32 "
+                 f"plain version's {row['plain_rel_err']:.3g})")
+        row["max_abs_err"] = float((y.double() - y64).abs().max())
+        row["rel_err"] = max(ey, es)
+        tri = Q * (Q + 1) // 2
+        n_chunks = -(-S // Q)
+        row["ops"] = b * h * n_chunks * (2 * tri * (N + P) + 4 * Q * P * N)
+        row["bytes"] = 4 * (2 * b * S * h * P + b * S * h + 2 * b * S * g * N
+                            + b * h * P * N + h)
+        rows.append(row)
+        del y64, st64, outs
+    return rows
+
+
+def kernel_entry(name, source, replaces, launches, rows, rand_err, library):
+    """One entry of the kernels JSON line: the sums over the rows (one a
+    launch of the counted run), the bound from their bytes and operations."""
+    t_bytes = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S
+    t_ops = sum(r["ops"] for r in rows) / FP32_OPS_PER_S
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max([rand_err] + [r["max_abs_err"] for r in rows]),
+        "ms": sum(r["ms"] for r in rows),
+        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": (sum(r["library_ms"] for r in rows) if library
+                       else None),
+        "per_launch": rows,
+    }
+
+
+def rel_max(torch, got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                  1e-30)
+
+
+def per_layer_kernels_vs_plain(torch, cfg, zoo, tf, params, prompts, layers):
+    """Check (b): each layer's update h_{l+1} - h_l with the kernels
+    ("auto") against the same layer's plain path ("ref") on the same input
+    (the kernels' run's h_l), within LAYER_RTOL of its max.  Returns the
+    worst relative error and the kernels' final hidden state."""
+    B, S = prompts.shape
+    pos = torch.arange(S, dtype=torch.int32, device=prompts.device).expand(B, S)
+    auto = tf.ModelContext(q_chunk=max(S, 64))
+    ref = tf.ModelContext(q_chunk=max(S, 64), kernels="ref")
+    h = zoo._embed_in(params, cfg, prompts, auto)
+    errs = []
+    for stage, sp in layers:
+        h_k = tf.apply_stage_seq(h, sp, stage, cfg, auto, pos)[0]
+        h_r = tf.apply_stage_seq(h, sp, stage, cfg, ref, pos)[0]
+        errs.append(rel_max(torch, h_k - h, h_r - h))
+        h = h_k
+    log("[check] (b) per layer: " + ", ".join(f"{e:.2g}" for e in errs))
+    for li, ((stage, _), err) in enumerate(zip(layers, errs)):
+        if not err <= LAYER_RTOL:
+            fail(f"layer {li} ({stage.kind}, window {stage.window}): the "
+                 f"kernels' update differs from the plain path's by {err:.3g}"
+                 f" of its max (limit {LAYER_RTOL})")
+    return max(errs), h
+
+
+def per_layer_decode_vs_forward(torch, cfg, zoo, tf, params, seq, n_prompt,
+                                layers):
+    """Check (c), layer by layer with teacher forcing: the no-cache forward
+    ("auto": both kernels, at the ragged length of ``seq``) gives each
+    layer's input H_l at every position.  For each layer, the prefill path
+    runs H_l over the prompt and builds the cache, then the decode path
+    runs the next positions one token at a time on H_l.  At positions
+    n_prompt-1 (the prefill's last) .. S-2 the layer's update must match
+    the forward's within LAYER_RTOL of its max, and the last layer's
+    outputs through the final norm and the logits must match the
+    forward's logits within LOGIT_RTOL.  Returns (worst layer error, logit
+    error, positions checked)."""
+    B, S = seq.shape
+    steps = S - n_prompt - 1             # decode at n_prompt .. S-2
+    lo, hi = n_prompt - 1, S - 1         # the positions checked
+    pos = torch.arange(S, dtype=torch.int32, device=seq.device).expand(B, S)
+    ctx = tf.ModelContext(q_chunk=max(S, 64))
+    h = zoo._embed_in(params, cfg, seq, ctx)
+    errs = []
+    for stage, sp in layers:
+        h_next = tf.apply_stage_seq(h, sp, stage, cfg, ctx, pos)[0]
+        clen = zoo._stage_cache_len(stage, S)
+        h_pre, cache, _ = tf.apply_stage_seq(
+            h[:, :n_prompt], sp, stage, cfg, ctx, pos[:, :n_prompt],
+            want_cache=True, cache_len=clen)
+        if stage.kind != "ssm":
+            cache["k_pos"] = tf.stage_kpos(B, n_prompt, clen, seq.device)
+        p = torch.full((B,), n_prompt, dtype=torch.int32, device=seq.device)
+        outs = [h_pre[:, -1:]]
+        for i in range(steps):
+            t = n_prompt + i
+            o, cache = tf.apply_stage_decode(h[:, t:t + 1], sp, stage, cfg,
+                                             ctx, p + i, cache)
+            outs.append(o)
+        dec = torch.cat(outs, dim=1)
+        base = h[:, lo:hi]
+        errs.append(rel_max(torch, dec - base, h_next[:, lo:hi] - base))
+        h, last = h_next, dec
+        del cache, h_pre, outs
+    log("[check] (c) per layer: " + ", ".join(f"{e:.2g}" for e in errs))
+    for li, ((stage, _), err) in enumerate(zip(layers, errs)):
+        if not err <= LAYER_RTOL:
+            fail(f"layer {li} ({stage.kind}, window {stage.window}): prefill "
+                 f"+ decode differ from the no-cache forward by {err:.3g} of "
+                 f"the update's max (limit {LAYER_RTOL})")
+    from repro_torch.models import embedding as emb
+    from repro_torch.models.layers import rms_norm
+
+    def logits(x):
+        return emb.logits_matmul(rms_norm(x, params["final_norm"],
+                                          cfg.norm_eps),
+                                 params["out_embed"])[..., :cfg.vocab]
+    lerr = rel_max(torch, logits(last), logits(h[:, lo:hi]))
+    if not lerr <= LOGIT_RTOL:
+        fail(f"decode logits differ from the no-cache forward's by {lerr:.3g}"
+             f" of the max (limit {LOGIT_RTOL})")
+    return max(errs), lerr, hi - lo
+
+
+def profile_kernels(torch, fn, name: str, top: int = 10):
+    """Where the device time of one call of ``fn`` goes, by device kernel
+    (torch.profiler; the ctypes-launched kernels appear under their own
+    names): the busy share of the wall time and the kernels with the most
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == cuda:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy = sum(us for _, us in by_name.values())
+    if busy <= 0:
+        log(f"[profile] {name}: the profiler saw no device time "
+            "(not measured)")
+        return
+    log(f"[profile] {name}: wall {wall_us / 1e3:.3f} ms (profiled), device "
+        f"busy {busy / 1e3:.3f} ms = {100 * busy / wall_us:.1f}%, "
+        f"{sum(n for n, _ in by_name.values())} kernels")
+    for kname, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
+        log(f"[profile] {name}:   {kname[:70]:70s} calls={n:5d} "
+            f"device={us / 1e3:9.3f} ms ({100 * us / busy:5.1f}%)")
+
+
+def serve_path(torch, np, args, dev, phases):
+    """Phase 7: Hymba-1.5B at full width (32 layers, d_model 1600, float32,
+    random weights from torch.Generator(seed) on the card) serves B=4
+    random prompts of 2048 tokens: prefill, then 63 greedy decode steps (64
+    generated tokens), through model_zoo.prefill / decode_step, the
+    functions serve_model.run calls.  Returns the two kernels' JSON
+    entries."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref_model
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import transformer as tf
+
+    log(f"[serve] torch.backends.cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32} (float32 products in full "
+        f"float32), float32_matmul_precision="
+        f"{torch.get_float32_matmul_precision()}")
+    flash_err = phases.run("flash-vs-plain", flash_random_cases, torch, np,
+                           dev, args.seed)
+    ssd_err = phases.run("ssd-vs-plain", ssd_random_cases, torch, np, dev,
+                         args.seed)
+    cfg = get_config(LM_ARCH)
+    params = phases.run("lm-init", lambda: zoo.init_params(
+        cfg, torch.Generator(dev).manual_seed(args.seed), dev))
+    torch.cuda.synchronize()
+    n_par = zoo.n_params(params)
+    stages = tf.build_stages(cfg)
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, hd {cfg.hd}, ssm "
+        f"{cfg.n_ssm_heads} heads x P={cfg.ssm.head_dim} x N="
+        f"{cfg.ssm.d_state}, vocab {cfg.vocab} (padded "
+        f"{cfg.padded_vocab(1)}); {n_par:,} parameters float32 "
+        f"({4 * n_par / 1e9:.2f} GB; param_counts()['total'] "
+        f"{cfg.param_counts()['total']:,} unpadded); stages "
+        + ", ".join(f"{s.kind}x{s.n_layers}(w={s.window})" for s in stages))
+    B, S, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    rng = np.random.RandomState(args.seed)
+    prompts = torch.from_numpy(
+        rng.randint(0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
+    ctx = tf.ModelContext(q_chunk=max(S, 64))
+    n_attn = sum(s.n_layers for s in stages if s.kind != "ssm")
+    n_ssm = sum(s.n_layers for s in stages if s.kind != "dense")
+
+    def serve():
+        with torch.no_grad():
+            logits, cache = zoo.prefill(params, cfg, ctx, prompts,
+                                        max_len=S + G)
+            step_logits, toks = [logits], [zoo.greedy(logits)]
+            for _ in range(G - 1):
+                logits, cache = zoo.decode_step(params, cfg, ctx, toks[-1],
+                                                cache)
+                step_logits.append(logits)
+                toks.append(zoo.greedy(logits))
+        return step_logits, torch.cat(toks, dim=1)
+
+    # one untimed warm run (the caching allocator's growth, cuBLAS set-up)
+    phases.run("serve-warm", serve)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.flash_attention_bhsd.launches = 0             # the path starts here
+    sk.ssd_chunk_scan.launches = 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(G + 1)]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ev[0].record()
+        logits, cache = zoo.prefill(params, cfg, ctx, prompts, max_len=S + G)
+        ev[1].record()
+        pre_launches = (fk.flash_attention_bhsd.launches,
+                        sk.ssd_chunk_scan.launches)
+        step_logits, toks = [logits], [zoo.greedy(logits)]
+        for i in range(G - 1):
+            logits, cache = zoo.decode_step(params, cfg, ctx, toks[-1], cache)
+            ev[i + 2].record()
+            step_logits.append(logits)
+            toks.append(zoo.greedy(logits))
+        gen_toks = torch.cat(toks, dim=1)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = (fk.flash_attention_bhsd.launches,     # ... and ends here
+                sk.ssd_chunk_scan.launches)
+    peak = torch.cuda.max_memory_allocated()
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    decode_ms = [ev[i + 1].elapsed_time(ev[i + 2]) for i in range(G - 1)]
+    log(f"[serve] {cfg.name}: batch={B} prompt={S} gen={G}: prefill "
+        f"{prefill_ms:.3f} ms device ({B * S / prefill_ms * 1e3:.0f} prompt "
+        f"tokens/s), decode {float(np.mean(decode_ms)):.3f} ms a step "
+        f"(median {float(np.median(decode_ms)):.3f}, {G - 1} steps), "
+        f"{host_s:.3f} s host for the request ({B * G / host_s:.1f} "
+        f"generated tokens/s); peak device memory {peak / 2**30:.2f} GiB")
+    log(f"[serve] launches in the counted run: prefill {pre_launches[0]} "
+        f"flash, {pre_launches[1]} SSD; decode {launches[0] - pre_launches[0]}"
+        f" flash, {launches[1] - pre_launches[1]} SSD")
+    # (d) the launch counters
+    if pre_launches != (n_attn, n_ssm) or launches != pre_launches:
+        fail(f"serve: launches (flash, SSD) {pre_launches} in the prefill, "
+             f"{launches} in all, expected ({n_attn}, {n_ssm}) and none in "
+             "decode: the path did not go through the kernels")
+    # (e) finite logits
+    for i, lg in enumerate(step_logits):
+        if not bool(torch.isfinite(lg).all()):
+            fail(f"serve: non-finite logits at step {i}")
+    pad = step_logits[0][:, cfg.vocab:]
+    if pad.numel() and not bool((pad == -2.0 ** 30).all()):
+        fail("serve: the padded vocabulary's logits are not -2^30")
+    log(f"[serve] sample generations (token ids): "
+        f"{gen_toks[0, :16].tolist()}")
+    phases.run("profile-prefill", profile_kernels, torch, lambda: zoo.prefill(
+        params, cfg, ctx, prompts, max_len=S + G), "prefill")
+    phases.run("profile-decode", profile_kernels, torch,
+               lambda: zoo.decode_step(params, cfg, ctx, toks[-1], cache),
+               "decode step")
+
+    # (a) both kernels at the path's shapes, on a replay's recorded inputs
+    seen = phases.run("serve-record", record_launches,
+                      {"flash": fk, "ssd": sk},
+                      lambda: zoo.prefill(params, cfg, ctx, prompts,
+                                          max_len=S + G))
+    f_rows = phases.run("flash-timing", flash_rows, torch, seen["flash"],
+                        fk, flash_attention_ref)
+    s_rows = phases.run("ssd-timing", ssd_rows, torch, seen["ssd"], sk,
+                        ssd_scan_ref_model)
+    del seen
+    if len(f_rows) != launches[0] or len(s_rows) != launches[1]:
+        fail(f"{len(f_rows)} flash / {len(s_rows)} SSD launches timed, "
+             f"{launches} in the counted prefill")
+    log(f"[check] (a) both kernels on the prefill's own inputs against the "
+        f"float64 plain version: flash max |err| / max|v| "
+        f"{max(r['rel_err'] for r in f_rows):.3g} (the float32 plain "
+        f"version's {max(r['plain_rel_err'] for r in f_rows):.3g}), SSD max "
+        f"rel {max(r['rel_err'] for r in s_rows):.3g} (plain "
+        f"{max(r['plain_rel_err'] for r in s_rows):.3g}); limits: the larger "
+        f"of {FLASH_F32_TOL} / {SSD_RTOL} and {PLAIN_FACTOR} x the plain "
+        "version's")
+    log("[check] (a) per layer, flash |err|/max|v| (plain): " + ", ".join(
+        f"{r['rel_err']:.2g} ({r['plain_rel_err']:.2g})" for r in f_rows))
+    log("[check] (a) per layer, SSD rel err (plain): " + ", ".join(
+        f"{r['rel_err']:.2g} ({r['plain_rel_err']:.2g})" for r in s_rows))
+
+    # (b) kernels against the plain path
+    layers = one_layer_stages(params, cfg)
+    with torch.no_grad():
+        worst_b, h_last = phases.run(
+            "kernels-vs-plain", per_layer_kernels_vs_plain, torch, cfg, zoo,
+            tf, params, prompts, layers)
+        ref_ctx = tf.ModelContext(q_chunk=max(S, 64), kernels="ref")
+        ref_logits, _ = zoo.prefill(params, cfg, ref_ctx, prompts,
+                                    max_len=S + G)
+    V = cfg.vocab
+    e2e = rel_max(torch, step_logits[0][:, :V], ref_logits[:, :V])
+    log(f"[check] (b) kernels vs plain, layer by layer on the same input: "
+        f"max |update error| {worst_b:.3g} of the update's max over "
+        f"{len(layers)} layers (limit {LAYER_RTOL}); last-token logits of "
+        f"the whole prefill, kernels vs plain: {e2e:.3g} of max|logit| (not "
+        "a gate: the random-weight 32-layer model amplifies float32 "
+        "rounding; see PERF.md)")
+    del ref_logits
+
+    # (c) decode against teacher forcing, layer by layer
+    seq = torch.cat([prompts, gen_toks], dim=1)             # (B, S + G)
+    with torch.no_grad():
+        worst_c, logit_c, steps = phases.run(
+            "decode-vs-forward", per_layer_decode_vs_forward, torch, cfg, zoo,
+            tf, params, seq, S, layers)
+        full, _ = zoo.forward_logits(params, cfg, ctx, seq)
+    served = torch.stack(step_logits, dim=1)[..., :V]        # (B, G, V)
+    e2e_c = rel_max(torch, served, full[:, S - 1:S - 1 + G, :V])
+    log(f"[check] (c) prefill + decode vs the no-cache forward over {S + G} "
+        f"tokens, layer by layer with teacher forcing at {steps} positions "
+        f"{S - 1}..{S + G - 2}"
+        f": max |update error| {worst_c:.3g} (limit {LAYER_RTOL}); logits "
+        f"through the last layer {logit_c:.3g} of max (limit {LOGIT_RTOL}); "
+        f"the served run's logits at positions {S - 1}..{S + G - 2} vs the "
+        f"forward's: {e2e_c:.3g} of max|logit| (not a gate, as in (b))")
+    del full, served
+
+    for name, rows in (("flash_attention", f_rows), ("ssd_scan", s_rows)):
+        lib = sum(r.get("library_ms", 0.0) for r in rows)
+        t_b = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S * 1e3
+        t_o = sum(r["ops"] for r in rows) / FP32_OPS_PER_S * 1e3
+        log(f"[kernel] {name}: {len(rows)} launches a prefill: kernel "
+            f"{sum(r['ms'] for r in rows):.3f} ms, plain "
+            f"{sum(r['plain_ms'] for r in rows):.3f} ms, library "
+            f"{(f'{lib:.3f} ms' if name == 'flash_attention' else 'none')}, "
+            f"bound {max(t_b, t_o):.3f} ms ({t_o:.3f} operations, "
+            f"{t_b:.3f} bytes)")
+    entries = [
+        kernel_entry("flash_attention_bhsd", FLASH_SOURCE, FLASH_REPLACES,
+                     launches[0], f_rows, flash_err, library=True),
+        kernel_entry("ssd_scan_bh", SSD_SOURCE, SSD_REPLACES, launches[1],
+                     s_rows, ssd_err, library=False),
+    ]
+    del params, cache, step_logits
+    torch.cuda.empty_cache()
+    return entries
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=4_000_000,
@@ -974,7 +1645,7 @@ def main():
     count = torch.cuda.device_count()
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}: "
         f"{kind} x{count}")
-    phases.run("build", build_kernel, kernel)
+    phases.run("build", build_kernels)
     rand_err = phases.run("kernel-vs-plain", random_cases, torch, np,
                           kernel, ref_fn, dev, args.seed)
     vec_err = phases.run("vec-kernel-vs-plain", random_vec_cases, torch, np,
@@ -1002,10 +1673,13 @@ def main():
     if timed_launches != vec_launches:
         fail(f"{timed_launches} vector launches timed, {vec_launches} in the "
              "counted GCN run")
+    del eng, pg, plans, kinds
+    torch.cuda.empty_cache()
+    serve_entries = serve_path(torch, np, args, dev, phases)
     import resource
     host_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
     log(f"[device] peak device memory of the GCN path "
-        f"{gcn_peak / 2**30:.2f} GiB, of the timing phases "
+        f"{gcn_peak / 2**30:.2f} GiB, of the later phases "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; peak host RSS "
         f"{host_gib:.2f} GiB; phases {json.dumps(phases.seconds)}")
     # every launch of the counted algorithm runs
@@ -1044,7 +1718,7 @@ def main():
         f"({vec_entry['plain_ms'] / E:.3f}), library "
         f"{vec_entry['library_ms']:.3f} ({vec_entry['library_ms'] / E:.3f}), "
         f"bound {vec_entry['bound_ms']:.3f} ({vec_entry['bound_ms'] / E:.3f})")
-    log(json.dumps({"kernels": [entry, vec_entry]}))
+    log(json.dumps({"kernels": [entry, vec_entry] + serve_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}),
           flush=True)

@@ -7,10 +7,11 @@ their wrappers.
 ``(R, eb, F)`` payloads to the other (``launch_vec``), as the TPU kernel
 dispatches on ``vals.ndim == 3``.  Both kernels are in
 ``repro_torch/csrc/segment_combine.cu`` (its comments say what each
-computes, what bounds it and how it is laid out).  The source is compiled
-with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
-interface at first use, never at import, into ``build/repro_torch/`` at the
-root of the checkout, and rebuilt when the source changes.
+computes, what bounds it and how it is laid out).  The source is built
+into one shared library with a plain C interface by ``kernels/_build.py``:
+``nvcc`` for ``sm_90a`` at first use, never at import, into
+``build/repro_torch/`` at the root of the checkout, rebuilt when the source
+changes.
 
 Dispatch: a CPU tensor goes to the plain version (``ref.py``); a CUDA tensor
 goes to a kernel or raises.  ``segment_combine_blocks.launches`` counts the
@@ -20,82 +21,43 @@ vector kernel's.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.segment_combine.ref import (
     segment_combine_blocks_ref)
 
-_SRC = Path(__file__).resolve().parents[2] / "csrc" / "segment_combine.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = _build.CSRC / "segment_combine.cu"
+LIB_NAME = "segment_combine"
 _OPS = {"sum": 0, "min": 1, "max": 2}
 _DTYPES = {torch.int32: 0, torch.float32: 1}
 MAX_NB = 1024            # one thread per output slot of a row
 
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
-    if (home / "bin" / "nvcc").exists():
-        return str(home / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the segment_combine kernel")
-
 
 def build_library() -> dict:
-    """Compile the kernel's source into a shared library unless a build of
-    this exact source and these flags exists.  Returns ``{"path",
-    "seconds", "built", "log"}`` (``log`` is nvcc's ``-Xptxas -v`` report
-    of registers and shared memory; empty when nothing was built)."""
-    digest = hashlib.sha256(_SRC.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = _BUILD_DIR / f"segment_combine-{digest}.so"
-    if path.exists():
-        return {"path": path, "seconds": 0.0, "built": False, "log": ""}
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {_SRC}:\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)     # atomic: a concurrent build never sees half
-    return {"path": path, "seconds": time.perf_counter() - t0,
-            "built": True, "log": proc.stdout + proc.stderr}
+    """Compile the kernels' source unless a build of it exists (see
+    ``kernels/_build.py``)."""
+    return _build.build_libraries([(SOURCE, LIB_NAME)])[0]
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    fn = lib.segment_combine_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.segment_combine_vec_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
 
 
 def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()["path"]))
-        fn = lib.segment_combine_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fn = lib.segment_combine_vec_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    return _build.load_library(SOURCE, LIB_NAME, _declare)
 
 
 def _check(vals: torch.Tensor, idx: torch.Tensor, op: str, nb: int,

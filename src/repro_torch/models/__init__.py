@@ -1,1 +1,3 @@
-"""Model helpers of the port: node embeddings and the softmax loss."""
+"""Models of the port: node embeddings and the softmax loss (GCN), and the
+LM stack (layers, the Mamba-2 mixer, the stage-structured transformer and
+the model zoo) for the dense, ssm and hybrid stage kinds."""

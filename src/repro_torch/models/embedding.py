@@ -1,12 +1,64 @@
-"""Graph-node embeddings and the softmax cross-entropy (the counterpart of
-the graph half of ``repro.models.embedding``; ``node_embedding_fetch``,
-which rides Ch_req, comes with that slice)."""
+"""Token and graph-node embeddings and the softmax cross-entropy: the port
+of ``repro.models.embedding`` on one device (``node_embedding_fetch``,
+which rides Ch_req, and ``embed_lookup_sharded`` come with the slices of
+Ch_req and the sharded executor).
+
+The three token lookup methods of the reference (``gather``, ``onehot``,
+``rr``: the paper's request-respond dedup) give the same values on one
+device.  ``rr`` dedups the ids and fetches each distinct row once with
+``index_select``; the reference's ``onehot(uniq) @ table`` is exact, so the
+two agree bit for bit, and the one-hot (tokens x vocab) is never built.
+"""
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
 import torch
+
+
+def dedup_ids(ids: torch.Tensor, capacity: int):
+    """Sort-based fixed-capacity dedup.  ids: (T,) int.  Returns (uniq
+    (capacity,), inv (T,), n_uniq) with ``uniq[inv] == ids``; unused uniq
+    slots hold 0.  capacity must be >= the number of distinct ids
+    (capacity = min(T, vocab) always is)."""
+    T = ids.shape[0]
+    s, order = torch.sort(ids, stable=True)
+    first = torch.ones(T, dtype=torch.bool, device=ids.device)
+    first[1:] = s[1:] != s[:-1]
+    rank = torch.cumsum(first, dim=0) - 1               # (T,) int64
+    uniq = torch.zeros(capacity, dtype=ids.dtype,
+                       device=ids.device).scatter_reduce(0, rank, s, "amax")
+    inv = torch.empty_like(rank)
+    inv[order] = rank
+    n_uniq = rank[-1] + 1 if T else torch.zeros((), dtype=rank.dtype)
+    return uniq, inv, n_uniq
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor, method: str = "rr",
+                 rr_capacity: int = 0) -> torch.Tensor:
+    """table: (V, D); ids: (...) int.  Returns (..., D)."""
+    shape = ids.shape
+    flat = ids.reshape(-1).long()
+    V, D = table.shape
+    if method == "gather":
+        out = table.index_select(0, flat)
+    elif method == "onehot":
+        oh = torch.nn.functional.one_hot(flat, V).to(table.dtype)
+        out = oh @ table
+    elif method == "rr":
+        cap = rr_capacity or min(flat.shape[0], V)
+        uniq, inv, _ = dedup_ids(flat, cap)
+        resp = table.index_select(0, uniq)       # response table (U, D)
+        out = resp.index_select(0, inv)          # back to the requesters
+    else:
+        raise ValueError(method)
+    return out.reshape(*shape, D)
+
+
+def logits_matmul(h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """h: (B, S, D) -> logits (B, S, V), float32."""
+    return torch.einsum("bsd,vd->bsv", h, table).float()
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,

@@ -1,0 +1,312 @@
+"""ArchConfig -> runnable model on one device: parameter shapes and
+initialisation, the weights carried across from the JAX package, the full
+forward, and the serving entry points (cache build, prefill, decode) --
+the port of ``repro.models.model_zoo`` for the stage kinds ``dense``,
+``ssm`` and ``hybrid``.
+
+Parameters are a nested dict of tensors in the JAX package's layout, every
+per-stage weight stacked on a leading layer axis:
+
+    params = {
+      'embed':      (V_pad, D),
+      'out_embed':  (V_pad, D),            # is 'embed' when tie_embeddings
+      'final_norm': (D,),
+      'stages':     [ {'layers': {...stacked...}}, ... ],
+    }
+
+so the reference's parameter tree maps one to one
+(``params_from_reference``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import embedding as emb
+from repro_torch.models.layers import rms_norm
+from repro_torch.models.transformer import (ModelContext, StageSpec,
+                                            apply_stage_decode,
+                                            apply_stage_seq, build_stages,
+                                            check_supported, stage_kpos)
+
+NEG_INF_F32 = -2.0 ** 30
+
+
+# ---------------------------------------------------------------------------
+# Parameter construction
+# ---------------------------------------------------------------------------
+
+def _attn_shapes(cfg: ArchConfig, L: int) -> Dict[str, tuple]:
+    D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {"wq": (L, D, H, hd), "wk": (L, D, K, hd),
+            "wv": (L, D, K, hd), "wo": (L, H, hd, D)}
+
+
+def _ssm_shapes(cfg: ArchConfig, L: int) -> Dict[str, tuple]:
+    D = cfg.d_model
+    di = cfg.d_inner
+    g, n = cfg.ssm.n_groups, cfg.ssm.d_state
+    h = cfg.n_ssm_heads
+    w = cfg.ssm.conv_width
+    return {"wz": (L, D, di), "wx": (L, D, di), "wB": (L, D, g * n),
+            "wC": (L, D, g * n), "wdt": (L, D, h),
+            "conv_x": (L, w, di), "conv_B": (L, w, g * n),
+            "conv_C": (L, w, g * n),
+            "A_log": (L, h), "D_skip": (L, h), "dt_bias": (L, h),
+            "norm": (L, di), "out_proj": (L, di, D)}
+
+
+def _mlp_shapes(cfg: ArchConfig, L: int) -> Dict[str, tuple]:
+    D, F = cfg.d_model, cfg.d_ff
+    return {"w_gate": (L, D, F), "w_up": (L, D, F), "w_down": (L, F, D)}
+
+
+def stage_param_shapes(cfg: ArchConfig, stage: StageSpec) -> Dict[str, Any]:
+    L, D = stage.n_layers, cfg.d_model
+    out: Dict[str, Any] = {"norm1": (L, D)}
+    if stage.kind == "ssm":
+        out["ssm"] = _ssm_shapes(cfg, L)
+        return out
+    out["norm2"] = (L, D)
+    out["attn"] = _attn_shapes(cfg, L)
+    if stage.kind == "hybrid":
+        out["ssm"] = _ssm_shapes(cfg, L)
+    out["mlp"] = _mlp_shapes(cfg, L)
+    return out
+
+
+def param_shapes(cfg: ArchConfig) -> Dict[str, Any]:
+    check_supported(cfg)
+    V = cfg.padded_vocab(1)
+    D = cfg.d_model
+    return {
+        "embed": (V, D),
+        "out_embed": (V, D),
+        "final_norm": (D,),
+        "stages": [{"layers": stage_param_shapes(cfg, s)}
+                   for s in build_stages(cfg)],
+    }
+
+
+def _leaves(tree, path=()):
+    """(path, leaf) pairs in the order of ``jax.tree_util``'s flatten:
+    dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _map(tree, fn, path=()):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(v, fn, path + (i,)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator, device="cuda",
+                dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """Random initialisation by the JAX package's recipe: zero norms
+    (RMSNorm scales by 1 + gamma), ``A_log = log(1..h)``, ``D_skip = 1``,
+    ``dt_bias = log(expm1(0.01))``, every other leaf ``normal /
+    sqrt(fan_in)``, and ``out_embed`` tied to ``embed`` when the config
+    ties them.  The normals are drawn from ``generator`` (on its own
+    device, leaf by leaf in the reference's flatten order), so they differ
+    from ``jax.random``'s for the same seed: to compare with the reference,
+    carry its weights across with ``params_from_reference``."""
+    device = torch.device(device)
+    D = cfg.d_model
+
+    def make(path, shape):
+        name = path[-1]
+        if name in ("norm1", "norm2", "norm_cross", "final_norm", "norm"):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        if name == "A_log":
+            row = torch.log(torch.arange(1, shape[-1] + 1,
+                                         dtype=torch.float32))
+            return row.expand(shape).contiguous().to(device)
+        if name == "D_skip":
+            return torch.ones(shape, dtype=torch.float32, device=device)
+        if name == "dt_bias":
+            return torch.full(shape, math.log(math.expm1(0.01)),
+                              dtype=torch.float32, device=device)
+        fan_in = shape[-2] if len(shape) >= 2 else D
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        w *= 1.0 / math.sqrt(max(fan_in, 1))
+        return w.to(device=device, dtype=dtype)
+
+    shapes = param_shapes(cfg)
+    leaves = {path: make(path, shape) for path, shape in _leaves(shapes)}
+    params = _map(shapes, lambda path, _: leaves[path])
+    if cfg.tie_embeddings:
+        params["out_embed"] = params["embed"]
+    return params
+
+
+def params_from_reference(tree: Dict[str, Any], cfg: ArchConfig,
+                          device="cuda") -> Dict[str, Any]:
+    """The port's parameters from the JAX package's, as numpy arrays
+    (``jax.tree.map(np.asarray, repro.models.model_zoo.init_params(...))``):
+    the same tree, each leaf the same values on ``device``."""
+    shapes = param_shapes(cfg)
+
+    def take(path, shape):
+        leaf = tree
+        for k in path:
+            leaf = leaf[k]
+        arr = np.asarray(leaf)
+        if arr.shape != tuple(shape):
+            raise ValueError(f"reference leaf {path} has shape {arr.shape}, "
+                             f"expected {tuple(shape)}")
+        return torch.from_numpy(np.array(arr)).to(device)
+
+    params = _map(shapes, take)
+    if cfg.tie_embeddings:
+        params["out_embed"] = params["embed"]
+    return params
+
+
+def n_params(params: Dict[str, Any]) -> int:
+    """Distinct parameters (a tied ``out_embed`` counted once)."""
+    seen = {}
+    for _, t in _leaves(params):
+        seen[id(t)] = t.numel()
+    return sum(seen.values())
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+def _embed_in(params, cfg: ArchConfig, ids, ctx: ModelContext):
+    h = emb.embed_lookup(params["embed"], ids, method="rr")
+    if cfg.tie_embeddings:
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
+    return h
+
+
+def _mask_pad_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The padded vocabulary's columns set to -2^30."""
+    V = logits.shape[-1]
+    if V == vocab:
+        return logits
+    iota = torch.arange(V, device=logits.device)
+    return torch.where(iota < vocab, logits, NEG_INF_F32)
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+
+
+def forward_logits(params, cfg: ArchConfig, ctx: ModelContext,
+                   tokens: torch.Tensor):
+    """tokens: (B, S) -> (logits (B, S, V_pad) float32, aux loss)."""
+    B, S = tokens.shape
+    pos = _positions(B, S, tokens.device)
+    h = _embed_in(params, cfg, tokens, ctx)
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for sp, stage in zip(params["stages"], build_stages(cfg)):
+        h, _, aux = apply_stage_seq(h, sp, stage, cfg, ctx, pos)
+        aux_total = aux_total + aux
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = emb.logits_matmul(h, params["out_embed"])
+    return _mask_pad_vocab(logits, cfg.vocab), aux_total
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache build, prefill, decode
+# ---------------------------------------------------------------------------
+
+def _stage_cache_len(stage: StageSpec, seq_len: int) -> int:
+    return min(stage.window, seq_len) if stage.window else seq_len
+
+
+def build_cache(cfg: ArchConfig, B: int, seq_len: int, ctx: ModelContext,
+                dtype: torch.dtype = torch.bfloat16, device="cuda"):
+    """An empty cache for decode at context ``seq_len`` (zeros; the JAX
+    package's layout)."""
+    check_supported(cfg)
+    K, hd = cfg.n_kv_heads, cfg.hd
+
+    def mk(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=device)
+    caches = []
+    for stage in build_stages(cfg):
+        L = stage.n_layers
+        c: Dict[str, Any] = {}
+        clen = _stage_cache_len(stage, seq_len)
+        if stage.kind in ("dense", "hybrid"):
+            c["k"] = mk((L, B, clen, K, hd), dtype)
+            c["v"] = mk((L, B, clen, K, hd), dtype)
+            c["k_pos"] = mk((B, clen), torch.int32)
+        if stage.kind in ("ssm", "hybrid"):
+            di, gn = cfg.d_inner, cfg.ssm.n_groups * cfg.ssm.d_state
+            w = cfg.ssm.conv_width
+            c["conv"] = (mk((L, B, w - 1, di), dtype),
+                         mk((L, B, w - 1, gn), dtype),
+                         mk((L, B, w - 1, gn), dtype))
+            c["state"] = mk((L, B, cfg.n_ssm_heads, cfg.ssm.head_dim,
+                             cfg.ssm.d_state), torch.float32)
+        caches.append(c)
+    return {"stages": caches, "pos": mk((B,), torch.int32)}
+
+
+def prefill(params, cfg: ArchConfig, ctx: ModelContext, tokens: torch.Tensor,
+            max_len: int = 0):
+    """tokens: (B, S). Returns (last-token logits (B, V_pad), cache).
+
+    ``max_len`` sets the global-attention cache capacity (>= S + the
+    decode steps to come); window stages always hold ``window`` slots."""
+    B, S = tokens.shape
+    max_len = max(max_len, S)
+    pos = _positions(B, S, tokens.device)
+    h = _embed_in(params, cfg, tokens, ctx)
+    caches = []
+    for sp, stage in zip(params["stages"], build_stages(cfg)):
+        clen = _stage_cache_len(stage, max_len)
+        h, cache, _ = apply_stage_seq(h, sp, stage, cfg, ctx, pos,
+                                      want_cache=True, cache_len=clen)
+        if stage.kind != "ssm":
+            cache["k_pos"] = stage_kpos(B, S, clen, tokens.device)
+        caches.append(cache)
+    h = rms_norm(h[:, -1:], params["final_norm"], cfg.norm_eps)
+    logits = emb.logits_matmul(h, params["out_embed"])[:, 0]
+    out = {"stages": caches,
+           "pos": torch.full((B,), S, dtype=torch.int32,
+                             device=tokens.device)}
+    return _mask_pad_vocab(logits, cfg.vocab), out
+
+
+def decode_step(params, cfg: ArchConfig, ctx: ModelContext,
+                token: torch.Tensor, cache: Dict[str, Any]):
+    """token: (B, 1) int; cache from prefill/build_cache.  Returns (logits
+    (B, V_pad), new cache).  The K/V ring buffers are written in place
+    (see ``apply_stage_decode``)."""
+    pos = cache["pos"]
+    h = _embed_in(params, cfg, token, ctx)
+    new_stages = []
+    for sp, stage, sc in zip(params["stages"], build_stages(cfg),
+                             cache["stages"]):
+        h, nc = apply_stage_decode(h, sp, stage, cfg, ctx, pos, sc)
+        new_stages.append(nc)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = emb.logits_matmul(h, params["out_embed"])[:, 0]
+    return (_mask_pad_vocab(logits, cfg.vocab),
+            {"stages": new_stages, "pos": pos + 1})
+
+
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    """(B, V) logits -> (B, 1) int32 tokens (first maximum on ties, as
+    ``jnp.argmax``)."""
+    return torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+

@@ -1,0 +1,258 @@
+"""Stage-structured transformer backbone -- the port of
+``repro.models.transformer`` for the stage kinds ``dense``, ``ssm`` and
+``hybrid`` on one device.
+
+A model is a list of **stages**; each stage is a stack of homogeneous
+layers whose parameters are stacked on a leading axis, exactly as the JAX
+package lays them out, and applied in a Python loop over that axis.
+Heterogeneous layer patterns (hymba's sparse global layers) become several
+stages; caches are per stage, so sliding-window stages hold only
+``window`` KV slots, written as a ring buffer (slot = position % window).
+
+Modes:
+  forward -- full causal forward, logits at every position
+  prefill -- the same forward, also emits the KV/SSM caches
+  decode  -- one token against the caches (ring-buffer windows, SSM state)
+
+The stage kinds ``moe``, ``enc`` and ``dec_cross`` come with a later slice
+of the port and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import (KERNEL_MODES, NEG_INF, AttnSpec,
+                                       apply_rope, attn_block, rms_norm,
+                                       swiglu)
+from repro_torch.models.ssm import mamba_block
+
+SUPPORTED_KINDS = ("dense", "ssm", "hybrid")
+
+
+@dataclasses.dataclass(frozen=True)
+class StageSpec:
+    kind: str        # 'dense' | 'moe' | 'ssm' | 'hybrid' | 'enc' | 'dec_cross'
+    n_layers: int
+    window: int = 0  # 0 = global attention
+
+
+def build_stages(cfg: ArchConfig) -> List[StageSpec]:
+    if cfg.family == "ssm":
+        return [StageSpec("ssm", cfg.n_layers)]
+    if cfg.is_moe:
+        return [StageSpec("moe", cfg.n_layers)]
+    kind = "hybrid" if cfg.family == "hybrid" else "dense"
+    if cfg.enc_dec:
+        kind = "dec_cross"
+    if not cfg.sliding_window:
+        return [StageSpec(kind, cfg.n_layers)]
+    stages, run_w, run_n = [], None, 0
+    for i in range(1, cfg.n_layers + 1):
+        w = 0 if (cfg.global_every and i % cfg.global_every == 0) \
+            else cfg.sliding_window
+        if w == run_w:
+            run_n += 1
+        else:
+            if run_n:
+                stages.append(StageSpec(kind, run_n, run_w))
+            run_w, run_n = w, 1
+    stages.append(StageSpec(kind, run_n, run_w))
+    return stages
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise for a configuration whose stage kinds the port does not run
+    yet."""
+    for stage in build_stages(cfg):
+        if stage.kind not in SUPPORTED_KINDS:
+            raise NotImplementedError(
+                f"{cfg.name}: stage kind {stage.kind!r} (MoE, encoder, "
+                "cross-attention) comes with a later slice of the port; "
+                f"this one runs {SUPPORTED_KINDS}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelContext:
+    """Implementation knobs on one device: the plain path's query-chunking
+    threshold (the reference's) and the kernel mode."""
+    q_chunk: int = 1024
+    kernels: str = "auto"          # "auto" | "kernel" | "ref" (layers.py)
+
+    def __post_init__(self):
+        if self.kernels not in KERNEL_MODES:
+            raise ValueError(f"unknown kernel mode {self.kernels!r}; use "
+                             f"one of {KERNEL_MODES}")
+
+
+def _attn_spec(cfg: ArchConfig, window: int, ctx: ModelContext) -> AttnSpec:
+    return AttnSpec(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                    head_dim=cfg.hd, rope_theta=cfg.rope_theta, causal=True,
+                    window=window, q_chunk=ctx.q_chunk, kernels=ctx.kernels)
+
+
+def _layer(sp: dict, i: int) -> dict:
+    """Layer ``i``'s weights out of a stage's stacked ones (views)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in sp.items()}
+
+
+def _stack(per_layer: List[dict]) -> dict:
+    out = {}
+    for k, v in per_layer[0].items():
+        if isinstance(v, tuple):
+            out[k] = tuple(torch.stack([c[k][j] for c in per_layer])
+                           for j in range(len(v)))
+        else:
+            out[k] = torch.stack([c[k] for c in per_layer])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# full-sequence stage application (forward / prefill)
+# ---------------------------------------------------------------------------
+
+def apply_stage_seq(h, sp, stage: StageSpec, cfg: ArchConfig,
+                    ctx: ModelContext, positions, want_cache=False,
+                    cache_len=0):
+    """Run one stacked stage over the full sequence.
+    Returns (h, stacked layer caches: dict, aux loss: scalar)."""
+    check_supported(cfg)
+    spec = _attn_spec(cfg, stage.window, ctx)
+    per_layer = []
+    for i in range(stage.n_layers):
+        w = _layer(sp["layers"], i)
+        cache = {}
+        xn = rms_norm(h, w["norm1"], cfg.norm_eps)
+        if stage.kind == "ssm":
+            y, (cst, sst) = mamba_block(xn, w["ssm"], cfg.ssm, cfg.d_model,
+                                        kernels=ctx.kernels)
+            h = h + y
+            if want_cache:
+                cache = {"conv": cst, "state": sst}
+        else:
+            a = attn_block(xn, w["attn"], spec, positions,
+                           return_kv=want_cache)
+            if want_cache:
+                a, (kf, vf) = a
+            if stage.kind == "hybrid":
+                m, (cst, sst) = mamba_block(xn, w["ssm"], cfg.ssm,
+                                            cfg.d_model, kernels=ctx.kernels)
+                h = h + a + m
+            else:
+                h = h + a
+            h = h + swiglu(rms_norm(h, w["norm2"], cfg.norm_eps), w["mlp"])
+            if want_cache:
+                kc, vc = _tail_cache(kf, vf, cache_len)
+                cache = {"k": kc, "v": vc}
+                if stage.kind == "hybrid":
+                    cache.update(conv=cst, state=sst)
+        per_layer.append(cache)
+    caches = _stack(per_layer) if want_cache else {}
+    return h, caches, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def _tail_cache(k, v, cache_len: int):
+    """Keep the last ``cache_len`` positions of already-computed rotated K/V
+    in ring-buffer layout (slot = pos % cache_len)."""
+    S = k.shape[1]
+    if cache_len >= S:
+        pad = (0, 0, 0, 0, 0, cache_len - S)
+        return (torch.nn.functional.pad(k, pad),
+                torch.nn.functional.pad(v, pad))
+    tail_k, tail_v = k[:, -cache_len:], v[:, -cache_len:]
+    shift = S % cache_len
+    return (torch.roll(tail_k, shift, dims=1),
+            torch.roll(tail_v, shift, dims=1))
+
+
+def stage_kpos(B: int, S: int, clen: int, device=None) -> torch.Tensor:
+    """Positions held by each ring-buffer slot after prefilling S tokens
+    (-1: empty)."""
+    slots = torch.arange(clen, dtype=torch.int32, device=device)
+    if clen >= S:
+        p = torch.where(slots < S, slots, -1)
+    else:
+        # largest p < S with p % clen == slot
+        last = S - 1 - (S - 1 - slots) % clen
+        p = torch.where(last >= S, last - clen, last)
+    return p.expand(B, clen).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# single-token decode stage application
+# ---------------------------------------------------------------------------
+
+def apply_stage_decode(h, sp, stage: StageSpec, cfg: ArchConfig,
+                       ctx: ModelContext, pos, cache):
+    """h: (B, 1, D); pos: (B,) int; cache: a stage cache {layer leaves...,
+    'k_pos'?}.  Returns (h, new_cache).  The K/V ring buffers of ``cache``
+    are written in place (one slot a layer) and shared with the new
+    cache; every other leaf is new."""
+    check_supported(cfg)
+    spec = _attn_spec(cfg, stage.window, ctx)
+    B = h.shape[0]
+    bidx = torch.arange(B, device=h.device)
+    k_pos = cache.get("k_pos")
+    new_k_pos = None
+    if k_pos is not None:
+        clen = k_pos.shape[1]
+        slot = (pos % clen).long()
+        new_k_pos = k_pos.clone()
+        new_k_pos[bidx, slot] = pos.to(k_pos.dtype)
+        valid = (new_k_pos >= 0) & (new_k_pos <= pos[:, None])
+        if spec.window:
+            valid &= new_k_pos > (pos[:, None] - spec.window)
+    n_rep = spec.n_heads // max(spec.n_kv_heads, 1)
+
+    def attend_cached(xn, w, kc, vc):
+        q = torch.einsum("bsd,dhk->bshk", xn, w["wq"])
+        q = apply_rope(q, pos[:, None], spec.rope_theta)
+        k_new = apply_rope(torch.einsum("bsd,dhk->bshk", xn, w["wk"]),
+                           pos[:, None], spec.rope_theta)
+        v_new = torch.einsum("bsd,dhk->bshk", xn, w["wv"])
+        kc[bidx, slot] = k_new[:, 0].to(kc.dtype)
+        vc[bidx, slot] = v_new[:, 0].to(vc.dtype)
+        kf = torch.repeat_interleave(kc, n_rep, dim=2) if n_rep > 1 else kc
+        vf = torch.repeat_interleave(vc, n_rep, dim=2) if n_rep > 1 else vc
+        scores = (torch.einsum("bqhd,bkhd->bhqk", q, kf).float()
+                  * spec.head_dim ** -0.5)
+        scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+        p = torch.softmax(scores, dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", p.to(vf.dtype), vf).to(xn.dtype)
+        return torch.einsum("bshk,hkd->bsd", o, w["wo"])
+
+    per_layer = []
+    for i in range(stage.n_layers):
+        w = _layer(sp["layers"], i)
+        lc = {k: (tuple(c[i] for c in v) if isinstance(v, tuple) else v[i])
+              for k, v in cache.items() if k != "k_pos"}
+        xn = rms_norm(h, w["norm1"], cfg.norm_eps)
+        if stage.kind == "ssm":
+            y, (cst, sst) = mamba_block(xn, w["ssm"], cfg.ssm, cfg.d_model,
+                                        conv_state=lc["conv"],
+                                        ssm_state=lc["state"], decode=True)
+            h = h + y
+            per_layer.append({"conv": cst, "state": sst})
+            continue
+        a = attend_cached(xn, w["attn"], lc["k"], lc["v"])
+        if stage.kind == "hybrid":
+            m, (cst, sst) = mamba_block(xn, w["ssm"], cfg.ssm, cfg.d_model,
+                                        conv_state=lc["conv"],
+                                        ssm_state=lc["state"], decode=True)
+            h = h + a + m
+        else:
+            h = h + a
+        h = h + swiglu(rms_norm(h, w["norm2"], cfg.norm_eps), w["mlp"])
+        nc = {}
+        if stage.kind == "hybrid":
+            nc.update(conv=cst, state=sst)
+        per_layer.append(nc)
+    out = _stack(per_layer) if per_layer[0] else {}
+    if new_k_pos is not None:
+        out["k"], out["v"] = cache["k"], cache["v"]   # written in place
+        out["k_pos"] = new_k_pos
+    return h, out

@@ -1,7 +1,9 @@
 """The port on the card: the CUDA segment_combine kernels (scalar and
-vector) against their plain PyTorch version, and the main paths on a small
-graph (the algorithms, GCN training) with the kernels against the dense
-backend.
+vector), the flash attention kernel and the SSD chunk scan kernel against
+their plain PyTorch versions, and the main paths at a small size (the
+algorithms and GCN training with the kernels against the dense backend, a
+hybrid model's prefill and decode with the kernels against the plain
+path).
 
 Every test here carries the ``cuda`` marker and skips without a GPU.  The
 file imports no JAX, so it runs on a machine with a card and PyTorch only:
@@ -226,3 +228,149 @@ def test_kernel_mode_ref_sends_cuda_tensors_to_the_plain_version(cuda):
     np.testing.assert_array_equal(
         out.cpu().numpy(),
         segment_combine_blocks_ref(vals, idx, "max", 128).numpy())
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the SSD chunk scan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S", [64, 100, 257])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("n_rep", [1, 5])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 16),
+                                           (False, 0), (False, 16)])
+def test_flash_kernel_matches_plain(cuda, S, d, n_rep, causal, window):
+    """float32 within 1e-5 of max|v| of the float64 plain version (the
+    kernel sums in another order)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rng = np.random.RandomState(S + d + n_rep)
+    q = torch.from_numpy(rng.randn(2 * n_rep, S, d).astype(np.float32))
+    k = torch.from_numpy(rng.randn(2, S, d).astype(np.float32))
+    v = torch.from_numpy(rng.randn(2, S, d).astype(np.float32))
+    before = fk.flash_attention_bhsd.launches
+    got = fk.flash_attention_bhsd(q.to(cuda), k.to(cuda), v.to(cuda),
+                                  causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fk.flash_attention_bhsd.launches == before + 1
+    want = flash_attention_ref(q.double(), k.double(), v.double(),
+                               causal=causal, window=window)
+    assert float((got.cpu().double() - want).abs().max()) <= (
+        1e-5 * float(v.abs().max()))
+
+
+def test_flash_kernel_bf16(cuda):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    gen = torch.Generator(cuda).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(
+        torch.bfloat16) for shape in [(10, 300, 64), (2, 300, 64),
+                                      (2, 300, 64)])
+    got = fk.flash_attention_bhsd(q, k, v, causal=True, window=64)
+    want = flash_attention_ref(q.float(), k.float(), v.float(), causal=True,
+                               window=64)
+    assert got.dtype == torch.bfloat16
+    assert float((got.float() - want).abs().max()) < 2e-2
+
+
+@pytest.mark.parametrize("S", [128, 200, 300])
+@pytest.mark.parametrize("P,N", [(64, 16), (64, 128), (16, 8), (128, 128)])
+@pytest.mark.parametrize("g,init", [(1, False), (2, True)])
+def test_ssd_kernel_matches_plain(cuda, S, P, N, g, init):
+    """y and the final state within 1e-4 of their max of the float64
+    recurrence, chunk-multiple and ragged S, with groups and an initial
+    state."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref_model
+    rng = np.random.RandomState(S + P + N)
+    b, h = 2, 4
+    x = rng.randn(b, S, h, P).astype(np.float32)
+    dt = np.log1p(np.exp(rng.randn(b, S, h) - 1.0)).astype(np.float32)
+    A = (-np.exp(0.5 * rng.randn(h))).astype(np.float32)
+    B = rng.randn(b, S, g, N).astype(np.float32)
+    C = rng.randn(b, S, g, N).astype(np.float32)
+    s0 = rng.randn(b, h, P, N).astype(np.float32) if init else None
+    args = [torch.from_numpy(a) for a in (x, dt, A, B, C)]
+    init_t = None if s0 is None else torch.from_numpy(s0)
+    before = sk.ssd_chunk_scan.launches
+    y, st = sk.ssd_chunk_scan(*[a.to(cuda) for a in args], chunk=128,
+                              init_state=None if init_t is None
+                              else init_t.to(cuda))
+    torch.cuda.synchronize()
+    assert sk.ssd_chunk_scan.launches == before + 1
+    y64, st64 = ssd_scan_ref_model(*[a.double() for a in args],
+                                   None if init_t is None
+                                   else init_t.double())
+    for got, want in ((y, y64), (st, st64)):
+        err = float((got.cpu().double() - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max())
+
+
+def test_lm_kernels_reject_what_they_do_not_take(cuda):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    q = torch.randn(4, 64, 64, device=cuda)
+    k = torch.randn(2, 64, 64, device=cuda)
+    with pytest.raises(TypeError):
+        fk.launch(q.half(), k.half(), k.half())
+    with pytest.raises(TypeError):
+        fk.launch(q.double(), k.double(), k.double())
+    with pytest.raises(ValueError, match="head dim"):
+        fk.launch(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                  k[..., :48].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        fk.launch(q.cpu(), k.cpu(), k.cpu())
+    with pytest.raises(ValueError, match="Sq <= Sk"):
+        fk.launch(q, k[:, :32].contiguous(), k[:, :32].contiguous())
+    with pytest.raises(ValueError, match="multiple"):
+        fk.launch(q[:3].contiguous(), k, k)
+    x = torch.randn(1, 16, 4, 64, device=cuda)
+    dt = torch.rand(1, 16, 4, device=cuda)
+    A = -torch.rand(4, device=cuda)
+    B = torch.randn(1, 16, 1, 16, device=cuda)
+    with pytest.raises(TypeError):
+        sk.launch(x.double(), dt, A, B, B, chunk=128)
+    with pytest.raises(ValueError, match="CUDA"):
+        sk.launch(x.cpu(), dt, A, B, B, chunk=128)
+    with pytest.raises(ValueError, match="state dim"):
+        big = torch.randn(1, 16, 1, 256, device=cuda)
+        sk.launch(x, dt, A, big, big, chunk=128)
+    with pytest.raises(ValueError, match="chunk"):
+        sk.launch(x, dt, A, B, B, chunk=256)
+
+
+def test_hybrid_model_kernels_against_plain(cuda):
+    """A small hybrid model (window, global and window layers; a prompt
+    longer than the window and not a multiple of the chunk) on the card:
+    prefill through both kernels (one launch each a layer) against the
+    plain path, then four decode steps against the plain path's, each
+    within 1e-4 of max|logit|."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.transformer import ModelContext
+    cfg = dataclasses.replace(get_config("hymba_1_5b").reduced(), n_layers=4,
+                              global_every=3, vocab=250, head_dim=64)
+    params = zoo.init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (2, 41)).astype(np.int32)).to(cuda)
+    out, fed = {}, []
+    for mode in ("ref", "auto"):          # both decode the plain path's tokens
+        ctx = ModelContext(q_chunk=64, kernels=mode)
+        before = (fk.flash_attention_bhsd.launches,
+                  sk.ssd_chunk_scan.launches)
+        logits, cache = zoo.prefill(params, cfg, ctx, toks, max_len=45)
+        launches = (fk.flash_attention_bhsd.launches - before[0],
+                    sk.ssd_chunk_scan.launches - before[1])
+        assert launches == ((4, 4) if mode == "auto" else (0, 0))
+        steps = [logits]
+        for i in range(4):
+            if mode == "ref":
+                fed.append(zoo.greedy(logits))
+            logits, cache = zoo.decode_step(params, cfg, ctx, fed[i], cache)
+            steps.append(logits)
+        out[mode] = torch.stack(steps)[..., :cfg.vocab]
+    scale = float(out["ref"].abs().max())
+    assert float((out["auto"] - out["ref"]).abs().max()) <= 1e-4 * scale

@@ -15,7 +15,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import api as tapi  # noqa: E402
 from repro_torch.graph import generators as tgen  # noqa: E402
 from repro_torch.graph import structs as tstructs  # noqa: E402
-from repro_torch.launch import graph_run  # noqa: E402
+from repro_torch.launch import graph_run, serve_model  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -110,6 +110,18 @@ def test_gcn_entry_point_defaults_to_cuda_and_raises_without_it(no_cuda):
     res = tapi.Engine(backend="pallas", layout="csr", device="cpu").run(
         "gcn", g, M=2, epochs=1, feat_dim=4, hidden=8, n_classes=2)
     assert res.state["emb"].device.type == "cpu"
+
+
+def test_serve_model_defaults_to_cuda_and_raises_without_it(no_cuda, capsys):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        serve_model.run("hymba_1_5b", True, 2, 8, 2)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        serve_model.main(["--arch", "hymba_1_5b", "--batch", "2",
+                          "--prompt-len", "8", "--gen", "2"])
+    serve_model.main(["--arch", "hymba_1_5b", "--batch", "2",
+                      "--prompt-len", "8", "--gen", "2", "--device", "cpu"])
+    assert "[serve] hymba_1_5b: batch=2 prompt=8 gen=2" in (
+        capsys.readouterr().out)
 
 
 def _run_chip_smoke(cwd: Path):

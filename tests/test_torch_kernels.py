@@ -162,3 +162,55 @@ def test_kernel_mode_kernel_raises_on_cpu_tensors():
         tplan.set_kernel_mode("auto")
     with pytest.raises(ValueError, match="kernel mode"):
         tplan.set_kernel_mode("pallas")
+
+
+def _fake_nvcc(tmp_path):
+    """A stand-in for nvcc (the tests run without the CUDA toolkit): writes
+    the -o file and a ptxas-like line, and logs each call."""
+    script = tmp_path / "nvcc"
+    script.write_text(
+        "#!/bin/sh\n"
+        f"echo \"$@\" >> {tmp_path / 'calls.log'}\n"
+        "while [ $# -gt 0 ]; do\n"
+        "  if [ \"$1\" = -o ]; then shift; echo lib > \"$1\"; fi\n"
+        "  shift\n"
+        "done\n"
+        "echo 'ptxas info    : Used 40 registers'\n")
+    script.chmod(0o755)
+    return str(script)
+
+
+def test_build_helper_builds_each_source_once_and_again_when_it_changes(
+        monkeypatch, tmp_path):
+    """One nvcc a source, started together; an unchanged source is reused
+    and a changed one rebuilt under a new name; the flags are the one set
+    shared by every kernel."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "nvcc", lambda: _fake_nvcc(tmp_path))
+    a, b = tmp_path / "a.cu", tmp_path / "b.cu"
+    a.write_text("// a\n")
+    b.write_text("// b\n")
+    first = _build.build_libraries([(a, "liba"), (b, "libb")])
+    assert [i["built"] for i in first] == [True, True]
+    assert all(i["path"].exists() for i in first)
+    assert "registers" in first[0]["log"]
+    calls = (tmp_path / "calls.log").read_text().splitlines()
+    assert len(calls) == 2
+    assert all(" ".join(_build.NVCC_FLAGS) in c for c in calls)
+    again = _build.build_libraries([(a, "liba"), (b, "libb")])
+    assert [i["built"] for i in again] == [False, False]
+    a.write_text("// a, changed\n")
+    changed = _build.build_libraries([(a, "liba"), (b, "libb")])
+    assert [i["built"] for i in changed] == [True, False]
+    assert changed[0]["path"] != first[0]["path"]
+    assert len((tmp_path / "calls.log").read_text().splitlines()) == 3
+
+
+def test_every_kernel_builds_through_the_one_helper():
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    sources = {m.SOURCE for m in (tkernel, fk, sk)}
+    assert sources == set(_build.CSRC.glob("*.cu"))
+    assert len({m.LIB_NAME for m in (tkernel, fk, sk)}) == 3
