@@ -10,9 +10,11 @@ Phases; any failure exits non-zero and prints no result:
    (segment_combine, flash_attention, ssd_scan: one nvcc each, started
    together), printing each ``-Xptxas -v`` report.
 2. kernels vs plain: random cases (sum/min/max x int32/float32 x several
-   (eb, nb), for the vector kernel x F in {1, 3, 32, 64, 130}; -1 padding,
-   values at the int32 bounds and +-inf) against the plain PyTorch version
-   on the same inputs.  Integers and min/max must be bitwise equal; a
+   (eb, nb), eb=0 and eb=2048 with nb=1024 among them, for the vector
+   kernel x F in {1, 3, 32, 64, 130}; -1 padding, indices nb and beyond, a
+   row with every lane on one slot and an all-padding row, values at the
+   int32 bounds and +-inf) against the plain PyTorch version on the same
+   inputs.  Integers and min/max must be bitwise equal; a
    float32 sum may differ by the summation order, at most 2*eb*2^-24 times
    the slot's sum of |values| (twice the textbook bound on a recursive sum
    of eb terms).  F=1 through the vector kernel must equal the scalar
@@ -54,7 +56,7 @@ Phases; any failure exits non-zero and prints no result:
    (bytes over 3.35 TB/s), each timed on every launch of its counted run
    (the scalar kernel in a replay of the algorithm runs, the vector kernel
    on the recorded join inputs), so that its times and launches cover the
-   same runs.
+   same runs; each line and entry adds kernel/library and bound/kernel.
 7. serve Hymba-1.5B at full width (32 layers, d_model 1600, 25/5 heads,
    window 1024 with layers 16 and 32 global, a Mamba-2 mixer beside the
    attention in every layer; 1.64B parameters in float32 from
@@ -230,6 +232,18 @@ def compare(torch, got, want, vals, idx, op, nb, ref_fn):
     return err
 
 
+def random_idx(np, rng, R, eb, nb):
+    """Random block-local indices in [-1, nb + 3), so padding, nb and
+    beyond appear; row 0 (if R > 1) has all its lanes on one slot, row 1
+    (if R > 2) is all padding."""
+    idx = rng.randint(-1, nb + 3, (R, eb)).astype(np.int32)
+    if R > 1:
+        idx[0] = rng.randint(0, nb)
+    if R > 2:
+        idx[1] = -1
+    return idx
+
+
 def random_cases(torch, np, kernel, ref_fn, dev, seed):
     rng = np.random.RandomState(seed)
     info = np.iinfo(np.int32)
@@ -238,9 +252,9 @@ def random_cases(torch, np, kernel, ref_fn, dev, seed):
     for op in ("sum", "min", "max"):
         for dtype in (torch.int32, torch.float32):
             for eb, nb in [(8, 32), (64, 128), (512, 32), (512, 128),
-                           (37, 100), (1, 1)]:
+                           (37, 100), (1, 1), (0, 16), (2048, 1024)]:
                 R = int(rng.randint(1, 4000))
-                idx = rng.randint(-1, nb, (R, eb)).astype(np.int32)
+                idx = random_idx(np, rng, R, eb, nb)
                 if dtype == torch.int32:
                     v = rng.randint(info.min, info.max, (R, eb),
                                     dtype=np.int64).astype(np.int32)
@@ -257,8 +271,9 @@ def random_cases(torch, np, kernel, ref_fn, dev, seed):
                 max_err = max(max_err, compare(torch, got, want, vt, it, op,
                                                nb, ref_fn))
                 n_cases += 1
-    log(f"[kernel] {n_cases} random cases match the plain version "
-        f"(max |err| {max_err:.3g})")
+    log(f"[kernel] {n_cases} random cases (skewed, all-padding and "
+        f"out-of-range rows) match the plain version (max |err| "
+        f"{max_err:.3g})")
     return max_err
 
 
@@ -272,11 +287,12 @@ def random_vec_cases(torch, np, kernel, ref_fn, dev, seed):
     for op in ("sum", "min", "max"):
         for dtype in (torch.int32, torch.float32):
             for eb, nb in [(8, 32), (64, 128), (512, 128), (37, 100),
-                           (64, 1024)]:
+                           (64, 1024), (0, 8), (2048, 1024)]:
                 for F in (1, 3, 32, 64, 130):
-                    R = int(rng.randint(1, max(2, 2 ** 22 // (eb * F))))
+                    R = int(rng.randint(1, max(2, 2 ** 22 // (max(eb, 1)
+                                                               * F))))
                     R = min(R, 2000)
-                    idx = rng.randint(-1, nb, (R, eb)).astype(np.int32)
+                    idx = random_idx(np, rng, R, eb, nb)
                     if dtype == torch.int32:
                         v = rng.randint(info.min, info.max, (R, eb, F),
                                         dtype=np.int64).astype(np.int32)
@@ -300,8 +316,9 @@ def random_vec_cases(torch, np, kernel, ref_fn, dev, seed):
                             fail(f"vector kernel at F=1 != scalar kernel "
                                  f"({op}, {dtype}, eb={eb}, nb={nb})")
                     n_cases += 1
-    log(f"[kernel] {n_cases} random vector cases match the plain version "
-        f"(max |err| {max_err:.3g}); F=1 equals the scalar kernel bitwise")
+    log(f"[kernel] {n_cases} random vector cases (skewed, all-padding and "
+        f"out-of-range rows) match the plain version (max |err| "
+        f"{max_err:.3g}); F=1 equals the scalar kernel bitwise")
     return max_err
 
 
@@ -339,13 +356,28 @@ def add_launch(torch, row, fns, outs_cmp, ref_fn):
 def finish_rows(rows, bytes_of, ops_of):
     """Each row's bound over all its launches: the larger of its least
     bytes (``bytes_of``) at the memory rate and its operations
-    (``ops_of``) at the float32 rate."""
+    (``ops_of``) at the float32 rate; and its ratios."""
     for row in rows:
         row["bytes"] = bytes_of(row)
         t_bytes = row["bytes"] / HBM_BYTES_PER_S
         t_ops = ops_of(row) / FP32_OPS_PER_S
         row["bound_ms"] = max(t_bytes, t_ops) * 1e3
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        add_ratios(row)
+
+
+def add_ratios(row):
+    """``kernel_over_library`` (below 1: the kernel is faster than the
+    library call) and ``bound_over_kernel`` (the share of the bound the
+    kernel reaches) of a row or a kernels-line entry."""
+    row["kernel_over_library"] = row["ms"] / row["library_ms"]
+    row["bound_over_kernel"] = row["bound_ms"] / row["ms"]
+    return row
+
+
+def ratio_text(row) -> str:
+    return (f"kernel/library {row['kernel_over_library']:.3f}, "
+            f"bound/kernel {row['bound_over_kernel']:.3f}")
 
 
 def algo_launches(torch, kernel, ref_fn, eng, pg, algos, kinds):
@@ -408,7 +440,8 @@ def algo_launches(torch, kernel, ref_fn, eng, pg, algos, kinds):
             f"{r['ms']:.4f} ms ({r['ms'] / n:.4f} each), plain "
             f"{r['plain_ms']:.4f} ({r['plain_ms'] / n:.4f}), library "
             f"{r['library_ms']:.4f} ({r['library_ms'] / n:.4f}), bound "
-            f"{r['bound_ms']:.4f} ({r['bound_ms'] / n:.4f}) ms")
+            f"{r['bound_ms']:.4f} ({r['bound_ms'] / n:.4f}) ms; "
+            f"{ratio_text(r)}")
     return rows
 
 
@@ -520,7 +553,7 @@ def gcn_launches(torch, planlib, kernel, ref_fn, pg, inputs):
             f"{row['plain_ms']:.4f} ({row['plain_ms'] / j:.4f}), library "
             f"{row['library_ms']:.4f} ({row['library_ms'] / j:.4f}), bound "
             f"{row['bound_ms']:.4f} ({row['bound_ms'] / j:.4f}) ms "
-            f"({row['bytes'] / 1e9:.3f} GB)")
+            f"({row['bytes'] / 1e9:.3f} GB); {ratio_text(row)}")
     return rows
 
 
@@ -1683,7 +1716,7 @@ def main():
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; peak host RSS "
         f"{host_gib:.2f} GiB; phases {json.dumps(phases.seconds)}")
     # every launch of the counted algorithm runs
-    entry = {
+    entry = add_ratios({
         "name": "segment_combine_blocks", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": launches,
@@ -1695,9 +1728,9 @@ def main():
                      else "operations"),
         "library_ms": sum(r["library_ms"] for r in rows),
         "per_launch": rows,
-    }
+    })
     # every launch of the counted GCN run: GCN_EPOCHS epochs of 4 joins
-    vec_entry = {
+    vec_entry = add_ratios({
         "name": "segment_combine_blocks_vec", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": VEC_KERNEL_REPLACES,
         "launches": vec_launches,
@@ -1710,14 +1743,19 @@ def main():
         "library_ms": sum(r["library_ms"] for r in vec_rows),
         "epochs": GCN_EPOCHS,
         "per_launch": vec_rows,
-    }
+    })
+    log(f"[kernel] segment_combine_blocks: {launches} launches in the "
+        f"algorithm runs: kernel {entry['ms']:.3f} ms, plain "
+        f"{entry['plain_ms']:.3f}, library {entry['library_ms']:.3f}, bound "
+        f"{entry['bound_ms']:.3f}; {ratio_text(entry)}")
     E = GCN_EPOCHS
     log(f"[kernel] segment_combine_blocks_vec: {vec_launches} launches in "
         f"{E} epochs: kernel {vec_entry['ms']:.3f} ms ({vec_entry['ms'] / E:.3f}"
         f" an epoch), plain {vec_entry['plain_ms']:.3f} "
         f"({vec_entry['plain_ms'] / E:.3f}), library "
         f"{vec_entry['library_ms']:.3f} ({vec_entry['library_ms'] / E:.3f}), "
-        f"bound {vec_entry['bound_ms']:.3f} ({vec_entry['bound_ms'] / E:.3f})")
+        f"bound {vec_entry['bound_ms']:.3f} ({vec_entry['bound_ms'] / E:.3f})"
+        f"; {ratio_text(vec_entry)}")
     log(json.dumps({"kernels": [entry, vec_entry] + serve_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}),

@@ -17,10 +17,16 @@ Dispatch: a CPU tensor goes to the plain version (``ref.py``); a CUDA tensor
 goes to a kernel or raises.  ``segment_combine_blocks.launches`` counts the
 scalar kernel's launches and ``segment_combine_blocks.launches_vec`` the
 vector kernel's.
+
+``launch_geometry`` works out each launch's shape (warps a block, lane
+tile, features a thread, shared bytes, blocks) in plain Python, so the CPU
+tests hold it to the card's limits; the C entry points check it again.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -32,7 +38,85 @@ SOURCE = _build.CSRC / "segment_combine.cu"
 LIB_NAME = "segment_combine"
 _OPS = {"sum": 0, "min": 1, "max": 2}
 _DTYPES = {torch.int32: 0, torch.float32: 1}
-MAX_NB = 1024            # one thread per output slot of a row
+MAX_NB = 1024            # slots a row the kernels' shared arrays are sized for
+
+# Launch geometry; segment_combine.cu holds the same constants and formulas.
+WARPS = 8                # warps a block at most (a warp owns one row)
+SCALAR_BLOCKS = 5        # blocks an SM holds at least, by the kernels'
+VEC_BLOCKS = 4           # launch bounds: the grid is one wave of them
+SCALAR_MAX_TILE = 128    # scalar lanes a warp loads at once (4 a thread)
+VEC_MAX_TILE = 1024      # vector lanes a warp sorts at once
+SMEM_DEFAULT = 48 * 1024     # shared bytes a block may use without opt-in
+SMEM_MAX = 232448            # ... and with it (227 KB)
+MAX_THREADS = 1024
+INT_MAX = 2 ** 31 - 1
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """One launch's shape: warps a block, lanes a warp loads (scalar) or
+    sorts (vector) at once, shared bytes a block, blocks, and ``vec``, the
+    features a thread moves with one load (1 for the scalar kernel)."""
+    warps: int
+    lane_tile: int
+    smem_bytes: int
+    blocks: int
+    vec: int = 1
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def launch_geometry(R: int, eb: int, nb: int, F: Optional[int] = None,
+                    align: int = 16, n_sm: int = 132) -> Geometry:
+    """The scalar kernel's geometry for (R, eb) rows into nb slots, or, with
+    ``F``, the vector kernel's for (R, eb, F), on a card of ``n_sm``
+    multiprocessors; ``align`` is the largest power of two (at most 16)
+    dividing the values' and output's addresses in bytes.
+
+    A block holds as many warps as its shared memory allows within the
+    default 48 KB (up to ``WARPS``); the grid is one wave of the blocks an
+    SM holds at least, and each warp walks its rows with the grid's
+    stride."""
+    if not 1 <= nb <= MAX_NB:
+        raise ValueError(f"nb={nb} outside [1, {MAX_NB}]")
+    if F is None:
+        tile = min(SCALAR_MAX_TILE, max(32, _round_up(eb, 32)))
+        per_warp = 8 * _round_up(nb, 4)               # acc, group
+        vec, per_sm = 1, SCALAR_BLOCKS
+    else:
+        tile = min(VEC_MAX_TILE, max(32, _round_up(eb, 32)))
+        per_warp = 8 * _round_up(nb, 4) + 2 * tile    # end, group, perm
+        # the widest load that divides F, fits the alignment and keeps a
+        # warp's 32 threads busy
+        vec = next(v for v in (4, 2, 1)
+                   if v == 1 or (F % v == 0 and align % (4 * v) == 0
+                                 and F >= 32 * v))
+        per_sm = VEC_BLOCKS
+    warps = max(1, min(WARPS, SMEM_DEFAULT // per_warp))
+    blocks = min(-(-max(R, 1) // warps), n_sm * per_sm)
+    return Geometry(warps, tile, warps * per_warp, blocks, vec)
+
+
+_SMS: dict = {}           # multiprocessors of each device index
+
+
+def _sm_count(device: torch.device) -> int:
+    n = _SMS.get(device.index)
+    if n is None:
+        n = _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
+def _align(*tensors: torch.Tensor) -> int:
+    """The largest power of two, at most 16, dividing every address."""
+    a = 16
+    for t in tensors:
+        while t.data_ptr() % a:
+            a //= 2
+    return a
 
 
 def build_library() -> dict:
@@ -42,17 +126,18 @@ def build_library() -> dict:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = lib.segment_combine_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+    # vals, idx, out, R, eb, nb, dtype, op, warps, lane_tile, smem_bytes,
+    # blocks, device, stream
+    fn.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, i32, i32, i32, i32,
+                   i64, i32, ptr]
     fn.restype = ctypes.c_int
     fn = lib.segment_combine_vec_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+    # vals, idx, out, R, eb, nb, F, dtype, op, vec, warps, lane_tile,
+    # smem_bytes, blocks, device, stream
+    fn.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, i32, i32, i32, i32,
+                   i32, i32, i64, i32, ptr]
     fn.restype = ctypes.c_int
 
 
@@ -102,10 +187,12 @@ def launch(vals: torch.Tensor, idx: torch.Tensor, op: str,
     out = torch.empty((R, nb), dtype=vals.dtype, device=vals.device)
     if R == 0:
         return out
+    geo = launch_geometry(R, eb, nb, n_sm=_sm_count(vals.device))
     stream = torch.cuda.current_stream(vals.device).cuda_stream
     rc = _library().segment_combine_launch(
         vals.data_ptr(), idx.data_ptr(), out.data_ptr(), R, eb, nb,
-        _DTYPES[vals.dtype], _OPS[op], vals.device.index or 0, stream)
+        _DTYPES[vals.dtype], _OPS[op], geo.warps, geo.lane_tile,
+        geo.smem_bytes, geo.blocks, vals.device.index or 0, stream)
     _raise_on(rc, "segment_combine", vals, nb, op)
     segment_combine_blocks.launches += 1
     return out
@@ -121,10 +208,13 @@ def launch_vec(vals: torch.Tensor, idx: torch.Tensor, op: str,
     out = torch.empty((R, nb, F), dtype=vals.dtype, device=vals.device)
     if R == 0 or F == 0:
         return out
+    geo = launch_geometry(R, eb, nb, F, _align(vals, out),
+                          _sm_count(vals.device))
     stream = torch.cuda.current_stream(vals.device).cuda_stream
     rc = _library().segment_combine_vec_launch(
         vals.data_ptr(), idx.data_ptr(), out.data_ptr(), R, eb, nb, F,
-        _DTYPES[vals.dtype], _OPS[op], vals.device.index or 0, stream)
+        _DTYPES[vals.dtype], _OPS[op], geo.vec, geo.warps, geo.lane_tile,
+        geo.smem_bytes, geo.blocks, vals.device.index or 0, stream)
     _raise_on(rc, "segment_combine_vec", vals, nb, op)
     segment_combine_blocks.launches_vec += 1
     return out

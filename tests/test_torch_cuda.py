@@ -147,6 +147,150 @@ def test_vector_kernel_f1_equals_scalar_kernel(cuda, op, dtype):
                                   scalar.cpu().numpy())
 
 
+# ---------------------------------------------------------------------------
+# edge cases, determinism and lane order of both segment_combine kernels
+# ---------------------------------------------------------------------------
+
+EDGE_EB = [0, 1, 31, 33, 2048]
+EDGE_NB = [1, 128, 1024]
+
+
+def _edge_inputs(dtype, eb, nb, rows, F, seed):
+    """Indices in [-1, nb + 3) (so nb and beyond appear), with row 0 all
+    on one slot, row 1 all padding and row 2 all at nb or beyond; values
+    as ``_vec_inputs``, (rows, eb) for ``F=None``."""
+    rng = np.random.RandomState(seed)
+    idx = rng.randint(-1, nb + 3, (rows, eb)).astype(np.int32)
+    idx[0] = rng.randint(0, nb)
+    idx[1] = -1
+    idx[2] = nb + rng.randint(0, 3, eb)
+    shape = (rows, eb) if F is None else (rows, eb, F)
+    if dtype == torch.int32:
+        info = np.iinfo(np.int32)
+        vals = rng.randint(info.min, info.max, shape,
+                           dtype=np.int64).astype(np.int32)
+    else:
+        vals = rng.randn(*shape).astype(np.float32)
+    return torch.from_numpy(vals), torch.from_numpy(idx)
+
+
+def _lane_order_sum(vals, idx, nb):
+    """float32 sums folded lane by lane, in lane order, from 0: numpy's
+    unbuffered ``np.add.at`` over each row's hitting lanes."""
+    v, i = vals.numpy(), idx.numpy()
+    R = i.shape[0]
+    hit = (i >= 0) & (i < nb)
+    flat = (np.arange(R)[:, None] * nb + i)[hit]
+    out = np.zeros((R * nb,) + v.shape[2:], np.float32)
+    np.add.at(out, flat, v[hit])
+    return out.reshape((R, nb) + v.shape[2:])
+
+
+def _check_edge(got, vals, idx, op, nb):
+    want = segment_combine_blocks_ref(vals, idx, op, nb)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if op == "sum" and vals.dtype == torch.float32:
+        # lane order from 0 is the kernels' contract: bitwise
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      _lane_order_sum(vals, idx, nb))
+    else:
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("nb", EDGE_NB)
+@pytest.mark.parametrize("eb", EDGE_EB)
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_kernel_edge_cases(cuda, op, dtype, eb, nb):
+    """Skewed, all-padding and out-of-range rows, every eb and nb edge:
+    integers and min/max bitwise against the plain version, float32 sums
+    bitwise against the lane-order fold."""
+    rows = 40 if eb < 2048 else 9
+    vals, idx = _edge_inputs(dtype, eb, nb, rows, None, seed=eb + nb)
+    before = tkernel.segment_combine_blocks.launches
+    got = tkernel.segment_combine_blocks(vals.to(cuda), idx.to(cuda), op, nb)
+    torch.cuda.synchronize()
+    assert tkernel.segment_combine_blocks.launches == before + 1
+    _check_edge(got, vals, idx, op, nb)
+
+
+@pytest.mark.parametrize("F", [1, 33, 130, 256])
+@pytest.mark.parametrize("nb", EDGE_NB)
+@pytest.mark.parametrize("eb", EDGE_EB)
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_vector_kernel_edge_cases(cuda, op, dtype, eb, nb, F):
+    """The vector kernel on the same rows, F ragged and over several
+    feature tiles (eb=2048 takes two lane tiles)."""
+    rows = 3 if eb * F > 2 ** 16 else 20
+    vals, idx = _edge_inputs(dtype, eb, nb, rows, F, seed=eb + nb + F)
+    before = tkernel.segment_combine_blocks.launches_vec
+    got = tkernel.segment_combine_blocks(vals.to(cuda), idx.to(cuda), op, nb)
+    torch.cuda.synchronize()
+    assert tkernel.segment_combine_blocks.launches_vec == before + 1
+    _check_edge(got, vals, idx, op, nb)
+
+
+@pytest.mark.parametrize("F", [None, 1, 32, 64])
+def test_kernels_are_deterministic(cuda, F):
+    """Two launches on the same float32 inputs give the same sums, bit for
+    bit (skewed rows included)."""
+    vals, idx = _edge_inputs(torch.float32, 512, 128, 300, F, seed=11)
+    v, i = vals.to(cuda), idx.to(cuda)
+    a = tkernel.segment_combine_blocks(v, i, "sum", 128)
+    b = tkernel.segment_combine_blocks(v, i, "sum", 128)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("F", [None, 1, 3, 32, 64, 130])
+def test_float_sums_fold_in_lane_order(cuda, F):
+    """The float32 sum of each slot (per feature) equals numpy's lane-order
+    fold from 0, bit for bit, at the main path's shapes."""
+    for eb, nb in ((64, 128), (512, 128)):
+        vals, idx = _edge_inputs(torch.float32, eb, nb, 200, F, seed=eb)
+        got = tkernel.segment_combine_blocks(vals.to(cuda), idx.to(cuda),
+                                             "sum", nb)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      _lane_order_sum(vals, idx, nb))
+
+
+def test_entry_points_refuse_a_bad_geometry(cuda):
+    """The C entry points check the geometry they are given again and
+    return cudaErrorInvalidValue (1) on a value the kernels do not take."""
+    vals, idx = _inputs("sum", torch.float32, 64, 128, 10, seed=1)
+    v, i = vals.to(cuda), idx.to(cuda)
+    out = torch.empty((10, 128), device=cuda)
+    lib = tkernel._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    geo = tkernel.launch_geometry(10, 64, 128)
+    args = [v.data_ptr(), i.data_ptr(), out.data_ptr(), 10, 64, 128, 1, 0]
+    good = (geo.warps, geo.lane_tile, geo.smem_bytes, geo.blocks)
+    assert lib.segment_combine_launch(*args, *good, cuda.index or 0,
+                                      stream) == 0
+    for bad in [(geo.warps, geo.lane_tile, geo.smem_bytes + 4, geo.blocks),
+                (geo.warps, 48, geo.smem_bytes, geo.blocks),
+                (64, geo.lane_tile, 64 * geo.smem_bytes // geo.warps,
+                 geo.blocks),
+                (geo.warps, geo.lane_tile, geo.smem_bytes, 0)]:
+        assert lib.segment_combine_launch(*args, *bad, cuda.index or 0,
+                                          stream) == 1
+    v3 = v[..., None].expand(10, 64, 4).contiguous()
+    out3 = torch.empty((10, 128, 4), device=cuda)
+    g3 = tkernel.launch_geometry(10, 64, 128, 4)
+    args3 = [v3.data_ptr(), i.data_ptr(), out3.data_ptr(), 10, 64, 128, 4,
+             1, 0]
+    assert lib.segment_combine_vec_launch(
+        *args3, g3.vec, g3.warps, g3.lane_tile, g3.smem_bytes, g3.blocks,
+        cuda.index or 0, stream) == 0
+    for vec in (3, 8):
+        assert lib.segment_combine_vec_launch(
+            *args3, vec, g3.warps, g3.lane_tile, g3.smem_bytes, g3.blocks,
+            cuda.index or 0, stream) == 1
+    torch.cuda.synchronize()
+
+
 def test_gcn_on_the_card(cuda, monkeypatch):
     """Engine.run("gcn") on the card goes through the vector kernel (as
     many launches as the plan chunks predict, no scalar launch) and its
