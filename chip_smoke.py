@@ -62,10 +62,11 @@ Phases; any failure exits non-zero and prints no result:
    attention in every layer; 1.64B parameters in float32 from
    ``torch.Generator(seed)`` on the card; TF32 off).  First the two new
    kernels against their plain versions in float64 on random cases (flash:
-   causal on/off x window 0/16/1024 x n_rep 1/5 x d 16/64/128 x S
-   64/100/2048/2112, within 1e-5 of max|v|, and bfloat16 within 2e-2;
-   SSD: S a chunk multiple and ragged x (P, N) (64, 16)/(64, 128) x groups
-   1/2, y and final state within 1e-4 of their max).  Then B=4 random
+   causal on/off x window 0/16/100/1024 x n_rep 1/5 x d 16/64/128 x S
+   64/100/129/2048/2112, within 1e-5 of max|v|, and bfloat16 within 2e-2;
+   SSD: S a chunk multiple and ragged, chunk 128 and 64 x (P, N) (64,
+   16)/(64, 128) x groups 1/2, y and final state within 1e-4 of their
+   max).  Then B=4 random
    prompts of 2048 tokens (twice the window, so the masks and ring buffers
    wrap): prefill and 63 greedy decode steps through ``model_zoo``, timed
    with CUDA events.  Checks: (a) both kernels on every launch's recorded
@@ -81,7 +82,9 @@ Phases; any failure exits non-zero and prints no result:
    ``[serve]`` lines give the prefill and decode device times, tokens/s
    and peak memory; ``[kernel]`` lines each kernel's time, plain time,
    library time (SDPA for flash; none for the scan) and bound over the 32
-   launches of a prefill.
+   launches of a prefill; for flash also per layer kind (window, global),
+   for the scan each of its three passes' device time over the 32 calls
+   of the profiled prefill (torch.profiler) and its CUDA launches a call.
 
 One JSON line ``{"kernels": [...]}`` with all four kernels, then the last
 line ``{"ok": true, "device": {...}}``.
@@ -1063,7 +1066,7 @@ def flash_random_cases(torch, np, dev, seed):
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     gen = torch.Generator(dev).manual_seed(seed + 7)
     worst, worst_plain, n = 0.0, 0.0, 0
-    for S in (64, 100, 2048, 2112):
+    for S in (64, 100, 129, 2048, 2112):
         for d in (16, 64, 128):
             for n_rep in (1, 5):
                 BKV = 2
@@ -1072,7 +1075,7 @@ def flash_random_cases(torch, np, dev, seed):
                 v = torch.randn((BKV, S, d), generator=gen, device=dev)
                 q64, k64, v64 = q.double(), k.double(), v.double()
                 for causal in (True, False):
-                    for window in (0, 16, 1024):
+                    for window in (0, 16, 100, 1024):
                         got = fk.launch(q, k, v, causal=causal, window=window)
                         want = flash_attention_ref(q64, k64, v64,
                                                    causal=causal,
@@ -1130,10 +1133,10 @@ def ssd_random_cases(torch, np, dev, seed):
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref_model
     gen = torch.Generator(dev).manual_seed(seed + 8)
     worst, n = 0.0, 0
-    for S in (256, 200, 2112):
+    for S, chunk in ((256, 128), (200, 128), (2112, 128), (2112, 64)):
         for P, N in ((64, 16), (64, 128)):
             for g, init in ((1, False), (2, True)):
-                b, h, chunk = 2, 4, 128
+                b, h = 2, 4
                 x = torch.randn((b, S, h, P), generator=gen, device=dev)
                 dt = torch.nn.functional.softplus(torch.randn(
                     (b, S, h), generator=gen, device=dev) - 1.0)
@@ -1153,7 +1156,7 @@ def ssd_random_cases(torch, np, dev, seed):
                 if not (ey <= SSD_RTOL and es <= SSD_RTOL):
                     fail(f"SSD kernel vs float64 recurrence: y {ey:.3g}, "
                          f"state {es:.3g} of max (limit {SSD_RTOL}; S={S}, "
-                         f"P={P}, N={N}, g={g}, init={init})")
+                         f"chunk={chunk}, P={P}, N={N}, g={g}, init={init})")
                 worst = max(worst, ey, es)
                 n += 1
     log(f"[kernel] ssd_scan: {n} random cases, y and final state within "
@@ -1305,6 +1308,53 @@ def ssd_rows(torch, launches, sk, ssd_ref):
     return rows
 
 
+def ssd_passes(by_name, calls):
+    """The SSD kernel's passes in the profiled prefill (``profile_kernels``
+    by kernel name): each pass's launches and device time over the
+    prefill's ``calls`` calls, and the CUDA launches a call.  Fails unless
+    the profiler saw every pass launched once a call."""
+    if not by_name:
+        log("[kernel] ssd_scan passes: the profiler saw no device time "
+            "(not measured)")
+        return {}
+    seen = {}
+    for name, (n, us) in by_name.items():
+        label = next((o for o in ("chunk_state", "state_pass", "chunk_scan")
+                      if f"ssd_{o}" in name), None)
+        if label:
+            seen[label] = {"launches": n, "ms": us / 1e3}
+    if sorted(seen) != ["chunk_scan", "chunk_state", "state_pass"] or any(
+            v["launches"] != calls for v in seen.values()):
+        fail(f"ssd_scan passes in the profiled prefill: {seen}, expected "
+             f"chunk_state, state_pass and chunk_scan {calls} times each")
+    per_call = sum(v["launches"] for v in seen.values()) / calls
+    log(f"[kernel] ssd_scan passes over the {calls} calls of the profiled "
+        "prefill: " + ", ".join(f"{k} {v['ms']:.3f} ms ({v['launches']} "
+                                "launches)" for k, v in seen.items())
+        + f"; {per_call:g} CUDA launches a call")
+    return seen
+
+
+def flash_kinds(rows):
+    """The [kernel] flash_attention line of each layer kind (window or
+    global): kernel, SDPA and bound, in total and per launch."""
+    for kind, sel in (("window", [r for r in rows if r["window"]]),
+                      ("global", [r for r in rows if not r["window"]])):
+        if not sel:
+            continue
+        bound = [max(r["ops"] / FP32_OPS_PER_S,
+                     r["bytes"] / HBM_BYTES_PER_S) * 1e3 for r in sel]
+        ms = [r["ms"] for r in sel]
+        lib = [r["library_ms"] for r in sel]
+        faster = sum(r["ms"] <= r["library_ms"] for r in sel)
+        log(f"[kernel] flash_attention {kind} layers ({len(sel)}): kernel "
+            f"{sum(ms):.3f} ms ({min(ms):.3f}-{max(ms):.3f} a launch), SDPA "
+            f"{sum(lib):.3f} ms ({min(lib):.3f}-{max(lib):.3f}), bound "
+            f"{sum(bound):.3f} ms ({min(bound):.3f}-{max(bound):.3f}); "
+            f"bound/kernel {sum(bound) / sum(ms):.3f}; kernel no slower than "
+            f"SDPA on {faster} of {len(sel)}")
+
+
 def kernel_entry(name, source, replaces, launches, rows, rand_err, library):
     """One entry of the kernels JSON line: the sums over the rows (one a
     launch of the counted run), the bound from their bytes and operations."""
@@ -1417,7 +1467,8 @@ def profile_kernels(torch, fn, name: str, top: int = 10):
     """Where the device time of one call of ``fn`` goes, by device kernel
     (torch.profiler; the ctypes-launched kernels appear under their own
     names): the busy share of the wall time and the kernels with the most
-    device time."""
+    device time.  Returns {kernel name: (launches, device us)}, empty if
+    the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1437,13 +1488,14 @@ def profile_kernels(torch, fn, name: str, top: int = 10):
     if busy <= 0:
         log(f"[profile] {name}: the profiler saw no device time "
             "(not measured)")
-        return
+        return {}
     log(f"[profile] {name}: wall {wall_us / 1e3:.3f} ms (profiled), device "
         f"busy {busy / 1e3:.3f} ms = {100 * busy / wall_us:.1f}%, "
         f"{sum(n for n, _ in by_name.values())} kernels")
     for kname, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         log(f"[profile] {name}:   {kname[:70]:70s} calls={n:5d} "
             f"device={us / 1e3:9.3f} ms ({100 * us / busy:5.1f}%)")
+    return by_name
 
 
 def serve_path(torch, np, args, dev, phases):
@@ -1554,8 +1606,10 @@ def serve_path(torch, np, args, dev, phases):
         fail("serve: the padded vocabulary's logits are not -2^30")
     log(f"[serve] sample generations (token ids): "
         f"{gen_toks[0, :16].tolist()}")
-    phases.run("profile-prefill", profile_kernels, torch, lambda: zoo.prefill(
-        params, cfg, ctx, prompts, max_len=S + G), "prefill")
+    prof = phases.run("profile-prefill", profile_kernels, torch,
+                      lambda: zoo.prefill(params, cfg, ctx, prompts,
+                                          max_len=S + G), "prefill")
+    s_passes = ssd_passes(prof, n_ssm)
     phases.run("profile-decode", profile_kernels, torch,
                lambda: zoo.decode_step(params, cfg, ctx, toks[-1], cache),
                "decode step")
@@ -1633,12 +1687,14 @@ def serve_path(torch, np, args, dev, phases):
             f"{(f'{lib:.3f} ms' if name == 'flash_attention' else 'none')}, "
             f"bound {max(t_b, t_o):.3f} ms ({t_o:.3f} operations, "
             f"{t_b:.3f} bytes)")
+    flash_kinds(f_rows)
     entries = [
         kernel_entry("flash_attention_bhsd", FLASH_SOURCE, FLASH_REPLACES,
                      launches[0], f_rows, flash_err, library=True),
         kernel_entry("ssd_scan_bh", SSD_SOURCE, SSD_REPLACES, launches[1],
                      s_rows, ssd_err, library=False),
     ]
+    entries[1]["passes"] = s_passes
     del params, cache, step_logits
     torch.cuda.empty_cache()
     return entries

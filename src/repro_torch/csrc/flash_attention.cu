@@ -22,7 +22,8 @@
 // first valid key arrives.  Every query has a valid key (its own position,
 // because Sq <= Sk, which the wrapper requires), so every row sees one.
 // Keys at or past Sk (the ragged last tile) and queries at or past Sq are
-// masked the same way, so any length is taken.
+// masked the same way, so any length is taken.  A tile that the mask keeps
+// whole skips the mask's compares.
 //
 // What bounds it.  4*d operations for every query-key pair the mask keeps
 // (QK^T and PV, one FMA = 2 operations each), in float32 FMA outside the
@@ -30,28 +31,51 @@
 // 25 query heads, S=2048, d=64) a window-1024 layer keeps 4.0e10
 // operations' worth of pairs (0.60 ms) and a global layer 5.4e10
 // (0.80 ms); its bytes (q, k, v read once, out written once, 126 MB) take
-// 0.04 ms, so operations bound it.  What the design does about that: each
-// thread keeps a 4x4 tile of scores and a 4 x d/16 tile of the output in
-// registers and reads its operands from shared memory as float4 (8 FMAs a
-// shared load), row strides padded by 4 floats so that the 8 threads of a
-// quarter-warp hit 8 different bank groups.  Tensor cores (wgmma) are the
-// later step.
+// 0.04 ms, so operations bound it.  What the design does about that:
+//   - register tiles: each thread keeps RM x 8 scores (RM = 8 rows for
+//     d <= 64, 4 for d = 128) and the matching RM x d/8 outputs in
+//     registers, so that every float it loads from shared memory feeds 4
+//     FMAs (QK^T: RM + 8 float4 loads for 32 RM FMAs; PV: RM + d/8 floats
+//     a key for RM d/8 FMAs).  The SM's 32 shared floats a clock then feed
+//     its 128 FMA lanes, where the 4 x 4 tiles of the first version capped
+//     it at half of them;
+//   - cp.async: K and V tiles are copied 16 bytes a thread straight into
+//     shared memory, each while the other is being used: V(kt) flies
+//     during S = Q K(kt)^T, K(kt+1) during the softmax and P V(kt).  A
+//     bf16 tile lands in a staging area and each thread widens the
+//     16-byte pieces it copied itself, so the float32 path and the bf16
+//     path wait at the same three barriers a tile;
+//   - heaviest query tiles first: the grid is (BH, query tiles) with the
+//     tile index reversed when causal, so the query tiles that attend to
+//     the most key tiles (a global layer's last ones) start in the first
+//     wave and do not form the tail;
+//   - shared memory: Q (BQ x (d+4)), one K and one V tile (64 x (d+4))
+//     and P (BQ x 72) are 106,496 bytes at d = 64 in float32: two blocks
+//     an SM, 8 warps.  Row strides are padded so that the 8 lanes of a
+//     quarter-warp hit 8 different 16-byte bank groups (d+4 = 4 mod 32
+//     banks for K, 72 = 8 mod 32 for P's scalar stores).
+// Tensor cores (wgmma in bf16 or 3xTF32) are the later step; they wait on
+// the accuracy of the path's large scores (see PERF.md).
 //
-// Layout of one launch.  A block of 256 threads owns one (bh, 64-query
-// tile): thread (ty, tx) = (t / 16, t % 16) owns query rows ty + 16 i
-// (i < 4), score columns tx + 16 j (j < 4) and d/16 output columns.  A row's
-// 16 threads are 16 consecutive lanes of one warp, so the row max and row
-// sum of the online softmax are shuffles.  Q, the current K and V tiles
-// and the probability tile live in shared memory: 64 x (d+4) floats each
-// for Q, K, V and 64 x 68 for P, 69,632 bytes at d=64 and 118,784 at
-// d=128, past the 48 KB default (cudaFuncSetAttribute).  Exponentials are
-// expf (no fast-math), so a score's weight agrees with the plain version
-// to float32 rounding.
+// Layout of one launch.  A block of 128 threads owns one (bh, BQ-query
+// tile), BQ = 16 RM: thread (ty, tx) = (t / 8, t % 8) owns query rows
+// ty + 16 i (i < RM), score columns tx + 8 j (j < 8) of each 64-key tile
+// and the output columns (c / 4) 32 + 4 tx + c % 4 (c < d/8; 2 tx + c at
+// d = 16).  A row's 8 threads are 8 consecutive lanes, so the row max and
+// row sum of the online softmax are three shuffles.  Scores are kept in
+// log2 units (scaled by d^-1/2 log2(e) in one multiply), the running max
+// too, and weights are exp2f of their differences (no fast-math): the same
+// function as exp of the natural-unit difference, at the cost of one more
+// float32 rounding of the score, and a masked score stays NEG, so the
+// skipping argument above holds as it is.
 //
-// Interface: one plain C function, built with nvcc into a shared library
-// and called through ctypes (repro_torch/kernels/flash_attention/
-// kernel.py).  It launches on the caller's stream, allocates nothing, does
-// not synchronise, and returns cudaGetLastError().
+// Interface: plain C functions, built with nvcc into a shared library and
+// called through ctypes (repro_torch/kernels/flash_attention/kernel.py).
+// flash_attention_launch launches on the caller's stream, allocates
+// nothing, does not synchronise, and returns cudaGetLastError().  The
+// wrapper's launch_geometry works out the launch shape (threads, query and
+// key tile, shared bytes) and passes it in; the entry point checks it
+// against the kernel's own constants and refuses any other value.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -59,11 +83,26 @@
 
 namespace {
 
-constexpr int kBq = 64;
+constexpr int kThreads = 128;
 constexpr int kBk = 64;
-constexpr int kThreads = 256;
-constexpr int kLdp = kBk + 4;
+constexpr int kLdp = kBk + 8;
 constexpr float kNeg = -1073741824.0f;  // -2^30, the TPU kernel's NEG
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <typename T, int D>
+struct Cfg {
+  static constexpr int RM = D == 128 ? 4 : 8;   // query rows a thread
+  static constexpr int BQ = 16 * RM;            // query rows a block
+  static constexpr int DC = D / 8;              // output columns a thread
+  static constexpr int LD = D + 4;              // float row stride of Q, K, V
+  static constexpr int MIN_BLOCKS = D == 128 ? 1 : 2;
+  static constexpr bool BF16 = sizeof(T) == 2;
+  static constexpr int EPC = 16 / sizeof(T);    // elements in 16 bytes
+  static constexpr size_t FLOATS = static_cast<size_t>(BQ) * LD
+                                 + 2 * kBk * LD + static_cast<size_t>(BQ) * kLdp;
+  static constexpr size_t STAGE = BF16 ? 2 * kBk * D * sizeof(T) : 0;
+  static constexpr size_t SMEM = FLOATS * sizeof(float) + STAGE;
+};
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -74,77 +113,110 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return static_cast<size_t>(3 * 64 * (D + 4) + 64 * kLdp) * sizeof(float);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// rows [r0, r0 + 64) of a (rows, D) matrix into a (64, D + 4) float tile,
-// zero past the last row; consecutive threads read consecutive elements
+// Start the copy of rows [r0, r0 + 64) of a (rows, D) matrix: float32 rows
+// go straight into the (64, D + 4) float tile, bf16 rows into the (64, D)
+// staging tile; rows at or past `rows` are zero-filled.
 template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int rows) {
-  constexpr int LD = D + 4;
-  for (int e = threadIdx.x; e < 64 * D; e += kThreads) {
-    const int r = e / D;
-    const int c = e % D;
+__device__ __forceinline__ void issue_tile(float* tile, T* stage,
+                                           const T* src, int r0, int rows) {
+  using C = Cfg<T, D>;
+  constexpr int PER_ROW = D / C::EPC;
+  for (int e = threadIdx.x; e < kBk * PER_ROW; e += kThreads) {
+    const int r = e / PER_ROW;
+    const int c = (e % PER_ROW) * C::EPC;
     const int gr = r0 + r;
-    dst[r * LD + c] = gr < rows
-        ? to_float(src[static_cast<long long>(gr) * D + c]) : 0.0f;
+    const T* g = src + static_cast<long long>(gr < rows ? gr : 0) * D + c;
+    void* dst;
+    if constexpr (C::BF16) {
+      dst = stage + r * D + c;
+    } else {
+      dst = tile + r * C::LD + c;
+    }
+    cp_async16(dst, g, gr < rows ? 16 : 0);
   }
 }
 
-// output column of the thread's jj-th accumulator: float4 runs of 4
-// columns for d >= 64, consecutive columns for d = 16 and 32
+// bf16 only: widen the 16-byte pieces this thread copied into the float
+// tile (its own cp.async results are visible to it after the wait)
+template <typename T, int D>
+__device__ __forceinline__ void widen_tile(float* tile, const T* stage) {
+  using C = Cfg<T, D>;
+  if constexpr (C::BF16) {
+    constexpr int PER_ROW = D / C::EPC;
+    for (int e = threadIdx.x; e < kBk * PER_ROW; e += kThreads) {
+      const int r = e / PER_ROW;
+      const int c = (e % PER_ROW) * C::EPC;
+#pragma unroll
+      for (int u = 0; u < C::EPC; ++u) {
+        tile[r * C::LD + c + u] = to_float(stage[r * D + c + u]);
+      }
+    }
+  }
+}
+
+// output column of the thread's jj-th accumulator
 template <int D>
 __device__ __forceinline__ int out_col(int tx, int jj) {
-  constexpr int DC = D / 16;
+  constexpr int DC = D / 8;
   if constexpr (DC >= 4) {
-    return (jj / 4) * 64 + tx * 4 + (jj % 4);
+    return (jj / 4) * 32 + tx * 4 + (jj % 4);
   } else {
     return tx * DC + jj;
   }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, (Cfg<T, D>::MIN_BLOCKS))
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        int Sq, int Sk, int n_rep, float scale, int causal,
                        int window) {
-  constexpr int LD = D + 4;
-  constexpr int DC = D / 16;
+  using C = Cfg<T, D>;
+  constexpr int RM = C::RM;
+  constexpr int BQ = C::BQ;
+  constexpr int DC = C::DC;
+  constexpr int LD = C::LD;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
-  float* Ks = Qs + kBq * LD;
+  float* Ks = Qs + BQ * LD;
   float* Vs = Ks + kBk * LD;
   float* Ps = Vs + kBk * LD;
+  T* Kst = reinterpret_cast<T*>(Ps + BQ * kLdp);
+  T* Vst = Kst + kBk * D;
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBq;
+  const int bh = blockIdx.x;
+  const int n_qt = gridDim.y;
+  const int qt = causal ? n_qt - 1 - static_cast<int>(blockIdx.y)
+                        : static_cast<int>(blockIdx.y);
+  const int q0 = qt * BQ;
   const long long kv_row = bh / n_rep;
   const T* qb = q + static_cast<long long>(bh) * Sq * D;
   const T* kb = k + kv_row * Sk * D;
   const T* vb = v + kv_row * Sk * D;
   const int t = threadIdx.x;
-  const int ty = t >> 4;
-  const int tx = t & 15;
-
-  load_tile<T, D>(Qs, qb, q0, Sq);
-
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int jj = 0; jj < DC; ++jj) acc[i][jj] = 0.0f;
-  }
+  const int ty = t >> 3;
+  const int tx = t & 7;
+  // scores in log2 units: exp(s scale - m) = exp2(s scale log2(e) - m')
+  const float scale2 = scale * kLog2e;
 
   // key tiles that hold a key some query of this tile may attend to
   int kt_end = (Sk + kBk - 1) / kBk;
   if (causal) {
-    const int last = (q0 + kBq - 1) / kBk + 1;
+    const int last = (q0 + BQ - 1) / kBk + 1;
     if (last < kt_end) kt_end = last;
   }
   int kt_begin = 0;
@@ -153,72 +225,102 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (lo > 0) kt_begin = lo / kBk;
   }
 
+  issue_tile<T, D>(Ks, Kst, kb, kt_begin * kBk, Sk);
+  cp_async_commit();
+  for (int e = t; e < BQ * D; e += kThreads) {
+    const int r = e / D;
+    const int c = e % D;
+    const int gr = q0 + r;
+    Qs[r * LD + c] = gr < Sq
+        ? to_float(qb[static_cast<long long>(gr) * D + c]) : 0.0f;
+  }
+
+  float m[RM], l[RM], acc[RM][DC];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    m[i] = kNeg;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int jj = 0; jj < DC; ++jj) acc[i][jj] = 0.0f;
+  }
+
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBk;
-    __syncthreads();   // the previous tile's readers of Ks, Vs, Ps are done
-    load_tile<T, D>(Ks, kb, k0, Sk);
-    load_tile<T, D>(Vs, vb, k0, Sk);
-    __syncthreads();
+    const bool more = kt + 1 < kt_end;
+    cp_async_wait<0>();                  // K(kt)
+    widen_tile<T, D>(Ks, Kst);
+    __syncthreads();   // K(kt), Q visible; the last tile's P V is done
+    issue_tile<T, D>(Vs, Vst, vb, k0, Sk);
+    cp_async_commit();
 
-    // s = Q K^T for the thread's 4 x 4 scores
-    float s[4][4];
+    // s = Q K^T for the thread's RM x 8 scores
+    float s[RM][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RM; ++i) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
     }
-#pragma unroll 4
+#pragma unroll 2
     for (int c = 0; c < D; c += 4) {
-      float4 a[4], b[4];
+      float4 a[RM];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RM; ++i) {
         a[i] = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * i) * LD + c]);
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * LD + c]);
-      }
+      for (int j = 0; j < 8; ++j) {
+        const float4 b =
+            *reinterpret_cast<const float4*>(&Ks[(tx + 8 * j) * LD + c]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+        for (int i = 0; i < RM; ++i) {
+          s[i][j] = fmaf(a[i].x, b.x, s[i][j]);
+          s[i][j] = fmaf(a[i].y, b.y, s[i][j]);
+          s[i][j] = fmaf(a[i].z, b.z, s[i][j]);
+          s[i][j] = fmaf(a[i].w, b.w, s[i][j]);
         }
       }
     }
+    __syncthreads();   // every reader of Ks is done
+    if (more) {
+      issue_tile<T, D>(Ks, Kst, kb, k0 + kBk, Sk);
+      cp_async_commit();
+    }
 
-    // scale, mask and the online softmax, one query row at a time
+    // scale, mask and the online softmax, one query row at a time; a tile
+    // that the mask keeps whole needs no compares
+    const bool whole = (!causal || k0 + kBk - 1 <= q0)
+        && (window <= 0 || q0 + BQ - 1 - k0 < window) && k0 + kBk <= Sk;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RM; ++i) {
       const int qp = q0 + ty + 16 * i;
       float mx = kNeg;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        bool ok = kp < Sk;
-        if (causal) ok = ok && qp >= kp;
-        if (window > 0) ok = ok && (qp - kp) < window;
-        s[i][j] = ok ? s[i][j] * scale : kNeg;
+      for (int j = 0; j < 8; ++j) {
+        const int kp = k0 + tx + 8 * j;
+        bool ok = true;
+        if (!whole) {
+          ok = kp < Sk;
+          if (causal) ok = ok && qp >= kp;
+          if (window > 0) ok = ok && (qp - kp) < window;
+        }
+        s[i][j] = ok ? s[i][j] * scale2 : kNeg;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
+      for (int off = 4; off > 0; off >>= 1) {
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       }
       const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
+      const float alpha = exp2f(m[i] - m_new);
       float sum = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
+      for (int j = 0; j < 8; ++j) {
+        const float p = exp2f(s[i][j] - m_new);
         sum += p;
-        Ps[(ty + 16 * i) * kLdp + tx + 16 * j] = p;
+        Ps[(ty + 16 * i) * kLdp + tx + 8 * j] = p;
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
+      for (int off = 4; off > 0; off >>= 1) {
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
       }
       l[i] = l[i] * alpha + sum;
@@ -226,14 +328,20 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < DC; ++jj) acc[i][jj] *= alpha;
     }
-    __syncthreads();
+    if (more) {
+      cp_async_wait<1>();                // V(kt); K(kt+1) may fly on
+    } else {
+      cp_async_wait<0>();
+    }
+    widen_tile<T, D>(Vs, Vst);
+    __syncthreads();   // P and V(kt) visible
 
     // acc += P V
 #pragma unroll 2
     for (int kk = 0; kk < kBk; kk += 4) {
-      float4 pa[4];
+      float4 pa[RM];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RM; ++i) {
         pa[i] = *reinterpret_cast<const float4*>(&Ps[(ty + 16 * i) * kLdp + kk]);
       }
 #pragma unroll
@@ -244,18 +352,19 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
           for (int h = 0; h < DC / 4; ++h) {
             const float4 w4 =
-                *reinterpret_cast<const float4*>(&vrow[h * 64 + tx * 4]);
+                *reinterpret_cast<const float4*>(&vrow[h * 32 + tx * 4]);
             vv[4 * h] = w4.x;
             vv[4 * h + 1] = w4.y;
             vv[4 * h + 2] = w4.z;
             vv[4 * h + 3] = w4.w;
           }
         } else {
-#pragma unroll
-          for (int jj = 0; jj < DC; ++jj) vv[jj] = vrow[tx * DC + jj];
+          const float2 w2 = *reinterpret_cast<const float2*>(&vrow[tx * 2]);
+          vv[0] = w2.x;
+          vv[1] = w2.y;
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < RM; ++i) {
           const float p = u == 0 ? pa[i].x : u == 1 ? pa[i].y
                         : u == 2 ? pa[i].z : pa[i].w;
 #pragma unroll
@@ -266,7 +375,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RM; ++i) {
     const int qp = q0 + ty + 16 * i;
     if (qp >= Sq) continue;
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
@@ -278,18 +387,32 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The launch shape the wrapper passes in: threads a block, query rows a
+// block, keys a tile, shared bytes a block.
+struct Geometry {
+  int threads, q_tile, k_tile, smem_bytes;
+};
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int BH, int Sq, int Sk, int n_rep, float scale,
-                   int causal, int window, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+                   int causal, int window, Geometry geo,
+                   cudaStream_t stream) {
+  using C = Cfg<T, D>;
+  constexpr size_t smem = C::SMEM;
+  if (geo.threads != kThreads || geo.q_tile != C::BQ || geo.k_tile != kBk
+      || geo.smem_bytes != static_cast<int>(smem)) {
+    return cudaErrorInvalidValue;
+  }
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         flash_attention_kernel<T, D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((Sq + kBq - 1) / kBq, BH);
+  const int n_qt = (Sq + C::BQ - 1) / C::BQ;
+  if (n_qt > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(BH, n_qt);
   flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, n_rep, scale,
@@ -300,13 +423,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 template <typename T>
 cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
                      void* out, int BH, int Sq, int Sk, int n_rep,
-                     float scale, int causal, int window,
+                     float scale, int causal, int window, Geometry geo,
                      cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, out, BH, Sq, Sk, n_rep, scale, causal, window, stream);
-    case 32: return launch<T, 32>(q, k, v, out, BH, Sq, Sk, n_rep, scale, causal, window, stream);
-    case 64: return launch<T, 64>(q, k, v, out, BH, Sq, Sk, n_rep, scale, causal, window, stream);
-    case 128: return launch<T, 128>(q, k, v, out, BH, Sq, Sk, n_rep, scale, causal, window, stream);
+    case 16: return launch<T, 16>(q, k, v, out, BH, Sq, Sk, n_rep, scale, causal, window, geo, stream);
+    case 32: return launch<T, 32>(q, k, v, out, BH, Sq, Sk, n_rep, scale, causal, window, geo, stream);
+    case 64: return launch<T, 64>(q, k, v, out, BH, Sq, Sk, n_rep, scale, causal, window, geo, stream);
+    case 128: return launch<T, 128>(q, k, v, out, BH, Sq, Sk, n_rep, scale, causal, window, geo, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -314,27 +437,33 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, out: device pointers of (BH, Sq, d); k, v: (BKV, Sk, d), contiguous,
-// BH = BKV * n_rep; dtype 0 = float32, 1 = bfloat16; d in {16, 32, 64, 128};
-// 1 <= Sq <= Sk; window 0 = none; scale is d^-1/2 rounded to float32 by
-// the caller, as the TPU kernel's Python float is.  Returns a cudaError_t
-// (0 on success).
+// k and v 16-byte aligned, BH = BKV * n_rep; dtype 0 = float32, 1 =
+// bfloat16; d in {16, 32, 64, 128}; 1 <= Sq <= Sk; window 0 = none; scale
+// is d^-1/2 rounded to float32 by the caller, as the TPU kernel's Python
+// float is; threads, q_tile, k_tile and smem_bytes are the launch shape
+// from the wrapper's launch_geometry, refused unless they are the
+// kernel's for (d, dtype).  Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int BH,
                                       int Sq, int Sk, int d, int n_rep,
                                       int dtype, int causal, int window,
-                                      float scale, int device,
+                                      float scale, int threads, int q_tile,
+                                      int k_tile, int smem_bytes, int device,
                                       void* stream) {
   if (BH <= 0) return 0;
   if (Sq < 1 || Sq > Sk || n_rep < 1 || BH % n_rep != 0 || window < 0
-      || BH > 65535 || (dtype != 0 && dtype != 1)) {
+      || (dtype != 0 && dtype != 1)
+      || reinterpret_cast<uintptr_t>(k) % 16 != 0
+      || reinterpret_cast<uintptr_t>(v) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Geometry geo{threads, q_tile, k_tile, smem_bytes};
   err = dtype == 0
-      ? launch_d<float>(d, q, k, v, out, BH, Sq, Sk, n_rep, scale, causal, window, s)
-      : launch_d<__nv_bfloat16>(d, q, k, v, out, BH, Sq, Sk, n_rep, scale, causal, window, s);
+      ? launch_d<float>(d, q, k, v, out, BH, Sq, Sk, n_rep, scale, causal, window, geo, s)
+      : launch_d<__nv_bfloat16>(d, q, k, v, out, BH, Sq, Sk, n_rep, scale, causal, window, geo, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,10 +9,17 @@ computes, what bounds it and how it is laid out), built by
 Dispatch: a CPU tensor goes to the plain version (``ref.py``); a CUDA
 tensor goes to the kernel or raises.  ``flash_attention_bhsd.launches``
 counts the kernel's launches.
+
+``launch_geometry`` works out each launch's shape (threads, query and key
+tiles, shared bytes, blocks an SM, grid) in plain Python, so the CPU tests
+hold it to the card's limits.  The wrapper passes it to the C entry point,
+which checks it against the kernel's own constants and refuses any other
+value.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -23,7 +30,48 @@ SOURCE = _build.CSRC / "flash_attention.cu"
 LIB_NAME = "flash_attention"
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_BH = 65535           # the grid's second axis
+
+# Launch geometry; flash_attention.cu refuses a launch shape that is not its
+# own.
+THREADS = 128
+K_TILE = 64              # keys a tile
+P_STRIDE = K_TILE + 8    # float row stride of the probability tile
+MAX_BH = 2 ** 31 - 1     # the grid's first axis: (BH, query tiles)
+MAX_Q_TILES = 65535      # ... and its second
+SMEM_MAX = 232448        # shared bytes a block may opt in to (227 KB)
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """One launch's shape: threads a block, query rows a block (16 rows of
+    threads x ``rows`` each), keys a tile, shared bytes a block, blocks an
+    SM by the launch bounds, and the grid (BH, query tiles)."""
+    threads: int
+    rows: int
+    q_tile: int
+    k_tile: int
+    smem_bytes: int
+    min_blocks: int
+    grid: tuple
+
+
+def launch_geometry(d: int, dtype: torch.dtype = torch.float32, BH: int = 1,
+                    Sq: int = 1) -> Geometry:
+    """The kernel's geometry for head dim ``d`` and ``dtype``: 8 query rows
+    a thread (4 at d = 128), 8 scores of each 64-key tile a thread; shared
+    memory holds Q, one K and one V tile (rows padded to d + 4 floats), the
+    probability tile (rows of 72 floats) and, for bfloat16, the two staging
+    tiles that the 16-byte copies land in."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"dtype {dtype} not in {tuple(_DTYPES)}")
+    rows = 4 if d == 128 else 8
+    q_tile = 16 * rows
+    floats = q_tile * (d + 4) + 2 * K_TILE * (d + 4) + q_tile * P_STRIDE
+    stage = 2 * K_TILE * d * 2 if dtype == torch.bfloat16 else 0
+    return Geometry(THREADS, rows, q_tile, K_TILE, 4 * floats + stage,
+                    1 if d == 128 else 2, (BH, -(-Sq // q_tile)))
 
 
 def build_library() -> dict:
@@ -33,8 +81,11 @@ def build_library() -> dict:
 
 def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.flash_attention_launch
+    # q, k, v, out; BH, Sq, Sk, d, n_rep, dtype, causal, window; scale;
+    # threads, q_tile, k_tile, smem_bytes, device; stream
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
 
@@ -79,12 +130,18 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, window)
     BH, Sq, d = q.shape
     BKV, Sk, _ = k.shape
+    geo = launch_geometry(d, q.dtype, BH, Sq)
+    if geo.grid[1] > MAX_Q_TILES:
+        raise ValueError(f"Sq={Sq} needs more than {MAX_Q_TILES} query tiles")
+    # the 16-byte copies of K and V tiles need 16-byte aligned rows
+    k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (k, v))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, Sq,
         Sk, d, BH // BKV, _DTYPES[q.dtype], int(causal), int(window),
-        d ** -0.5, q.device.index or 0, stream)
+        d ** -0.5, geo.threads, geo.q_tile, geo.k_tile, geo.smem_bytes,
+        q.device.index or 0, stream)
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
                            f"error {rc} (q {tuple(q.shape)}, k "

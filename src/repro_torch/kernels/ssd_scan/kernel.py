@@ -6,16 +6,25 @@ layout (the TPU kernel's (BH, S, P) rows are the (batch, head) pairs),
 reads B and C from their group instead of broadcasting them, takes a
 ragged last chunk, and returns the final state beside y.  The kernel is
 ``repro_torch/csrc/ssd_scan.cu`` (its comments say what it computes, what
-bounds it and how it is laid out), built by ``kernels/_build.py`` at first
-use into ``build/repro_torch/``.
+bounds it and how it is laid out): three passes (chunk state, state
+passing, chunk scan), three CUDA launches a call, built by
+``kernels/_build.py`` at first use into ``build/repro_torch/``.  The
+wrapper allocates the passes' scratch (the chunk states and decays).
 
 Dispatch: a CPU tensor goes to the plain version (``ref.py``, the
 recurrence); a CUDA tensor goes to the kernel or raises.
-``ssd_chunk_scan.launches`` counts the kernel's launches.
+``ssd_chunk_scan.launches`` counts the wrapper's calls that launch the
+kernel.
+
+``launch_geometry`` works out the passes' shapes (threads, tiles, shared
+bytes, grids) in plain Python, so the CPU tests hold it to the card's
+limits.  The wrapper passes it to the C entry point, which checks it
+against the kernels' own constants and refuses any other value.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -28,6 +37,63 @@ LIB_NAME = "ssd_scan"
 MAX_PN = 128             # head dim P and state dim N
 MAX_CHUNK = 128
 
+# Launch geometry; ssd_scan.cu refuses a launch shape that is not its own.
+STATE_THREADS = 256      # a block of the chunk state pass (two row halves)
+THREADS = 128            # a block of the chunk scan pass
+P_TILE = 64              # columns of P a block owns
+PANEL = 32               # keys of one score panel of the chunk scan
+PASS_THREADS = 256       # a block of the state passing pass
+SMEM_MAX = 232448        # shared bytes a block may opt in to (227 KB)
+GRID_X_MAX = 2 ** 31 - 1
+GRID_Y_MAX = 65535
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """The three passes' shapes: threads a block of the chunk state, the
+    chunk scan and the state passing pass, columns of P a block, keys a
+    score panel, the chunk rounded up to 32, shared bytes of the chunk
+    state and chunk scan blocks, and the grids of the three passes (blocks
+    along x and y)."""
+    state_threads: int
+    threads: int
+    pass_threads: int
+    p_tile: int
+    panel: int
+    chunk_pad: int
+    state_smem: int
+    scan_smem: int
+    grids: tuple
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def launch_geometry(P: int, N: int, chunk: int, b: int = 1, h: int = 1,
+                    s: int = 1) -> Geometry:
+    """The passes' geometry for head dim P, state dim N and ``chunk`` at
+    (b, s, h).  The chunk state block holds dt, cum, the decays, x (chunk x
+    64), B (chunk x N) and the partial sums of its second half (128 x 8);
+    the chunk scan block dt, cum, C^T and B^T (N x (chunk + 4)), x, S^T
+    (N x 64) and one 32-key score panel, with the chunk rounded up to 32
+    and N to 4."""
+    if not (1 <= P <= MAX_PN and 1 <= N <= MAX_PN):
+        raise ValueError(f"head dim {P} and state dim {N} must be in "
+                         f"[1, {MAX_PN}]")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk={chunk} outside [1, {MAX_CHUNK}]")
+    qp, n4 = _round_up(chunk, 32), _round_up(N, 4)
+    state = 3 * qp + qp * P_TILE + qp * n4 + 8 * THREADS
+    scan = (2 * qp + 2 * n4 * (qp + 4) + qp * P_TILE + n4 * P_TILE
+            + PANEL * (qp + 4))
+    blocks = b * h * -(-s // chunk)
+    p_tiles = -(-P // P_TILE)
+    grids = ((blocks, p_tiles), (-(-b * h * P * N // PASS_THREADS), 1),
+             (blocks, p_tiles))
+    return Geometry(STATE_THREADS, THREADS, PASS_THREADS, P_TILE, PANEL, qp,
+                    4 * state, 4 * scan, grids)
+
 
 def build_library() -> dict:
     """Compile the kernel's source unless a build of it exists."""
@@ -36,7 +102,10 @@ def build_library() -> dict:
 
 def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.ssd_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+    # x, dt, A, B, C, init_state, y, state_out, chunk_states, chunk_decay;
+    # b, S, H, G, P, N, Q; state_threads, scan_threads, pass_threads,
+    # p_tile, state_smem, scan_smem; device; stream
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 14 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
@@ -69,6 +138,9 @@ def _check(x, dt, A, B, C, init_state, chunk: int) -> None:
                          f"[1, {MAX_PN}]")
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"chunk={chunk} outside [1, {MAX_CHUNK}]")
+    if b * h * -(-s // chunk) > GRID_X_MAX:
+        raise ValueError(f"{b * h} (batch, head) pairs x {-(-s // chunk)} "
+                         f"chunks exceed the grid's {GRID_X_MAX} blocks")
     if init_state is not None and init_state.shape != (b, h, p, n):
         raise ValueError(f"init_state {tuple(init_state.shape)} must be "
                          f"{(b, h, p, n)}")
@@ -86,14 +158,22 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _check(x, dt, A, B, C, init_state, chunk)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
+    geo = launch_geometry(p, n, chunk)
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    n_chunks = -(-s // chunk)
+    chunk_states = torch.empty((b, h, n_chunks, p, n), dtype=torch.float32,
+                               device=x.device)
+    chunk_decay = torch.empty((b, h, n_chunks), dtype=torch.float32,
+                              device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _library().ssd_scan_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), None if init_state is None else init_state.data_ptr(),
-        y.data_ptr(), state.data_ptr(), b, s, h, g, p, n, chunk,
-        x.device.index or 0, stream)
+        y.data_ptr(), state.data_ptr(), chunk_states.data_ptr() or None,
+        chunk_decay.data_ptr() or None, b, s, h, g, p, n, chunk,
+        geo.state_threads, geo.threads, geo.pass_threads, geo.p_tile,
+        geo.state_smem, geo.scan_smem, x.device.index or 0, stream)
     if rc != 0:
         raise RuntimeError(f"SSD scan kernel launch failed: CUDA error {rc} "
                            f"(x {tuple(x.shape)}, B {tuple(B.shape)}, "

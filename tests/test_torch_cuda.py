@@ -450,6 +450,163 @@ def test_ssd_kernel_matches_plain(cuda, S, P, N, g, init):
         assert err <= 1e-4 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("S", [127, 128, 129, 2112])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("n_rep", [1, 5])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 100),
+                                           (False, 0), (False, 100)])
+def test_flash_kernel_at_tile_edges(cuda, S, d, n_rep, causal, window):
+    """Lengths one short of, at and one past the query tile, a long ragged
+    one, and a window (100) that is no multiple of the tiles: float32
+    within 1e-5 of max|v| of the float64 plain version."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    gen = torch.Generator(cuda).manual_seed(S + d + n_rep + window)
+    q = torch.randn((2 * n_rep, S, d), generator=gen, device=cuda)
+    k = torch.randn((2, S, d), generator=gen, device=cuda)
+    v = torch.randn((2, S, d), generator=gen, device=cuda)
+    before = fk.flash_attention_bhsd.launches
+    got = fk.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fk.flash_attention_bhsd.launches == before + 1
+    want = flash_attention_ref(q.double(), k.double(), v.double(),
+                               causal=causal, window=window)
+    assert float((got.double() - want).abs().max()) <= (
+        1e-5 * float(v.abs().max()))
+
+
+def test_flash_kernel_takes_unaligned_kv(cuda):
+    """k and v that start 4 bytes past a 16-byte boundary (views into a
+    larger buffer) give the same output as aligned copies."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    gen = torch.Generator(cuda).manual_seed(3)
+    q = torch.randn((4, 100, 64), generator=gen, device=cuda)
+    buf = torch.randn(2 * 2 * 100 * 64 + 1, generator=gen, device=cuda)
+    k = buf[1:1 + 2 * 100 * 64].view(2, 100, 64)
+    v = buf[1 + 2 * 100 * 64:].view(2, 100, 64)
+    assert k.data_ptr() % 16 and k.is_contiguous()
+    got = fk.launch(q, k, v, causal=True, window=0)
+    want = fk.launch(q, k.clone(), v.clone(), causal=True, window=0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 1024])
+def test_flash_kernel_is_deterministic(cuda, dtype, window):
+    """Two launches on the same inputs (the path's shapes: 25 query heads
+    over 5 kv heads, S=2048, d=64) give the same output, bit for bit."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    gen = torch.Generator(cuda).manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in [(25, 2048, 64), (5, 2048, 64), (5, 2048, 64)])
+    a = fk.launch(q, k, v, causal=True, window=window)
+    b = fk.launch(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("S", [2048, 2112])
+@pytest.mark.parametrize("chunk", [64, 128])
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_kernel_at_path_lengths(cuda, S, chunk, init):
+    """The path's P=64, N=16 at S a multiple of both chunks and ragged,
+    with and without an initial state: y and the final state within 1e-4
+    of their max of the float64 recurrence."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref_model
+    gen = torch.Generator(cuda).manual_seed(S + chunk)
+    b, h, P, N = 2, 4, 64, 16
+    x = torch.randn((b, S, h, P), generator=gen, device=cuda)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, S, h), generator=gen, device=cuda) - 1.0)
+    A = -torch.exp(0.5 * torch.randn((h,), generator=gen, device=cuda))
+    B = torch.randn((b, S, 1, N), generator=gen, device=cuda)
+    C = torch.randn((b, S, 1, N), generator=gen, device=cuda)
+    s0 = (torch.randn((b, h, P, N), generator=gen, device=cuda) if init
+          else None)
+    before = sk.ssd_chunk_scan.launches
+    y, st = sk.ssd_chunk_scan(x, dt, A, B, C, chunk=chunk, init_state=s0)
+    torch.cuda.synchronize()
+    assert sk.ssd_chunk_scan.launches == before + 1
+    y64, st64 = ssd_scan_ref_model(x.double(), dt.double(), A.double(),
+                                   B.double(), C.double(),
+                                   None if s0 is None else s0.double())
+    for got, want in ((y, y64), (st, st64)):
+        err = float((got.double() - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("P,N,g", [(64, 16, 1), (128, 128, 2), (24, 12, 2)])
+def test_ssd_kernel_is_deterministic(cuda, P, N, g):
+    """Two launches on the same inputs give the same y and final state,
+    bit for bit."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    gen = torch.Generator(cuda).manual_seed(P + N)
+    b, h, S = 2, 4, 300
+    x = torch.randn((b, S, h, P), generator=gen, device=cuda)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, S, h), generator=gen, device=cuda))
+    A = -torch.rand((h,), generator=gen, device=cuda) - 0.1
+    B = torch.randn((b, S, g, N), generator=gen, device=cuda)
+    C = torch.randn((b, S, g, N), generator=gen, device=cuda)
+    s0 = torch.randn((b, h, P, N), generator=gen, device=cuda)
+    y1, st1 = sk.launch(x, dt, A, B, C, chunk=128, init_state=s0)
+    y2, st2 = sk.launch(x, dt, A, B, C, chunk=128, init_state=s0)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(st1, st2)
+
+
+def test_lm_entry_points_refuse_a_bad_geometry(cuda):
+    """The flash and SSD C entry points check the launch shape the wrappers'
+    ``launch_geometry`` gives them and return cudaErrorInvalidValue (1) on
+    any other value."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    dev = cuda.index or 0
+    stream = torch.cuda.current_stream().cuda_stream
+    for d in fk.HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(2, 64, d, device=cuda).to(dtype)
+            out = torch.empty_like(q)
+            geo = fk.launch_geometry(d, dtype, 2, 64)
+            args = [q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(),
+                    2, 64, 64, d, 1, fk._DTYPES[dtype], 1, 0, d ** -0.5]
+            good = [geo.threads, geo.q_tile, geo.k_tile, geo.smem_bytes]
+            lib = fk._library()
+            assert lib.flash_attention_launch(*args, *good, dev, stream) == 0
+            for i, delta in ((0, 32), (1, 16), (2, 32), (3, 16), (3, -16)):
+                bad = list(good)
+                bad[i] += delta
+                assert lib.flash_attention_launch(*args, *bad, dev,
+                                                  stream) == 1
+    b, S, h, g = 1, 200, 2, 1
+    for P, N, Q in ((64, 16, 128), (64, 128, 64), (17, 3, 33), (128, 1, 1)):
+        x = torch.randn(b, S, h, P, device=cuda)
+        dt = torch.rand(b, S, h, device=cuda)
+        A = -torch.rand(h, device=cuda)
+        B = torch.randn(b, S, g, N, device=cuda)
+        nc = -(-S // Q)
+        y = torch.empty_like(x)
+        st = torch.empty(b, h, P, N, device=cuda)
+        cs = torch.empty(b, h, nc, P, N, device=cuda)
+        cd = torch.empty(b, h, nc, device=cuda)
+        args = [x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                B.data_ptr(), None, y.data_ptr(), st.data_ptr(),
+                cs.data_ptr(), cd.data_ptr(), b, S, h, g, P, N, Q]
+        geo = sk.launch_geometry(P, N, Q)
+        good = [geo.state_threads, geo.threads, geo.pass_threads, geo.p_tile,
+                geo.state_smem, geo.scan_smem]
+        lib = sk._library()
+        assert lib.ssd_scan_launch(*args, *good, dev, stream) == 0
+        for i in range(len(good)):
+            for delta in (-16, 16):
+                bad = list(good)
+                bad[i] += delta
+                assert lib.ssd_scan_launch(*args, *bad, dev, stream) == 1
+    torch.cuda.synchronize()
+
+
 def test_lm_kernels_reject_what_they_do_not_take(cuda):
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.ssd_scan import kernel as sk
