@@ -24,13 +24,21 @@ Phases; any failure exits non-zero and prints no result:
    of LiveJournal) with the GCN's normalized weights (``normalize_adjacency``,
    so one partition serves both paths) is partitioned once (csr layout,
    hash balance, tau from the cost model, M workers) onto the card, and
-   ``Engine(backend="pallas")`` runs Hash-Min, PageRank (30 iterations) and
-   SSSP (from original vertex 0).  Each result is held against an oracle
-   independent of the port (scipy's connected_components and dijkstra on
-   the same weights, a float64 power iteration) and against the port's own
-   dense backend on the card; the scalar kernel's launch counter must show
-   3 launches per Hash-Min superstep (Ch_msg values, Ch_msg hit counts,
-   Ch_mir fan-out).
+   ``Engine(backend="pallas")`` runs Hash-Min, PageRank (30 iterations),
+   SSSP (from original vertex 0), and the request-respond algorithms:
+   S-V, MSF and attribute broadcast (attr = 3 * arange(n_pad)).  Each
+   result is held against an oracle independent of the port (scipy's
+   connected_components, dijkstra and minimum_spanning_tree on the same
+   weights, a float64 power iteration, the attributes read on the host)
+   and against the port's own dense backend on the card; the scalar
+   kernel's launch counter must show 3 launches per Hash-Min superstep
+   (Ch_msg values, Ch_msg hit counts, Ch_mir fan-out), 2 per S-V superstep
+   (the ``all`` plan's values and hit counts) and none in MSF and
+   attribute broadcast, whose combines have runtime targets.  ``[reqresp]``
+   lines give the paper's Fig. 13 comparison: msgs_rr against msgs_basic
+   and the busiest worker's load with and without Ch_req (Theorem 3).
+   Then S-V on ids that straddle 2^24 (n = 2^24 + 4, M = 2): the labels
+   2^24 and 2^24 + 1 must stay apart.
 4. GCN training at full width on that graph: ``Engine.run("gcn")`` with
    F=32, hidden=64, 8 classes, lr=1e-2, 4 epochs.  The vector kernel's
    launch count must equal what the plan chunks predict (2 joins at F=32
@@ -665,24 +673,41 @@ def main_path(torch, np, mods, args, dev, phases):
 
     def plans():
         out = {}
-        for kind in ("eg", "mir"):
+        for kind in ("eg", "mir", "all"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
             plan = planlib.get_plan(pg, kind)
             planlib.device_plan(plan, dev)
-            out[kind] = plan
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            out[kind] = (plan, torch.cuda.memory_allocated() - before,
+                         torch.cuda.max_memory_allocated() - before)
         return out
     plan = phases.run("plans", plans)
-    for kind, p in plan.items():
+    for kind, (p, held, peak) in plan.items():
         log(f"[plan] {kind}: {p.n_rows} rows x eb={p.eb}, nb={p.nb}, "
-            f"{p.n_segs} segments")
-    per_ss = 3 if plan["mir"].n_rows else 2
+            f"{p.n_segs} segments; {held / 2**30:.3f} GiB on the device "
+            f"(peak {peak / 2**30:.3f} GiB while uploading)")
+    plan = {kind: p for kind, (p, _, _) in plan.items()}
+    # scalar launches a superstep: Ch_msg values and hit counts plus the
+    # mirror fan-out (broadcast algorithms); the all plan's values and hit
+    # counts (S-V's neighbour minimum); none where every combine has
+    # runtime targets (MSF, attribute broadcast)
+    bc_ss = 3 if plan["mir"].n_rows else 2
+    per_ss = {"hashmin": bc_ss, "pagerank": bc_ss, "sssp": bc_ss, "sv": 2,
+              "msf": 0, "attr_bcast": 0}
 
+    attr = 3 * torch.arange(pg.n_pad, dtype=torch.float32,
+                            device=dev).view(pg.M, pg.n_loc)
+    # the algorithms through the kernel (replayed for the kernel timing),
+    # then those without a kernel launch
     algos = [("hashmin", {}), ("pagerank", {"n_iters": 30, "tol": 0.0}),
-             ("sssp", {"source": int(pg.perm[0])})]
+             ("sssp", {"source": int(pg.perm[0])}), ("sv", {})]
+    rr_algos = [("msf", {}), ("attr_bcast", {"attr": attr})]
     runs = {}
     counter = kernel.segment_combine_blocks
     counter.launches = counter.launches_vec = 0   # the path starts here
-    for algo, params in algos:
+    for algo, params in algos + rr_algos:
         # the first run pays the caching allocator's growth; the second
         # is the steady state
         for tag in ("cold", "warm"):
@@ -691,20 +716,25 @@ def main_path(torch, np, mods, args, dev, phases):
                 f"{algo}-{tag}", timed, torch,
                 lambda: eng.run(algo, pg, **params))
             launches = counter.launches - before
+            key = "msgs_total" if "msgs_total" in res.stats else "msgs_rr"
+            jumps = ("" if res.jump_reads is None else
+                     f"; {res.jump_reads} host reads in its pointer jumping")
             log(f"[run] {algo} ({tag}): {res.n_supersteps} supersteps, "
                 f"{dev_ms:.3f} ms on the device clock "
                 f"({dev_ms / res.n_supersteps:.3f} ms per superstep), "
                 f"{host_s:.3f} s host; {launches} kernel launches; "
-                f"msgs_total={res.stats['msgs_total']}")
-            if launches != per_ss * res.n_supersteps:
+                f"{key}={res.stats[key]}{jumps}")
+            if launches != per_ss[algo] * res.n_supersteps:
                 fail(f"{algo}: {launches} kernel launches in "
-                     f"{res.n_supersteps} supersteps, expected {per_ss} per "
-                     "superstep: the path did not go through the kernel")
+                     f"{res.n_supersteps} supersteps, expected "
+                     f"{per_ss[algo]} per superstep: the path did not go "
+                     "through the kernel" if per_ss[algo] else
+                     f"{algo}: {launches} kernel launches, expected none")
         runs[algo] = (res, launches)
     main_launches = counter.launches          # ... and ends here
     if counter.launches_vec:
         fail(f"{counter.launches_vec} vector kernel launches on a scalar path")
-    if per_ss != 3:
+    if bc_ss != 3:
         fail("no mirrored vertices at this size: Ch_mir did not run")
 
     # oracles independent of the port
@@ -728,33 +758,140 @@ def main_path(torch, np, mods, args, dev, phases):
         f"SSSP max rel err {d_rel.max():.3g} over {int(fin.sum())} "
         f"reachable vertices; PageRank max rel err "
         f"{np.max(np.abs(pr - pr_o) / pr_o):.3g}")
+    phases.run("rr-oracles", rr_oracles, torch, np, structs, g, A, pg, runs,
+               cc, attr)
 
     # the port's own dense backend on the card
     dense = api.Engine(backend="dense", layout="csr", balance="hash",
                        device=dev)
 
     def dense_checks():
-        for algo, params in algos:
+        for algo, params in algos + rr_algos:
             res = dense.run(algo, pg, **params)
             ref = runs[algo][0]
             if res.n_supersteps != ref.n_supersteps:
                 fail(f"{algo}: {res.n_supersteps} dense supersteps vs "
                      f"{ref.n_supersteps} pallas")
             assert_stats_equal(np, algo, res.stats, ref.stats)
-            a, b = res.state.cpu().numpy(), ref.state.cpu().numpy()
-            ok = (np.allclose(a, b, rtol=1e-5, atol=0) if algo == "pagerank"
-                  else np.array_equal(a, b))
+            if algo == "msf":
+                (la, wa, na), (lb, wb, nb) = res.state, ref.state
+                ok = (torch.equal(la, lb) and int(na) == int(nb)
+                      and float(wa) == float(wb))
+            elif algo == "pagerank":
+                ok = np.allclose(res.state.cpu().numpy(),
+                                 ref.state.cpu().numpy(), rtol=1e-5, atol=0)
+            else:
+                ok = torch.equal(res.state, ref.state)
             if not ok:
                 fail(f"{algo}: the pallas and dense backends disagree")
     phases.run("dense-parity", dense_checks)
-    log("[check] pallas == dense on the card: Hash-Min labels and SSSP "
-        "distances bitwise, PageRank rtol=1e-5, every msgs_*/per_worker_* "
-        "equal")
+    log("[check] pallas == dense on the card: Hash-Min and S-V labels, SSSP "
+        "distances, MSF labels, edge count and total weight, and the "
+        "broadcast attributes bitwise, PageRank rtol=1e-5; every "
+        "msgs_*/per_worker_* equal, and the same supersteps")
+    for algo in ("sv", "msf", "attr_bcast"):
+        st = runs[algo][0].stats
+        pw_rr, pw_b = st["per_worker_rr"].max(), st["per_worker_basic"].max()
+        log(f"[reqresp] {algo}: msgs_rr={st['msgs_rr']} msgs_basic="
+            f"{st['msgs_basic']} (rr/basic {st['msgs_rr'] / st['msgs_basic']:.4f});"
+            f" busiest worker {pw_rr} messages with Ch_req, {pw_b} without "
+            f"({pw_rr / pw_b:.4f})")
     for algo, params in [("hashmin", {}),
-                         ("pagerank", {"n_iters": 5, "tol": 0.0})]:
+                         ("pagerank", {"n_iters": 5, "tol": 0.0}),
+                         ("sv", {}), ("msf", {})]:
         phases.run(f"profile-{algo}", profile_run, torch,
                    lambda: eng.run(algo, pg, **params), algo)
     return g, A, pg, main_launches, algos
+
+
+def rr_oracles(torch, np, structs, g, A, pg, runs, cc, attr):
+    """S-V, MSF and attribute broadcast against oracles independent of the
+    port: S-V labels are scipy's components and, on real slots, Hash-Min's
+    labels bitwise (both the least relabelled id of the component); MSF
+    keeps exactly n - #components edges, its labels are the components,
+    and its weight is scipy's minimum spanning forest's within 1e-5
+    (float64 there, float32 sums here); the broadcast attributes are
+    ``attr`` read at every edge's destination on the host, and without
+    dedup the channel returns the same values with msgs_rr == msgs_basic.
+    Every algorithm sends no more messages with Ch_req than without."""
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+    from repro_torch.core import channels
+    n_cc = len(np.unique(cc))
+    sv = runs["sv"][0].state
+    if not np.array_equal(structs.canonical_labels(pg, sv), cc):
+        fail("S-V components differ from scipy's")
+    vm = pg.vmask
+    if not torch.equal(sv[vm], runs["hashmin"][0].state[vm]):
+        fail("S-V labels differ from Hash-Min's on the real slots")
+    labels, total_w, n_edges = runs["msf"][0].state
+    if int(n_edges) != g.n - n_cc:
+        fail(f"MSF kept {int(n_edges)} edges, expected n - #components = "
+             f"{g.n - n_cc}")
+    if not np.array_equal(structs.canonical_labels(pg, labels), cc):
+        fail("MSF labels do not partition the vertices as the components")
+    # each undirected edge once (both directions carry the same weight)
+    mst = float(csgraph.minimum_spanning_tree(sp.triu(A, k=1).tocsr()).sum())
+    w_err = abs(float(total_w) - mst) / mst
+    if not w_err <= 1e-5:
+        fail(f"MSF weight {float(total_w)} vs scipy's {mst}: rel err "
+             f"{w_err:.3g} beyond 1e-5")
+    edge_attr = runs["attr_bcast"][0].state
+    want = attr.reshape(-1).cpu().numpy()[pg.host["all_dst"]]
+    if not np.array_equal(edge_attr.cpu().numpy(), want):
+        fail("attr_bcast: the per-edge attributes differ from attr[all_dst]")
+    off, s_off = channels.gather_edges(pg, attr, pg.all_dst, pg.all_mask,
+                                       dedup=False)
+    if not (torch.equal(off, edge_attr)
+            and int(s_off["msgs_rr"]) == int(s_off["msgs_basic"])):
+        fail("attr_bcast without dedup: other values, or msgs_rr != "
+             "msgs_basic")
+    for algo in ("sv", "msf", "attr_bcast"):
+        st = runs[algo][0].stats
+        if not st["msgs_rr"] <= st["msgs_basic"]:
+            fail(f"{algo}: msgs_rr {st['msgs_rr']} > msgs_basic "
+                 f"{st['msgs_basic']}")
+    log(f"[check] request-respond oracles: S-V = scipy's {n_cc} components "
+        f"= Hash-Min's labels; MSF {int(n_edges)} edges = n - #components, "
+        f"weight {float(total_w):.9g} vs scipy's {mst:.9g} (rel err "
+        f"{w_err:.3g}, limit 1e-5); attr_bcast = attr[all_dst] on "
+        f"{edge_attr.numel()} edges, and without dedup the same values "
+        f"with msgs_rr = msgs_basic = {int(s_off['msgs_basic'])}")
+
+
+B24 = 2 ** 24
+
+
+def large_ids(torch, np, api, structs, kernel, dev):
+    """S-V on ids that straddle 2^24, on the card (tests/test_large_ids.py's
+    graph): n = 2^24 + 4 over M = 2 workers, where the seeded relabelling
+    puts a singleton at 2^24 and a pair at 2^24 + 1 / 2^24 + 3.  A float32
+    id path would give all three the label 2^24."""
+    n, M, seed = B24 + 4, 2, 0
+    perm = np.random.RandomState(seed).permutation(n)
+    inv = np.empty(n, np.int64)
+    inv[perm] = np.arange(n)
+    b, d = inv[B24 + 1], inv[B24 + 3]
+    g = structs.Graph(n, np.array([b, d], np.int64),
+                      np.array([d, b], np.int64))
+    eng = api.Engine(backend="pallas", layout="csr", device=dev)
+    pg = eng.partition(g, M, tau=None, seed=seed)
+    if not np.array_equal(pg.perm, perm):
+        fail("the hash relabelling is not RandomState(seed).permutation(n)")
+    before = kernel.segment_combine_blocks.launches
+    res = eng.run("sv", pg)
+    launches = kernel.segment_combine_blocks.launches - before
+    lab = res.state.reshape(-1)
+    got = [int(lab[i]) for i in (B24, B24 + 1, B24 + 3)]
+    if got != [B24, B24 + 1, B24 + 1]:
+        fail(f"S-V labels at ids 2^24, 2^24+1, 2^24+3: {got}, expected "
+             f"{[B24, B24 + 1, B24 + 1]}")
+    if res.state.dtype != torch.int32 or launches != 2 * res.n_supersteps:
+        fail(f"S-V at n=2^24+4: labels {res.state.dtype}, {launches} kernel "
+             f"launches in {res.n_supersteps} supersteps")
+    log(f"[check] S-V at n={n}, M={M}: labels of ids 2^24, 2^24+1, 2^24+3 = "
+        f"{got} (exact, int32), {res.n_supersteps} supersteps, {launches} "
+        "kernel launches")
 
 
 # ---------------------------------------------------------------------------
@@ -1742,14 +1879,17 @@ def main():
     mods = (api, structs, gen, cost_model, planlib, kernel)
     g, A, pg, launches, algos = main_path(torch, np, mods, args, dev,
                                           phases)
+    phases.run("sv-2^24", large_ids, torch, np, api, structs, kernel, dev)
     vec_launches, gcn_peak, inputs = gcn_path(torch, np, args, dev, phases,
                                               g, A, pg)
     del g, A
     phases.run("parity-200k", parity_small, torch, np, args, dev, phases)
     eng = api.Engine(backend="pallas", layout="csr", balance="hash",
                      device=dev)
-    plans = {k: planlib.get_plan(pg, k) for k in ("eg", "mir")}
+    plans = {k: planlib.get_plan(pg, k) for k in ("eg", "mir", "all")}
     kinds = {(p.n_rows, p.eb): k for k, p in plans.items()}
+    if len(kinds) != len(plans):
+        fail(f"two plans share a launch shape: {kinds}")
     rows = phases.run("kernel-timing", algo_launches, torch, kernel, ref_fn,
                       eng, pg, algos, kinds)
     if sum(r["launches"] for r in rows) != launches:

@@ -9,9 +9,9 @@
 
 ``EngineConfig`` has the reference's fields and config strings, so one
 config drives both packages.  The device is an argument of ``Engine``
-(default ``"cuda"``; without CUDA it raises unless ``device="cpu"``).  This
-slice runs on one device: ``devices``, ``pipeline`` and the algorithms not
-ported yet raise ``NotImplementedError``.
+(default ``"cuda"``; without CUDA it raises unless ``device="cpu"``).  The
+port runs on one device: ``devices`` and ``pipeline`` raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,13 +29,10 @@ ALGORITHMS = {
     "hashmin": "repro_torch.algorithms.hashmin",
     "pagerank": "repro_torch.algorithms.pagerank",
     "sssp": "repro_torch.algorithms.sssp",
+    "sv": "repro_torch.algorithms.sv",
+    "msf": "repro_torch.algorithms.msf",
+    "attr_bcast": "repro_torch.algorithms.attr_bcast",
     "gcn": "repro_torch.train.gcn",
-}
-#: algorithms of the reference that later slices of the port bring
-LATER = {
-    "sv": "the request-respond (Ch_req) slice",
-    "msf": "the request-respond (Ch_req) slice",
-    "attr_bcast": "the request-respond (Ch_req) slice",
 }
 
 
@@ -74,11 +71,13 @@ def check_config(cfg: EngineConfig) -> None:
 class RunResult:
     """Uniform algorithm result.  ``state`` is the algorithm's output
     tensor (labels / pr / dist); ``history`` the per-superstep stats when
-    recorded, else None."""
+    recorded, else None; ``jump_reads`` the host reads of MSF's pointer
+    jumping loops (None for the other algorithms)."""
     state: Any
     stats: dict
     n_supersteps: int
     history: Any = None
+    jump_reads: Optional[int] = None
 
     def load_report(self) -> Optional[dict]:
         """Measured per-worker load of this run: the
@@ -131,9 +130,6 @@ class Engine:
         """Run ``algo`` on ``graph`` (a PartitionedGraph on this engine's
         device, or a host Graph partitioned on the fly — then ``M`` is
         required)."""
-        if algo in LATER:
-            raise NotImplementedError(f"{algo!r} comes with {LATER[algo]} "
-                                      "of the port")
         if algo not in ALGORITHMS:
             raise ValueError(f"unknown algo {algo!r}; one of "
                              f"{sorted(ALGORITHMS)}")

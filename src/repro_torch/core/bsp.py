@@ -22,7 +22,9 @@ import numpy as np
 import torch
 
 
-def _finalize(acc: Dict[str, torch.Tensor]) -> Dict[str, object]:
+def finalize_totals(acc: Dict[str, torch.Tensor]) -> Dict[str, object]:
+    """Device totals as host numbers: Python ints for integer scalars,
+    ``np.int64`` arrays for integer vectors, numpy arrays for floats."""
     out = {}
     for k, a in acc.items():
         a = a.cpu().numpy()
@@ -63,4 +65,4 @@ def run(step: Callable, state, max_supersteps: int,
         n += 1
         if bool(halted):            # the one host read of the superstep
             break
-    return state, _finalize(acc), n, hist
+    return state, finalize_totals(acc), n, hist

@@ -1,5 +1,5 @@
-"""The paper's broadcast channels on torch tensors (the counterpart of the
-broadcast half of ``repro.core.channels``; Ch_req comes with a later slice).
+"""The paper's message channels on torch tensors (the counterpart of
+``repro.core.channels`` on one device).
 
 Everything operates on tensors with a leading worker axis ``M``; on one
 device that axis is a batch dimension (exact M-worker simulation).  Every
@@ -11,6 +11,8 @@ computed exactly (int64 tensors; compare them by value):
                    vertex) pairs) — Ch_msg with combiner
   msgs_mirror    — Ch_mir: one message per (active mirrored vertex, remote
                    worker hosting a mirror)  [Theorem 1]
+  msgs_rr        — Ch_req (request-respond): 2 * distinct (worker, remote
+                   target) pairs  [Theorem 3]
   per_worker_*   — (M,) sent-message counts for the balance reports
 
 Payloads are scalar per lane, ``(M, n_loc)``, or feature-blocked with one
@@ -76,7 +78,8 @@ def _reduce_op(op: str, x: torch.Tensor, dim: int) -> torch.Tensor:
         return x.amin(dim=dim)
     if op == "max":
         return x.amax(dim=dim)
-    return x.sum(dim=dim)
+    # in the payload's dtype: torch would widen an int32 sum to int64
+    return x.sum(dim=dim, dtype=x.dtype)
 
 
 def _flat_worker(pg: PartitionedGraph, kind: str):
@@ -357,3 +360,220 @@ def broadcast(pg: PartitionedGraph, vals: torch.Tensor,
         stats["per_worker_total"] = (stats["per_worker_combined"]
                                      + stats["per_worker_mirror"])
     return inbox, stats
+
+
+# ---------------------------------------------------------------------------
+# Ch_req: request-respond distributed gather  (paper §6)
+# ---------------------------------------------------------------------------
+
+def _dedup_row(t: torch.Tensor, sentinel: int):
+    """Sort-based dedup of request lists along the last axis: one worker's
+    (R,) list, or (M, R) rows at once.  ``uniq`` holds each row's distinct
+    targets below ``sentinel`` in ascending order, padded with
+    ``sentinel``; ``inv`` (int32) is each request's index into its row's
+    ``uniq``.  A row whose requests all equal ``sentinel`` (every request
+    masked) has ``inv == -1`` throughout, as in the reference, where a
+    read at -1 wraps: callers clamp before they index."""
+    R = t.shape[-1]
+    s, order = torch.sort(t, dim=-1, stable=True)
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[..., 1:] = s[..., 1:] != s[..., :-1]
+    first &= s < sentinel
+    rank = torch.cumsum(first, dim=-1) - 1
+    uniq = torch.full_like(t, -1).scatter_reduce_(
+        -1, torch.where(first, rank, R - 1), torch.where(first, s, -1),
+        "amax")
+    uniq = torch.where(uniq < 0, sentinel, uniq)
+    inv = torch.empty_like(rank).scatter_(-1, order, rank)
+    return uniq, inv.to(torch.int32)
+
+
+def rr_gather(vals: torch.Tensor, targets: torch.Tensor,
+              tmask: torch.Tensor, M: int, n_loc: int, dedup: bool = True
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Distributed gather: each worker reads vals[target] for arbitrary
+    global targets (the paper's request(u) / get_resp(u)).
+
+    vals: (M, n_loc) or feature-blocked (M, n_loc, F); targets/tmask:
+    (M, R).  Returns (out (M, R[, F]), stats).  dedup=True is the
+    request-respond channel (one request per distinct target per worker,
+    Theorem 3); dedup=False sends every request on its own (Pregel basic:
+    msgs_rr degenerates to msgs_basic), same gathered values either way.
+
+    On one device the exchange is a permutation: each worker's distinct
+    targets (its requests) are read at their owners (the responses) and
+    carried back to the requests through ``inv``.  The reference also lays
+    the requests out in per-owner buckets, (M, M, R) of them, which
+    changes neither the values nor the stats, so the port skips it.
+    """
+    n_pad = M * n_loc
+    R = targets.shape[1]
+    feat = feat_shape(vals, 2)
+    device = vals.device
+    own = torch.arange(M, device=device)[:, None]
+    t = torch.where(tmask, targets, n_pad)
+    if dedup:
+        uniq, inv = _dedup_row(t, n_pad)
+    else:
+        uniq = t
+        inv = torch.arange(R, device=device).expand(M, R)
+    owner = torch.div(uniq, n_loc, rounding_mode="floor").clamp(0, M - 1)
+    uvalid = uniq < n_pad
+
+    # the owners' responses, one a distinct request; a negative target has
+    # no slot at its (clipped) owner and reads 0, as in the reference
+    flat = vals.reshape((-1,) + feat)
+    resp = flat[uniq.long().clamp(0, n_pad - 1)]
+    resp = torch.where(feat_mask(uvalid & (uniq >= 0), resp, 2), resp, 0)
+    # back to the requests; a row with no valid request has inv == -1
+    back = inv.long().clamp(min=0)
+    out = torch.gather(resp, 1, feat_mask(back, resp, 2).expand(
+        (M, R) + feat))
+    out = torch.where(feat_mask(tmask, out, 2), out, 0)
+
+    remote_u = uvalid & (owner != own)
+    tw = torch.div(targets, n_loc, rounding_mode="floor")
+    raw_remote = tmask & (tw != own)
+    stats = {
+        "msgs_rr": 2 * remote_u.sum(),
+        "msgs_basic": 2 * raw_remote.sum(),
+        "per_worker_rr": remote_u.sum(dim=1) + per_worker(
+            owner.reshape(-1), remote_u.reshape(-1), M),
+        "per_worker_basic": raw_remote.sum(dim=1) + per_worker(
+            tw.clamp(0, M - 1).reshape(-1), raw_remote.reshape(-1), M),
+    }
+    return out, stats
+
+
+def rr_gather_flat(vals: torch.Tensor, targets: torch.Tensor,
+                   worker: torch.Tensor, tmask: torch.Tensor,
+                   M: int, n_loc: int, dedup: bool = True,
+                   log_of: Optional[np.ndarray] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """CSR-layout twin of ``rr_gather``: flat (E,) targets with explicit
+    (E,) requesting-worker ids (ragged per-worker request counts).
+
+    The gathered values are a direct read; the stats reproduce the padded
+    channel's accounting exactly: msgs_rr counts 2 messages per distinct
+    remote (worker, target) pair (Theorem 3), per_worker_* charge both the
+    requester and the owner, msgs_basic counts every raw remote request.
+    Under a split partition ``worker`` holds physical shard ids (each
+    shard deduplicates its own request list) and ``log_of`` maps them back
+    to logical workers for the remote test and the per-worker charges.
+    """
+    n_pad = M * n_loc
+    feat = feat_shape(vals, 2)
+    device = vals.device
+    t = torch.where(tmask, targets, n_pad)
+    got = vals.reshape((-1,) + feat)[t.long().clamp(0, n_pad - 1)]
+    out = torch.where(feat_mask(tmask, got, 1), got, 0)
+    if targets.shape[0] == 0:
+        zero = torch.zeros((), dtype=torch.int64, device=device)
+        zero_m = torch.zeros(M, dtype=torch.int64, device=device)
+        return out, {"msgs_rr": zero, "msgs_basic": zero.clone(),
+                     "per_worker_rr": zero_m, "per_worker_basic":
+                     zero_m.clone()}
+
+    worker = worker.long()
+    log_t = (None if log_of is None
+             else torch.as_tensor(np.asarray(log_of), device=device).long())
+    wlog = worker if log_t is None else log_t[worker]
+    tw = torch.div(targets, n_loc, rounding_mode="floor")
+    owner = tw.clamp(0, M - 1)
+    raw_remote = tmask & (tw != wlog)
+    if dedup:
+        # distinct (worker, target) = segment heads of the shared sort
+        _, ws, ts, first = planlib.sort_by_worker_target(worker, t)
+        ws_log = ws if log_t is None else log_t[ws]
+        ts_w = torch.div(ts, n_loc, rounding_mode="floor")
+        remote_u = first & (ts < n_pad) & (ts_w != ws_log)
+        u_w, u_owner = ws_log, ts_w.clamp(0, M - 1)
+    else:
+        remote_u, u_w, u_owner = raw_remote, wlog, owner
+    stats = {
+        "msgs_rr": 2 * remote_u.sum(),
+        "msgs_basic": 2 * raw_remote.sum(),
+        "per_worker_rr": (per_worker(u_w, remote_u, M)
+                          + per_worker(u_owner, remote_u, M)),
+        "per_worker_basic": (per_worker(wlog, raw_remote, M)
+                             + per_worker(owner, raw_remote, M)),
+    }
+    return out, stats
+
+
+def scatter_combine(vals: torch.Tensor, targets: torch.Tensor,
+                    upd: torch.Tensor, mask: torch.Tensor, op: str,
+                    M: int, n_loc: int, backend: str = "dense"):
+    """Distributed scatter-``op`` into vals (S-V hooking writes).  Messages
+    are counted like the combined channel (one per distinct (worker,
+    target) after sender-side combining).  Targets are runtime state, so
+    backend="pallas" uses the sorted segmented combine (no precomputed
+    plan is possible): same stats, O(n_pad) instead of O(M * n_pad)."""
+    inbox, stats = push_combined(targets, upd, mask, op, M, n_loc,
+                                 backend=backend)
+    return _COMBINE[op](vals, inbox), stats
+
+
+def scatter_combine_flat(vals: torch.Tensor, targets: torch.Tensor,
+                         upd: torch.Tensor, mask: torch.Tensor,
+                         worker: torch.Tensor, op: str,
+                         M: int, n_loc: int, backend: str = "dense",
+                         log_of: Optional[np.ndarray] = None):
+    """CSR twin of ``scatter_combine``: flat (E,) edge-shaped writes with
+    explicit per-edge source workers (MSF min-edge election)."""
+    inbox, stats = push_combined_flat(targets, upd, mask, worker, op,
+                                      M, n_loc, backend=backend,
+                                      log_of=log_of)
+    return _COMBINE[op](vals, inbox), stats
+
+
+# ---------------------------------------------------------------------------
+# pg-level wrappers: layout-dispatching channel entry points
+# ---------------------------------------------------------------------------
+
+def gather(pg: PartitionedGraph, vals: torch.Tensor, targets: torch.Tensor,
+           tmask: torch.Tensor, dedup: bool = True
+           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Distributed pointer read ``vals[target]`` for state-shaped target
+    rows (S-V / MSF pointer chasing)."""
+    return rr_gather(vals, targets, tmask, pg.M, pg.n_loc, dedup)
+
+
+def gather_edges(pg: PartitionedGraph, vals: torch.Tensor,
+                 targets: torch.Tensor, tmask: torch.Tensor,
+                 dedup: bool = True
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Distributed gather for edge-shaped targets aligned with the ``all``
+    adjacency (attribute broadcast, MSF neighbour reads): padded rows go
+    through ``rr_gather``, flat csr through ``rr_gather_flat`` with the
+    per-edge source worker of ``pg.all_src``."""
+    if pg.layout == "csr":
+        worker, log_of = _flat_worker(pg, "all")
+        return rr_gather_flat(vals, targets, worker, tmask, pg.M, pg.n_loc,
+                              dedup, log_of=log_of)
+    return rr_gather(vals, targets, tmask, pg.M, pg.n_loc, dedup)
+
+
+def scatter_state(pg: PartitionedGraph, base: torch.Tensor,
+                  targets: torch.Tensor, upd: torch.Tensor,
+                  mask: torch.Tensor, op: str, backend: str = "dense"
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Distributed scatter-``op`` for state-shaped runtime targets (S-V
+    hooking writes)."""
+    return scatter_combine(base, targets, upd, mask, op, pg.M, pg.n_loc,
+                           backend=backend)
+
+
+def scatter_edges(pg: PartitionedGraph, base: torch.Tensor,
+                  targets: torch.Tensor, upd: torch.Tensor,
+                  mask: torch.Tensor, op: str, backend: str = "dense"
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Distributed scatter-``op`` for edge-shaped runtime values aligned
+    with the ``all`` adjacency (MSF min-edge election)."""
+    if pg.layout == "csr":
+        worker, log_of = _flat_worker(pg, "all")
+        return scatter_combine_flat(base, targets, upd, mask, worker, op,
+                                    pg.M, pg.n_loc, backend=backend,
+                                    log_of=log_of)
+    return scatter_combine(base, targets, upd, mask, op, pg.M, pg.n_loc,
+                           backend=backend)

@@ -218,8 +218,12 @@ class DevicePlan:
 
 def device_plan(plan: EdgePlan, device) -> DevicePlan:
     """Upload ``plan``'s index arrays to ``device`` once; later calls
-    return the cached copy."""
-    key = str(torch.device(device))
+    return the cached copy.  "cuda" and the current card's "cuda:<i>"
+    are one device, and so one copy."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = str(dev)
     dp = plan.device_cache.get(key)
     if dp is None:
         def up(a, dtype):

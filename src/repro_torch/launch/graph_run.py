@@ -16,7 +16,7 @@ import time
 import numpy as np
 
 GRAPH_NAMES = ("powerlaw", "road", "erdos")
-ALGOS = ("hashmin", "pagerank", "sssp", "gcn")
+ALGOS = ("hashmin", "pagerank", "sv", "sssp", "msf", "attr_bcast", "gcn")
 
 
 def make_graph(graph: str, n: int, seed: int):
@@ -109,6 +109,17 @@ def main(argv=None):
         pg = eng.partition(gw.symmetrized(), args.workers, tau=tau,
                            seed=args.seed)
         res = eng.run("sssp", pg, source=int(pg.perm[0]))
+    elif args.algo == "msf":
+        gw = make_graph(args.graph, args.n, args.seed)
+        if gw.weight is None:
+            rng = np.random.RandomState(args.seed)
+            gw.weight = rng.rand(gw.m).astype(np.float32) + 0.01
+        pg = eng.partition(gw.symmetrized(), args.workers, tau=None,
+                           seed=args.seed)
+        res = eng.run("msf", pg)
+        print(f"[msf] total weight {float(res.state[1]):.2f}, "
+              f"{int(res.state[2])} edges, {res.jump_reads} host reads in "
+              "its pointer jumping")
     elif args.algo == "gcn":
         from repro_torch.core.gspmm import gspmm_stats
         from repro_torch.train.gcn import normalize_adjacency
@@ -128,6 +139,12 @@ def main(argv=None):
         _, res.stats = gspmm_stats(pg, "u_mul_e_sum", res.state["emb"],
                                    backend=args.backend,
                                    use_mirroring=mirror)
+    elif args.algo == "attr_bcast":
+        import torch
+        attr = 3 * torch.arange(pg.n_pad, dtype=torch.float32,
+                                device=pg.device).view(pg.M, pg.n_loc)
+        res = eng.run("attr_bcast", pg, attr=attr)
+        res.n_supersteps = 2    # request + respond rounds
     else:
         params = {"n_iters": 30} if args.algo == "pagerank" else {}
         res = eng.run(args.algo, pg, **params)
@@ -139,10 +156,11 @@ def main(argv=None):
           f"physical shards; edge-load max/mean="
           f"{rep['max_over_mean']:.2f} cv={rep['cv']:.2f}")
     print(f"[run] {args.algo}: {int(n_ss)} supersteps in {dt:.2f}s")
-    for k in ("msgs_total", "msgs_combined", "msgs_mirror", "msgs_basic"):
+    for k in ("msgs_total", "msgs_combined", "msgs_mirror", "msgs_basic",
+              "msgs_rr"):
         if k in stats:
             print(f"  {k:16s} {int(stats[k]):>14,d}")
-    for k in ("per_worker_total", "per_worker_basic"):
+    for k in ("per_worker_total", "per_worker_rr", "per_worker_basic"):
         if k in stats:
             rep = straggler_report(np.asarray(stats[k]))
             print(f"  balance[{k}]: max/mean={rep['max_over_mean']:.2f} "

@@ -1,7 +1,6 @@
 """Token and graph-node embeddings and the softmax cross-entropy: the port
-of ``repro.models.embedding`` on one device (``node_embedding_fetch``,
-which rides Ch_req, and ``embed_lookup_sharded`` come with the slices of
-Ch_req and the sharded executor).
+of ``repro.models.embedding`` on one device (``embed_lookup_sharded`` comes
+with the sharded executor).
 
 The three token lookup methods of the reference (``gather``, ``onehot``,
 ``rr``: the paper's request-respond dedup) give the same values on one
@@ -15,6 +14,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.core import channels
 
 
 def dedup_ids(ids: torch.Tensor, capacity: int):
@@ -92,3 +93,16 @@ def node_embedding_init(pg, feat_dim: int, seed: int = 0,
     tab[np.asarray(pg.perm)] = rows
     return torch.from_numpy(tab).to(device=pg.device, dtype=dtype).view(
         pg.M, pg.n_loc, feat_dim)
+
+
+def node_embedding_fetch(g, table: torch.Tensor, ids: torch.Tensor,
+                         mask: torch.Tensor):
+    """Sparse embedding lookup over the request-respond channel.
+
+    ``table`` is the worker-sharded ``(M, n_loc, F)`` node table; ``ids``
+    ``(M, R)`` global (padded) vertex ids each worker wants rows for.  The
+    S-V access pattern of §6 with a VECTOR payload: requests are
+    deduplicated per worker, the owner responds once per distinct id with
+    the whole ``(F,)`` row, and the responses are carried back to the
+    requests.  Returns ``((M, R, F) values, stats)``."""
+    return channels.gather(g, table, ids, mask)

@@ -142,9 +142,6 @@ def test_what_this_slice_does_not_run_raises():
         tapi.Engine(pipeline=True, device=CPU)
     _, g_t = graph_pair("powerlaw", 100, seed=0)
     eng = tapi.Engine(device=CPU)
-    for algo in ("sv", "msf", "attr_bcast"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            eng.run(algo, g_t, M=2)
     with pytest.raises(ValueError, match="unknown algo"):
         eng.run("bfs", g_t, M=2)
     pg = eng.partition(g_t, 2)

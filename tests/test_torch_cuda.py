@@ -1,9 +1,9 @@
 """The port on the card: the CUDA segment_combine kernels (scalar and
 vector), the flash attention kernel and the SSD chunk scan kernel against
 their plain PyTorch versions, and the main paths at a small size (the
-algorithms and GCN training with the kernels against the dense backend, a
-hybrid model's prefill and decode with the kernels against the plain
-path).
+algorithms, the request-respond ones among them, and GCN training with the
+kernels against the dense backend and the CPU, a hybrid model's prefill
+and decode with the kernels against the plain path).
 
 Every test here carries the ``cuda`` marker and skips without a GPU.  The
 file imports no JAX, so it runs on a machine with a card and PyTorch only:
@@ -358,6 +358,62 @@ def test_main_path_on_the_card(cuda, algo, params):
             np.testing.assert_allclose(a, b, rtol=1e-5)
         else:
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("layout", ["csr", "padded"])
+@pytest.mark.parametrize("algo", ["sv", "msf", "attr_bcast"])
+def test_request_respond_on_the_card(cuda, algo, layout):
+    """S-V, MSF and attribute broadcast on the card (pallas and dense)
+    equal the CPU run through the plain path: labels, MSF's edge count and
+    the attributes bitwise, MSF's weight (float32 sums in another order)
+    within 1e-6, every stat equal; S-V goes through the kernel twice a
+    superstep (the all plan's values and hit counts), the others never."""
+    g = tgen.powerlaw(3000, avg_deg=8, seed=1, weighted=True).symmetrized()
+    runs = {}
+    for device, backend in [(cuda, "pallas"), (cuda, "dense"),
+                            ("cpu", "pallas")]:
+        eng = Engine(backend=backend, layout=layout, device=device)
+        pg = eng.partition(g, 8, tau=20, seed=0)
+        params = {}
+        if algo == "attr_bcast":
+            params["attr"] = 3 * torch.arange(
+                pg.n_pad, dtype=torch.float32, device=pg.device).view(
+                    pg.M, pg.n_loc)
+        before = tkernel.segment_combine_blocks.launches
+        res = eng.run(algo, pg, **params)
+        launches = tkernel.segment_combine_blocks.launches - before
+        on_kernel = algo == "sv" and device == cuda and backend == "pallas"
+        assert launches == (2 * res.n_supersteps if on_kernel else 0)
+        runs[(str(device), backend)] = res
+    base = runs[("cpu", "pallas")]
+    for res in runs.values():
+        assert res.n_supersteps == base.n_supersteps
+        assert set(res.stats) == set(base.stats)
+        for k in base.stats:
+            np.testing.assert_array_equal(np.asarray(res.stats[k]),
+                                          np.asarray(base.stats[k]))
+        if algo == "msf":
+            (la, wa, na), (lb, wb, nb) = res.state, base.state
+            np.testing.assert_array_equal(la.cpu().numpy(), lb.numpy())
+            assert int(na) == int(nb)
+            np.testing.assert_allclose(float(wa), float(wb), rtol=1e-6)
+        else:
+            np.testing.assert_array_equal(res.state.cpu().numpy(),
+                                          base.state.numpy())
+
+
+def test_device_plan_is_uploaded_once_per_card(cuda):
+    """"cuda" and "cuda:<current>" name one card: one device copy of a
+    plan, whichever name the caller used first."""
+    g = tgen.powerlaw(500, avg_deg=8, seed=2).symmetrized()
+    pg = Engine(backend="pallas", layout="csr", device=cuda).partition(
+        g, 4, tau=20, seed=0)
+    plan = tplan.get_plan(pg, "all")
+    first = tplan.device_plan(plan, "cuda")
+    assert tplan.device_plan(plan, pg.device) is first
+    assert tplan.device_plan(plan, torch.device(
+        "cuda", torch.cuda.current_device())) is first
+    assert len(plan.device_cache) == 1
 
 
 def test_kernel_mode_ref_sends_cuda_tensors_to_the_plain_version(cuda):
