@@ -39,6 +39,27 @@ Phases; any failure exits non-zero and prints no result:
    and the busiest worker's load with and without Ch_req (Theorem 3).
    Then S-V on ids that straddle 2^24 (n = 2^24 + 4, M = 2): the labels
    2^24 and 2^24 + 1 must stay apart.
+3b. the sharded executor on that partition: an in-process NCCL group of
+   world size 1 (a ``HashStore``), the tables built once (host seconds
+   and device bytes printed), then ``Engine(devices=1)`` runs the six
+   algorithms with the parameters above, cold and warm.  Gates against the
+   phase's own single-device runs: states bitwise (PageRank rtol 1e-5,
+   MSF's weight 1e-6), every ``msgs_*``/``per_worker_*`` equal, the same
+   supersteps, and the scalar kernel's launches a superstep of
+   ``SHARDED_PER_SS`` (the counts are zeroed before and read after).
+   ``[sharded] D=1`` lines give the device ms a superstep beside the
+   single-device one and the host reads a superstep; ``[profile] sharded``
+   lines the device time of Hash-Min, S-V, MSF and attr_bcast by op.  One superstep's
+   plan launches of Hash-Min and S-V are then replayed through the kernel
+   and its plain version (exact).
+3c. D ranks (spawned, ``tcp://127.0.0.1``) on the n=200k graph of phase 5
+   with M=8, each building it from ``--seed``: NCCL with a card a rank
+   where the machine has two or more (D the largest of 2, 4, 8), else
+   gloo with both ranks on cuda:0 (gloo stages every collective through
+   the host; those host-clock times are labelled so).  The six algorithms
+   on csr/pallas and padded/dense; rank 0 holds each to the one-device run
+   on its card under the gates of 3b and prints the exchange rounds of
+   each routed join.
 4. GCN training at full width on that graph: ``Engine.run("gcn")`` with
    F=32, hidden=64, 8 classes, lr=1e-2, 4 epochs.  The vector kernel's
    launch count must equal what the plan chunks predict (2 joins at F=32
@@ -94,8 +115,9 @@ Phases; any failure exits non-zero and prints no result:
    for the scan each of its three passes' device time over the 32 calls
    of the profiled prefill (torch.profiler) and its CUDA launches a call.
 
-One JSON line ``{"kernels": [...]}`` with all four kernels, then the last
-line ``{"ok": true, "device": {...}}``.
+One JSON line ``{"kernels": [...]}`` with all four kernels (the scalar
+kernel's entry carries ``sharded``: phase 3b's launches and its replay's
+times), then the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -158,6 +180,18 @@ PLAIN_FACTOR = 4.0
 # max); a mask, GQA, state or ring-buffer fault moves it by O(1)
 LAYER_RTOL = 1e-3
 LOGIT_RTOL = 1e-3
+# Scalar kernel launches a superstep on each rank of the sharded executor
+# (phases 3b and 3c): the rank's own eg plan rows (values and hit counts)
+# and mirror plan rows (values; the fan-out needs no exchange) for the
+# broadcast algorithms; the all plan's values and hit counts for S-V; none
+# for MSF and attribute broadcast, whose combines have runtime targets and
+# go through the routed sorted segments.  A rank's stacked plan has at
+# least one row, so it launches even when the rank holds no edge of a kind.
+SHARDED_PER_SS = {"hashmin": 3, "pagerank": 3, "sssp": 3, "sv": 2,
+                  "msf": 0, "attr_bcast": 0}
+SHARDED_M = 8                # workers of phase 3c, M=8 over D ranks
+GROUP_TIMEOUT_S = 120        # every process group's collective timeout
+SHARDED_JOIN_S = 600         # deadline for the phase 3c ranks
 
 
 def fail(msg: str) -> None:
@@ -599,7 +633,8 @@ def oracles(np, g, A, source: int, n_iters: int, damping: float = 0.85):
     return rep[cc], dist, x
 
 
-def assert_stats_equal(np, name, sa, sb):
+def assert_stats_equal(np, name, sa, sb,
+                       between="the pallas and dense backends"):
     """Stats as ``Engine.run`` returns them (host numbers) or as a channel
     join returns them (tensors on the card): equal, integer for integer."""
     def host(x):
@@ -608,8 +643,8 @@ def assert_stats_equal(np, name, sa, sb):
         fail(f"{name}: stat keys differ: {sorted(sa)} vs {sorted(sb)}")
     for k in sa:
         if not np.array_equal(host(sa[k]), host(sb[k])):
-            fail(f"{name}: {k} differs between the pallas and dense "
-                 f"backends: {sa[k]} vs {sb[k]}")
+            fail(f"{name}: {k} differs between {between}: {sa[k]} vs "
+                 f"{sb[k]}")
 
 
 def timed(torch, fn):
@@ -730,7 +765,7 @@ def main_path(torch, np, mods, args, dev, phases):
                      f"{per_ss[algo]} per superstep: the path did not go "
                      "through the kernel" if per_ss[algo] else
                      f"{algo}: {launches} kernel launches, expected none")
-        runs[algo] = (res, launches)
+        runs[algo] = (res, launches, dev_ms)
     main_launches = counter.launches          # ... and ends here
     if counter.launches_vec:
         fail(f"{counter.launches_vec} vector kernel launches on a scalar path")
@@ -801,7 +836,7 @@ def main_path(torch, np, mods, args, dev, phases):
                          ("sv", {}), ("msf", {})]:
         phases.run(f"profile-{algo}", profile_run, torch,
                    lambda: eng.run(algo, pg, **params), algo)
-    return g, A, pg, main_launches, algos
+    return g, A, pg, main_launches, algos, runs, rr_algos
 
 
 def rr_oracles(torch, np, structs, g, A, pg, runs, cc, attr):
@@ -892,6 +927,257 @@ def large_ids(torch, np, api, structs, kernel, dev):
     log(f"[check] S-V at n={n}, M={M}: labels of ids 2^24, 2^24+1, 2^24+3 = "
         f"{got} (exact, int32), {res.n_supersteps} supersteps, {launches} "
         "kernel launches")
+
+
+# ---------------------------------------------------------------------------
+# phases 3b and 3c: the sharded executor
+# ---------------------------------------------------------------------------
+
+def sharded_gate(torch, np, name, algo, one, sh):
+    """Fail unless the sharded run ``sh`` equals the single-device run
+    ``one``: state bitwise (PageRank within rtol 1e-5; MSF's labels and
+    edge count bitwise, its float32 weight within 1e-6), every stat equal,
+    the same supersteps."""
+    if sh.n_supersteps != one.n_supersteps:
+        fail(f"{name}: {sh.n_supersteps} sharded supersteps vs "
+             f"{one.n_supersteps} on one device")
+    assert_stats_equal(np, name, one.stats, sh.stats,
+                       between="the sharded and one-device runs")
+    if algo == "msf":
+        (la, wa, na), (lb, wb, nb) = sh.state, one.state
+        ok = (torch.equal(la.to(lb.device), lb) and int(na) == int(nb)
+              and abs(float(wa) - float(wb)) <= 1e-6 * abs(float(wb)))
+    elif algo == "pagerank":
+        ok = np.allclose(sh.state.cpu().numpy(), one.state.cpu().numpy(),
+                         rtol=1e-5, atol=0)
+    else:
+        ok = torch.equal(sh.state.to(one.state.device), one.state)
+    if not ok:
+        fail(f"{name}: the sharded state differs from the one-device run")
+
+
+def rounds_text(info) -> str:
+    r = info["rounds"]
+    if not r:
+        return "no routed join"
+    return (f"{len(r)} routed joins, exchange rounds a join: max {max(r)}, "
+            f"mean {sum(r) / len(r):.3f}")
+
+
+def sharded_one(torch, np, mods, pg, runs, algos, ref_fn, dev, phases):
+    """Phase 3b: the n=4M partition of the main path on the sharded
+    executor over an in-process NCCL group of world size 1, each
+    algorithm twice (cold, then warm; tables built first), held to the
+    main path's own single-device runs, and four of them profiled; then one superstep's plan launches of Hash-Min and
+    S-V replayed through the kernel and its plain version."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.core import exec as exec_mod
+    api, kernel = mods[0], mods[5]
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    try:
+        eng = api.Engine(backend="pallas", layout="csr", balance="hash",
+                         devices=1, device=dev)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        sg = phases.run("sharded-1-build", exec_mod.shard, pg, 1,
+                        ("eg", "mir", "all"), dev)
+        torch.cuda.synchronize()
+        added = torch.cuda.memory_allocated() - before
+        log(f"[sharded] D=1 shard build: {sg.build_s:.3f} s on the host; "
+            f"the rank's tables {sg.table_bytes() / 2**30:.3f} GiB on the "
+            f"device ({added / 2**30:.3f} GiB allocated)")
+        counter = kernel.segment_combine_blocks
+        counter.launches = counter.launches_vec = 0   # the path starts here
+        for algo, params in algos:
+            # the first run also pays NCCL's lazy set-up and the caching
+            # allocator's growth; the second is the steady state
+            for tag in ("cold", "warm"):
+                before = counter.launches
+                res, dev_ms, host_s = phases.run(
+                    f"sharded-1-{algo}-{tag}", timed, torch,
+                    lambda: eng.run(algo, pg, **params))
+                launches = counter.launches - before
+                one, _, one_ms = runs[algo]
+                sharded_gate(torch, np, f"sharded D=1 {algo}", algo, one, res)
+                n = res.n_supersteps
+                if launches != SHARDED_PER_SS[algo] * n:
+                    fail(f"sharded D=1 {algo}: {launches} kernel launches in "
+                         f"{n} supersteps, expected {SHARDED_PER_SS[algo]} "
+                         "per superstep: the path did not go through the "
+                         "kernel")
+                reads = res.sharded["host_reads"] + (res.jump_reads or 0)
+                log(f"[sharded] D=1 {algo} ({tag}): {n} supersteps, "
+                    f"{dev_ms / n:.3f} ms a superstep on the device clock (one "
+                    f"device {one_ms / n:.3f}), {host_s:.3f} s host; "
+                    f"{launches} kernel launches; {reads / n:.2f} host reads "
+                    f"a superstep; {rounds_text(res.sharded)}")
+        total = counter.launches                   # ... and ends here
+        if counter.launches_vec:
+            fail(f"{counter.launches_vec} vector launches on the sharded path")
+        row = phases.run("sharded-1-replay", sharded_replay, torch, kernel,
+                         ref_fn, eng, pg)
+        profiled = dict(algos)
+        for algo in ("hashmin", "sv", "msf", "attr_bcast"):
+            phases.run(f"profile-sharded-{algo}", profile_run, torch,
+                       lambda: eng.run(algo, pg, **profiled[algo]),
+                       f"sharded D=1 {algo}")
+    finally:
+        dist.destroy_process_group()
+    for key in [k for k in pg.plan_cache if k[0] == "shard"]:
+        del pg.plan_cache[key]
+    del sg
+    torch.cuda.empty_cache()
+    log(f"[check] sharded D=1 over NCCL == one device at n={pg.n}: states "
+        "bitwise (PageRank rtol 1e-5, MSF weight 1e-6), every "
+        "msgs_*/per_worker_* equal, the same supersteps, "
+        f"{SHARDED_PER_SS} kernel launches a superstep; {total} launches")
+    return dict(D=1, launches=total, **row)
+
+
+def sharded_replay(torch, kernel, ref_fn, eng, pg):
+    """One superstep's plan launches of Hash-Min and S-V on the rank,
+    recorded and replayed through the kernel and the plain version on the
+    same inputs (these launches are not counted); min and max combines
+    must agree exactly."""
+    seen = []
+    launch = kernel.launch
+
+    def record(vals, idx, op, nb):
+        seen.append((vals.clone(), idx.clone(), op, nb))
+        return launch(vals, idx, op, nb)
+    kernel.launch = record
+    try:
+        for algo in ("hashmin", "sv"):
+            eng.run(algo, pg, max_supersteps=1)
+    finally:
+        kernel.launch = launch
+    want_n = SHARDED_PER_SS["hashmin"] + SHARDED_PER_SS["sv"]
+    if len(seen) != want_n:
+        fail(f"sharded replay: {len(seen)} launches in one superstep of "
+             f"Hash-Min and S-V, expected {want_n}")
+    row = {"replayed": len(seen), "ms": 0.0, "plain_ms": 0.0,
+           "max_abs_err": 0.0}
+    for vals, idx, op, nb in seen:
+        got, ms = event_ms(torch, lambda: launch(vals, idx, op, nb))
+        want, plain_ms = event_ms(torch, lambda: ref_fn(vals, idx, op, nb))
+        row["ms"] += ms
+        row["plain_ms"] += plain_ms
+        row["max_abs_err"] = max(row["max_abs_err"], compare(
+            torch, got, want, vals, idx, op, nb, ref_fn))
+        log(f"[kernel] sharded D=1 replay: {op} {tuple(vals.shape)} -> "
+            f"nb={nb}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    if row["max_abs_err"] != 0.0:
+        fail(f"sharded replay: max |kernel - plain| {row['max_abs_err']}")
+    return row
+
+
+def sharded_many(torch, args):
+    """Phase 3c: D ranks on the n=200k graph of phase 5, M=8: NCCL with
+    one card a rank where the machine has two or more (D the largest of
+    2, 4, 8 it allows), else gloo with 2 ranks on cuda:0 (gloo stages
+    each CUDA collective through the host, so those times are not the
+    executor's).  Rank 0 holds every run to the one-device run on its
+    card."""
+    import tempfile
+    from repro_torch.launch.graph_run import free_port, spawn_ranks
+    count = torch.cuda.device_count()
+    if count >= 2:
+        backend, D = "nccl", max(d for d in (2, 4, 8) if d <= count)
+    else:
+        backend, D = "gloo", 2
+    log(f"[sharded] D={D}: {backend} over {count} card(s)"
+        + ("; both ranks on cuda:0, every collective staged through the "
+           "host by gloo" if backend == "gloo" else ", one a rank"))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "rank0.json"
+        spawn_ranks(sharded_rank, (D, backend, free_port(), args.seed,
+                                   str(out)), D, SHARDED_JOIN_S)
+        summary = json.loads(out.read_text())
+    log(f"[check] sharded D={D} over {backend} == one device at "
+        f"n={PARITY_N}, M={SHARDED_M}: {len(summary)} runs (six algorithms "
+        "on csr/pallas and padded/dense), states bitwise (PageRank rtol "
+        "1e-5, MSF weight 1e-6), every msgs_*/per_worker_* equal, the same "
+        "supersteps, the kernel launches of SHARDED_PER_SS")
+    return summary
+
+
+def sharded_rank(rank, D, backend, port, seed, out_path):
+    """One rank of phase 3c (spawned): joins the group, builds the graph
+    from ``seed``, runs the six algorithms sharded; rank 0 also runs each
+    on one device and holds the two to the gates of phase 3b."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.core import cost_model
+    from repro_torch.graph import generators as gen
+    from repro_torch.graph import structs
+    from repro_torch.kernels.segment_combine import kernel
+    from repro_torch.train.gcn import normalize_adjacency
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method=f"tcp://127.0.0.1:{port}", world_size=D,
+        rank=rank, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    where = ("staged through the host by gloo" if backend == "gloo"
+             else "NCCL")
+    summary = []
+    try:
+        g = normalize_adjacency(gen.powerlaw(
+            PARITY_N, avg_deg=8, seed=seed, weighted=True).symmetrized())
+        tau = cost_model.choose_tau(g.out_degrees(), SHARDED_M)
+        counter = kernel.segment_combine_blocks
+        for layout, be in (("csr", "pallas"), ("padded", "dense")):
+            eng = api.Engine(backend=be, layout=layout, balance="hash",
+                             devices=D, device=dev)
+            pg = eng.partition(g, SHARDED_M, tau=tau, seed=seed)
+            if rank == 0:
+                one = api.Engine(backend=be, layout=layout, device=dev)
+                pg_one = structs.from_numpy(structs.to_numpy(pg), device=dev)
+            attr = 3 * torch.arange(pg.n_pad, dtype=torch.float32).view(
+                pg.M, pg.n_loc)
+            for algo, params in [
+                    ("hashmin", {}), ("pagerank", {"n_iters": 30, "tol": 0.0}),
+                    ("sssp", {"source": int(pg.perm[0])}), ("sv", {}),
+                    ("msf", {}), ("attr_bcast", {"attr": attr})]:
+                before = counter.launches
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = eng.run(algo, pg, **params)
+                torch.cuda.synchronize()
+                host_s = time.perf_counter() - t0
+                launches = counter.launches - before
+                if rank != 0:
+                    continue
+                name = f"sharded D={D} {layout}/{be} {algo}"
+                if algo == "attr_bcast":
+                    params = {"attr": attr.to(dev)}
+                sharded_gate(torch, np, name, algo,
+                             one.run(algo, pg_one, **params), res)
+                n = res.n_supersteps
+                want = SHARDED_PER_SS[algo] * n if be == "pallas" else 0
+                if launches != want:
+                    fail(f"{name}: {launches} kernel launches in {n} "
+                         f"supersteps, expected {want}: the path did not go "
+                         "through the kernel")
+                reads = res.sharded["host_reads"] + (res.jump_reads or 0)
+                log(f"[sharded] D={D} {layout}/{be} {algo}: {n} supersteps "
+                    f"in {host_s:.3f} s on the host clock ({where}); "
+                    f"{launches} kernel launches; {reads / n:.2f} host reads "
+                    f"a superstep; {rounds_text(res.sharded)}")
+                summary.append({"layout": layout, "backend": be,
+                                "algo": algo, "supersteps": n,
+                                "host_s": host_s, "launches": launches,
+                                "rounds": res.sharded["rounds"]})
+        if rank == 0:
+            Path(out_path).write_text(json.dumps(summary))
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -1877,9 +2163,13 @@ def main():
     vec_err = phases.run("vec-kernel-vs-plain", random_vec_cases, torch, np,
                          kernel, ref_fn, dev, args.seed)
     mods = (api, structs, gen, cost_model, planlib, kernel)
-    g, A, pg, launches, algos = main_path(torch, np, mods, args, dev,
-                                          phases)
+    g, A, pg, launches, algos, runs, rr_algos = main_path(
+        torch, np, mods, args, dev, phases)
     phases.run("sv-2^24", large_ids, torch, np, api, structs, kernel, dev)
+    sharded_row = sharded_one(torch, np, mods, pg, runs, algos + rr_algos,
+                              ref_fn, dev, phases)
+    del runs
+    phases.run("sharded-D", sharded_many, torch, args)
     vec_launches, gcn_peak, inputs = gcn_path(torch, np, args, dev, phases,
                                               g, A, pg)
     del g, A
@@ -1924,6 +2214,7 @@ def main():
                      else "operations"),
         "library_ms": sum(r["library_ms"] for r in rows),
         "per_launch": rows,
+        "sharded": sharded_row,
     })
     # every launch of the counted GCN run: GCN_EPOCHS epochs of 4 joins
     vec_entry = add_ratios({

@@ -22,6 +22,7 @@ import torch
 from repro_torch.algorithms.sv import _acc
 from repro_torch.api import EngineConfig, RunResult, check_config
 from repro_torch.core import bsp
+from repro_torch.core import exec as exec_mod
 from repro_torch.core.channels import gather, gather_edges, scatter_edges
 from repro_torch.graph.structs import PartitionedGraph
 
@@ -29,7 +30,7 @@ IMAX = torch.iinfo(torch.int32).max
 
 
 def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
-        max_rounds: int = 40) -> RunResult:
+        max_rounds: int = 40, device=None) -> RunResult:
     """Boruvka MSF under an EngineConfig.  ``state`` is the tuple (labels
     (M, n_loc) int32, total_weight float32, n_edges int64).  Requires pg
     built from a *weighted, symmetrized* graph.
@@ -38,87 +39,100 @@ def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
     election) go through the pg-level channel wrappers, which follow
     ``pg.layout``; state-shaped ones (pointer jumping) are
     layout-independent.  Pointer jumping loops to convergence (the
-    reference's ``jump_iters`` is unused there and not taken here)."""
+    reference's ``jump_iters`` is unused there and not taken here); under
+    ``devices`` each "changed" vote is global before its host read."""
     cfg = config or EngineConfig()
     check_config(cfg)
     backend = cfg.backend
-    vmask = pg.vmask
-    ids = pg.local_ids().to(torch.int32)
     jump_reads = 0
 
-    def step(state, i):
-        nonlocal jump_reads
-        D, total_w, n_edges = state
-        stats: dict = {}
+    def make_step(g):
+        vmask = g.vmask
+        ids = g.local_ids().to(torch.int32)
 
-        Dv, s = gather_edges(pg, D, pg.all_dst, pg.all_mask)
-        stats = _acc(stats, s)
-        Du = pg.edge_src_values(D, pg.all_src)
-        cross = pg.all_mask & (Dv != Du)
+        def step(state, i):
+            nonlocal jump_reads
+            D, total_w, n_edges = state
+            stats: dict = {}
 
-        # --- 3-stage min-edge election per supervertex -------------------
-        inf_f = torch.full(ids.shape, float("inf"), dtype=torch.float32,
-                           device=ids.device)
-        wmin, s = scatter_edges(pg, inf_f, Du, pg.all_w, cross, "min",
-                                backend=backend)
-        stats = _acc(stats, s)
-        wmin_e, s = gather_edges(pg, wmin, Du, cross)
-        stats = _acc(stats, s)
-        sel = cross & (pg.all_w == wmin_e)
+            Dv, s = gather_edges(g, D, g.all_dst, g.all_mask)
+            stats = _acc(stats, s)
+            Du = g.edge_src_values(D, g.all_src)
+            cross = g.all_mask & (Dv != Du)
 
-        lo = torch.minimum(Du, Dv)
-        hi = torch.maximum(Du, Dv)
-        imax_i = torch.full_like(ids, IMAX)
-        lomin, s = scatter_edges(pg, imax_i, Du, lo, sel, "min",
-                                 backend=backend)
-        stats = _acc(stats, s)
-        lomin_e, s = gather_edges(pg, lomin, Du, sel)
-        stats = _acc(stats, s)
-        sel &= lo == lomin_e
+            # --- 3-stage min-edge election per supervertex ---------------
+            inf_f = torch.full(ids.shape, float("inf"), dtype=torch.float32,
+                               device=ids.device)
+            wmin, s = scatter_edges(g, inf_f, Du, g.all_w, cross, "min",
+                                    backend=backend)
+            stats = _acc(stats, s)
+            wmin_e, s = gather_edges(g, wmin, Du, cross)
+            stats = _acc(stats, s)
+            sel = cross & (g.all_w == wmin_e)
 
-        himin, s = scatter_edges(pg, imax_i, Du, hi, sel, "min",
-                                 backend=backend)
-        stats = _acc(stats, s)
-        himin_e, s = gather_edges(pg, himin, Du, sel)
-        stats = _acc(stats, s)
-        sel &= hi == himin_e
+            lo = torch.minimum(Du, Dv)
+            hi = torch.maximum(Du, Dv)
+            imax_i = torch.full_like(ids, IMAX)
+            lomin, s = scatter_edges(g, imax_i, Du, lo, sel, "min",
+                                     backend=backend)
+            stats = _acc(stats, s)
+            lomin_e, s = gather_edges(g, lomin, Du, sel)
+            stats = _acc(stats, s)
+            sel &= lo == lomin_e
 
-        other = torch.where(lo == Du, hi, lo)
-        tgt, s = scatter_edges(pg, imax_i, Du, other, sel, "min",
-                               backend=backend)
-        stats = _acc(stats, s)
+            himin, s = scatter_edges(g, imax_i, Du, hi, sel, "min",
+                                     backend=backend)
+            stats = _acc(stats, s)
+            himin_e, s = gather_edges(g, himin, Du, sel)
+            stats = _acc(stats, s)
+            sel &= hi == himin_e
 
-        valid = vmask & (tgt != IMAX)
-        t_of_t, s = gather(pg, tgt, torch.where(valid, tgt, 0), valid)
-        stats = _acc(stats, s)
-        mutual = valid & (t_of_t == ids)
+            other = torch.where(lo == Du, hi, lo)
+            tgt, s = scatter_edges(g, imax_i, Du, other, sel, "min",
+                                   backend=backend)
+            stats = _acc(stats, s)
 
-        add = valid & (~mutual | (ids < tgt))
-        total_w = total_w + pg.gsum(torch.where(add, wmin, 0.0))
-        n_edges = n_edges + pg.gsum(add)
+            valid = vmask & (tgt != IMAX)
+            t_of_t, s = gather(g, tgt, torch.where(valid, tgt, 0), valid)
+            stats = _acc(stats, s)
+            mutual = valid & (t_of_t == ids)
 
-        is_root = D == ids
-        hookD = torch.where(mutual & (ids < tgt), ids, tgt)
-        D1 = torch.where(is_root & valid, hookD, D)
+            add = valid & (~mutual | (ids < tgt))
+            total_w = total_w + g.gsum(torch.where(add, wmin, 0.0))
+            n_edges = n_edges + g.gsum(add)
 
-        # --- pointer jumping (subvertices chase the supervertex) ---------
-        jumps: dict = {}
-        Dj = D1
-        changed = bool(pg.gany(D1 != D))
-        jump_reads += 1
-        while changed:
-            DD, s = gather(pg, Dj, Dj, vmask)
-            jumps = _acc(jumps, s)
-            changed = bool(pg.gany(DD != Dj))
+            is_root = D == ids
+            hookD = torch.where(mutual & (ids < tgt), ids, tgt)
+            D1 = torch.where(is_root & valid, hookD, D)
+
+            # --- pointer jumping (subvertices chase the supervertex) -----
+            jumps: dict = {}
+            Dj = D1
+            changed = bool(g.gany(D1 != D))
             jump_reads += 1
-            Dj = DD
-        if jumps:
-            stats = _acc(stats, jumps)
+            while changed:
+                DD, s = gather(g, Dj, Dj, vmask)
+                jumps = _acc(jumps, s)
+                changed = bool(g.gany(DD != Dj))
+                jump_reads += 1
+                Dj = DD
+            if jumps:
+                stats = _acc(stats, jumps)
 
-        return (Dj, total_w, n_edges), ~pg.gany(valid), stats
+            return (Dj, total_w, n_edges), ~g.gany(valid), stats
+        return step
 
-    state0 = (ids, torch.zeros((), dtype=torch.float32, device=ids.device),
-              torch.zeros((), dtype=torch.int64, device=ids.device))
-    st, stats, n, _ = bsp.run(step, state0, max_rounds)
+    def init(g):
+        dev = g.vmask.device
+        return (g.local_ids().to(torch.int32),
+                torch.zeros((), dtype=torch.float32, device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev))
+
+    if cfg.devices is None:
+        st, stats, n, _ = bsp.run(make_step(pg), init(pg), max_rounds)
+        return RunResult(state=st, stats=stats, n_supersteps=n,
+                         jump_reads=jump_reads)
+    st, stats, n, _, info = exec_mod.run_sharded(
+        pg, make_step, init, max_rounds, devices=cfg.devices, device=device)
     return RunResult(state=st, stats=stats, n_supersteps=n,
-                     jump_reads=jump_reads)
+                     jump_reads=jump_reads, sharded=info)

@@ -7,29 +7,43 @@ import torch
 
 from repro_torch.api import EngineConfig, RunResult, check_config
 from repro_torch.core import bsp
+from repro_torch.core import exec as exec_mod
 from repro_torch.core.channels import broadcast
 from repro_torch.graph.structs import PartitionedGraph
 
 
 def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
-        source: int, max_supersteps: int = 10_000) -> RunResult:
+        source: int, max_supersteps: int = 10_000, device=None
+        ) -> RunResult:
     """SSSP under an EngineConfig.  ``source`` is a vertex id in the
     *relabeled* space (use pg.perm[orig]); ``state`` is the (M, n_loc)
     float32 distance array (inf where unreachable)."""
     cfg = config or EngineConfig()
     check_config(cfg)
 
-    def step(state, i):
-        dist, active = state
-        inbox, stats = broadcast(pg, dist, active, op="min", relay="add_w",
-                                 use_mirroring=cfg.use_mirroring,
-                                 backend=cfg.backend)
-        upd = pg.vmask & (inbox < dist)
-        new = torch.where(upd, inbox, dist)
-        return (new, upd), ~pg.gany(upd), stats
+    def make_step(g):
+        def step(state, i):
+            dist, active = state
+            inbox, stats = broadcast(g, dist, active, op="min",
+                                     relay="add_w",
+                                     use_mirroring=cfg.use_mirroring,
+                                     backend=cfg.backend)
+            upd = g.vmask & (inbox < dist)
+            new = torch.where(upd, inbox, dist)
+            return (new, upd), ~g.gany(upd), stats
+        return step
 
-    is_src = pg.local_ids() == source
-    dist0 = torch.where(pg.vmask & is_src, 0.0, float("inf")).to(
-        torch.float32)
-    st, stats, n, _ = bsp.run(step, (dist0, is_src), max_supersteps)
-    return RunResult(state=st[0], stats=stats, n_supersteps=n)
+    def init(g):
+        is_src = g.local_ids() == source
+        return (torch.where(g.vmask & is_src, 0.0, float("inf")).to(
+            torch.float32), is_src)
+
+    if cfg.devices is None:
+        st, stats, n, _ = bsp.run(make_step(pg), init(pg), max_supersteps)
+        return RunResult(state=st[0], stats=stats, n_supersteps=n)
+    st, stats, n, _, info = exec_mod.run_sharded(
+        pg, make_step, init, max_supersteps, devices=cfg.devices,
+        device=device, final=lambda s: s[0],
+        plan_kinds=exec_mod.broadcast_plan_kinds(cfg.backend,
+                                                 cfg.use_mirroring))
+    return RunResult(state=st, stats=stats, n_supersteps=n, sharded=info)

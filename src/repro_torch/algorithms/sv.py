@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.api import EngineConfig, RunResult, check_config
 from repro_torch.core import bsp
+from repro_torch.core import exec as exec_mod
 from repro_torch.core.channels import broadcast, gather, scatter_state
 from repro_torch.core.plan import identity_of
 from repro_torch.graph.structs import PartitionedGraph
@@ -38,7 +39,7 @@ def _acc(stats: dict, s: dict) -> dict:
 
 
 def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
-        max_supersteps: int = 64) -> RunResult:
+        max_supersteps: int = 64, device=None) -> RunResult:
     """Shiloach-Vishkin under an EngineConfig.  ``state`` is the
     (M, n_loc) int32 label array (min id of each component).  Pointer
     reads are request-respond exchanges, so ``use_mirroring`` does not
@@ -47,57 +48,70 @@ def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
     check_config(cfg)
     imax = identity_of("min", torch.int32)
     backend = cfg.backend
-    vmask = pg.vmask
 
-    def step(D, i):
-        stats: dict = {}
+    def make_step(g):
+        vmask = g.vmask
 
-        # D[D[u]]: THE skewed pointer read (request-respond)
-        DD, s = gather(pg, D, D, vmask)
-        stats = _acc(stats, s)
-        parent_is_root = DD == D
+        def step(D, i):
+            stats: dict = {}
 
-        # cand[u] = min over neighbours v of D[v] (push D, min combiner, in
-        # the id dtype)
-        cand_i, s = broadcast(pg, D, vmask, op="min", use_mirroring=False,
-                              backend=backend)
-        stats = _acc(stats, s)
-        has_nbr = cand_i != imax
-        cand = torch.where(has_nbr, cand_i, 2 ** 30)
+            # D[D[u]]: THE skewed pointer read (request-respond)
+            DD, s = gather(g, D, D, vmask)
+            stats = _acc(stats, s)
+            parent_is_root = DD == D
 
-        # (1) tree hooking: roots get hooked onto smaller neighbour-parents
-        hook_mask = vmask & parent_is_root & has_nbr & (cand < D)
-        D1, s = scatter_state(pg, D, D, cand, hook_mask, "min",
-                              backend=backend)
-        stats = _acc(stats, s)
+            # cand[u] = min over neighbours v of D[v] (push D, min
+            # combiner, in the id dtype)
+            cand_i, s = broadcast(g, D, vmask, op="min",
+                                  use_mirroring=False, backend=backend)
+            stats = _acc(stats, s)
+            has_nbr = cand_i != imax
+            cand = torch.where(has_nbr, cand_i, 2 ** 30)
 
-        # star detection on the hooked forest
-        DD1, s = gather(pg, D1, D1, vmask)
-        stats = _acc(stats, s)
-        star = (DD1 == D1).to(torch.int32)
-        deep = vmask & (DD1 != D1)
-        star, s = scatter_state(pg, star, DD1, torch.zeros_like(star), deep,
-                                "min", backend=backend)
-        stats = _acc(stats, s)
-        star_of_parent, s = gather(pg, star, D1, vmask)
-        stats = _acc(stats, s)
-        in_star = vmask & (star_of_parent > 0)
+            # (1) tree hooking: roots get hooked onto smaller
+            # neighbour-parents
+            hook_mask = vmask & parent_is_root & has_nbr & (cand < D)
+            D1, s = scatter_state(g, D, D, cand, hook_mask, "min",
+                                  backend=backend)
+            stats = _acc(stats, s)
 
-        # (2) star hooking
-        hook2 = in_star & has_nbr & (cand < D1)
-        D2, s = scatter_state(pg, D1, D1, cand, hook2, "min",
-                              backend=backend)
-        stats = _acc(stats, s)
+            # star detection on the hooked forest
+            DD1, s = gather(g, D1, D1, vmask)
+            stats = _acc(stats, s)
+            star = (DD1 == D1).to(torch.int32)
+            deep = vmask & (DD1 != D1)
+            star, s = scatter_state(g, star, DD1, torch.zeros_like(star),
+                                    deep, "min", backend=backend)
+            stats = _acc(stats, s)
+            star_of_parent, s = gather(g, star, D1, vmask)
+            stats = _acc(stats, s)
+            in_star = vmask & (star_of_parent > 0)
 
-        # (3) shortcutting: D[u] = D[D[u]]
-        DD2, s = gather(pg, D2, D2, vmask)
-        stats = _acc(stats, s)
-        D3 = torch.where(vmask, torch.minimum(D2, DD2), D)
+            # (2) star hooking
+            hook2 = in_star & has_nbr & (cand < D1)
+            D2, s = scatter_state(g, D1, D1, cand, hook2, "min",
+                                  backend=backend)
+            stats = _acc(stats, s)
 
-        halted = (pg.gall(D3 == D) & ~pg.gany(hook_mask)
-                  & ~pg.gany(hook2))
-        return D3, halted, stats
+            # (3) shortcutting: D[u] = D[D[u]]
+            DD2, s = gather(g, D2, D2, vmask)
+            stats = _acc(stats, s)
+            D3 = torch.where(vmask, torch.minimum(D2, DD2), D)
 
-    D0 = pg.local_ids().to(torch.int32)
-    D, stats, n, _ = bsp.run(step, D0, max_supersteps)
-    return RunResult(state=D, stats=stats, n_supersteps=n)
+            halted = (g.gall(D3 == D) & ~g.gany(hook_mask)
+                      & ~g.gany(hook2))
+            return D3, halted, stats
+        return step
+
+    def init(g):
+        return g.local_ids().to(torch.int32)
+
+    if cfg.devices is None:
+        D, stats, n, _ = bsp.run(make_step(pg), init(pg), max_supersteps)
+        return RunResult(state=D, stats=stats, n_supersteps=n)
+    D, stats, n, _, info = exec_mod.run_sharded(
+        pg, make_step, init, max_supersteps, devices=cfg.devices,
+        device=device,
+        plan_kinds=exec_mod.broadcast_plan_kinds(backend,
+                                                 use_mirroring=False))
+    return RunResult(state=D, stats=stats, n_supersteps=n, sharded=info)

@@ -9,9 +9,17 @@
 
 ``EngineConfig`` has the reference's fields and config strings, so one
 config drives both packages.  The device is an argument of ``Engine``
-(default ``"cuda"``; without CUDA it raises unless ``device="cpu"``).  The
-port runs on one device: ``devices`` and ``pipeline`` raise
-``NotImplementedError``.
+(default ``"cuda"``; without CUDA it raises unless ``device="cpu"``).
+
+``devices=D`` (an int) runs the graph algorithms on the sharded executor
+(``core/exec.py``): one process a device, each calling ``Engine.run`` with
+its own ``device`` after initializing the default ``torch.distributed``
+process group of world size D (NCCL between GPUs, gloo between CPU
+processes; ``launch/graph_run.py --devices D`` does this).  The engine
+then partitions on the host, and each rank moves only its own slice of the
+tables to its device.  Not ported yet, and refused: a ``(hosts,
+per_host)`` mesh, ``pipeline=True``, ``balance="split"`` with
+``devices``, and sharded GCN training.
 """
 from __future__ import annotations
 
@@ -41,9 +49,9 @@ class EngineConfig:
     """Execution configuration, orthogonal to any one algorithm (the
     fields of ``repro.api.EngineConfig``).
 
-    ``devices``: None = single-device batched simulation (the only mode of
-    this slice); ``hosts`` makes ``partition()`` place workers
-    host-affinely.
+    ``devices``: None = single-device batched simulation; an int D = the
+    sharded executor over D ranks; ``hosts`` makes ``partition()`` place
+    workers host-affinely.
     """
     backend: str = "dense"          # "dense" | "pallas" channel combine
     layout: str = "padded"          # "padded" | "csr" edge layout
@@ -56,15 +64,28 @@ class EngineConfig:
 
 
 def check_config(cfg: EngineConfig) -> None:
-    """Raise for what this slice of the port does not run (no fallback)."""
-    if cfg.devices is not None:
+    """Raise for what this port does not run yet (no fallback)."""
+    if isinstance(cfg.devices, (tuple, list)):
         raise NotImplementedError(
-            f"EngineConfig(devices={cfg.devices!r}): the sharded executor "
-            "comes with a later slice of the port; use devices=None")
+            f"EngineConfig(devices={cfg.devices!r}): the (hosts, per_host) "
+            "sharded mesh comes with a later slice of the port; pass an int")
+    if cfg.devices is not None and cfg.balance == "split":
+        raise NotImplementedError(
+            'EngineConfig(balance="split") with devices: the physical-shard '
+            "device placement of the sharded executor comes with a later "
+            "slice of the port")
     if cfg.pipeline:
         raise NotImplementedError(
-            "EngineConfig(pipeline=True) pipelines the sharded executor, "
-            "which comes with a later slice of the port")
+            "EngineConfig(pipeline=True) pipelines the sharded executor's "
+            "exchanges, which comes with a later slice of the port")
+
+
+def config_of(pg: structs.PartitionedGraph, **overrides) -> EngineConfig:
+    """An EngineConfig whose partition-time fields mirror ``pg``."""
+    base = dict(layout=pg.layout, balance=pg.balance,
+                split_factor=pg.split_factor, hosts=pg.hosts)
+    base.update(overrides)
+    return EngineConfig(**base)
 
 
 @dataclasses.dataclass
@@ -72,12 +93,15 @@ class RunResult:
     """Uniform algorithm result.  ``state`` is the algorithm's output
     tensor (labels / pr / dist); ``history`` the per-superstep stats when
     recorded, else None; ``jump_reads`` the host reads of MSF's pointer
-    jumping loops (None for the other algorithms)."""
+    jumping loops (None for the other algorithms); ``sharded`` what the
+    sharded executor reports of this rank's run (``exec.run_sharded``'s
+    ``info``; None on one device)."""
     state: Any
     stats: dict
     n_supersteps: int
     history: Any = None
     jump_reads: Optional[int] = None
+    sharded: Optional[dict] = None
 
     def load_report(self) -> Optional[dict]:
         """Measured per-worker load of this run: the
@@ -113,29 +137,41 @@ class Engine:
         check_config(config)
         self.config = config
         self.device = structs.resolve_device(device)
+        if config.devices is not None:
+            from repro_torch.core import exec as exec_mod
+            exec_mod.world(None, config.devices, self.device)
 
     def partition(self, g: structs.Graph, M: int,
                   tau: Optional[int] = None, seed: int = 0,
                   perm=None) -> structs.PartitionedGraph:
+        """Partition ``g`` onto this engine's device, or, under
+        ``devices``, on the host: each rank of the sharded executor moves
+        only its own slice to its device."""
         cfg = self.config
         return structs.partition(g, M, tau=tau, seed=seed,
                                  layout=cfg.layout, balance=cfg.balance,
                                  split_factor=cfg.split_factor,
                                  hosts=cfg.hosts, perm=perm,
-                                 device=self.device)
+                                 device=("cpu" if cfg.devices is not None
+                                         else self.device))
 
     def run(self, algo: str, graph, M: Optional[int] = None,
             tau: Optional[int] = None, seed: int = 0,
             **algo_params) -> RunResult:
         """Run ``algo`` on ``graph`` (a PartitionedGraph on this engine's
         device, or a host Graph partitioned on the fly — then ``M`` is
-        required)."""
+        required).  Under ``devices`` the partition may live anywhere:
+        the sharded executor reads only its host tables, and this rank
+        runs on the engine's device."""
         if algo not in ALGORITHMS:
             raise ValueError(f"unknown algo {algo!r}; one of "
                              f"{sorted(ALGORITHMS)}")
+        sharded = self.config.devices is not None
+        if sharded and algo != "gcn":        # gcn refuses devices itself
+            algo_params = dict(algo_params, device=self.device)
         if isinstance(graph, structs.PartitionedGraph):
             pg = graph
-            if pg.device != self.device:
+            if not sharded and pg.device != self.device:
                 raise ValueError(f"the partition lives on {pg.device}, "
                                  f"the engine runs on {self.device}")
         else:

@@ -13,6 +13,11 @@ it, so the reference's (hi, lo) int32 limbs are not needed), float stats
 in their own dtype.  They are returned as ``repro.core.bsp.finalize_totals``
 returns them: Python ints for integer scalars, ``np.int64`` arrays for
 integer vectors, numpy arrays for floats.
+
+``run`` also drives the sharded executor (``core/exec.py``) unchanged, one
+process a device: there ``vote`` makes ``halted`` the same on every rank
+before the host reads it, and ``reduce`` sums every rank's partial stats
+(int64 totals and the history) once, after the last superstep.
 """
 from __future__ import annotations
 
@@ -37,14 +42,17 @@ def finalize_totals(acc: Dict[str, torch.Tensor]) -> Dict[str, object]:
 
 
 def run(step: Callable, state, max_supersteps: int,
-        record_history: bool = False
+        record_history: bool = False, vote: Optional[Callable] = None,
+        reduce: Optional[Callable] = None
         ) -> Tuple[object, Dict, int, Optional[Dict[str, torch.Tensor]]]:
     """Run ``step`` until halt or ``max_supersteps``.
 
     Returns ``(final_state, stats_totals, n_supersteps, history)``.
     ``history`` is, when ``record_history=True``, a dict of tensors with a
     leading ``max_supersteps`` axis holding each superstep's stats (zeros
-    past the last superstep, as in the reference); else None."""
+    past the last superstep, as in the reference); else None.  ``vote``
+    maps each superstep's ``halted`` to the global vote; ``reduce`` sums
+    one device tensor in place over the ranks."""
     acc: Dict[str, torch.Tensor] = {}
     hist: Optional[Dict[str, torch.Tensor]] = None
     n = 0
@@ -63,6 +71,11 @@ def run(step: Callable, state, max_supersteps: int,
             if hist is not None:
                 hist[k][n] = v
         n += 1
+        if vote is not None:
+            halted = vote(halted)
         if bool(halted):            # the one host read of the superstep
             break
+    if reduce is not None:
+        for a in list(acc.values()) + list((hist or {}).values()):
+            reduce(a)
     return state, finalize_totals(acc), n, hist

@@ -24,6 +24,11 @@ channels hand the plans an ``EdgeMap`` that composes the source gather,
 the relay and the masks, and the plan computes one row chunk at a time.
 ``count=False`` skips the accounting (the gSpMM joins inside training,
 whose stats the reference drops).
+
+The pg-level entry points (``broadcast``, ``gather``, ``gather_edges``,
+``scatter_state``, ``scatter_edges``) also take one rank's
+``exec.ShardedGraph``; they then route to the sharded implementations of
+``core/exec.py``, whose stats are that rank's part of the totals.
 """
 from __future__ import annotations
 
@@ -65,6 +70,12 @@ def _edge_map(rows: torch.Tensor, index: torch.Tensor, ew: torch.Tensor,
     return EdgeMap(lambda e: relay_values(rows[index[e]], ew[e], relay),
                    index.shape[0], rows.shape[1], rows.dtype, rows.device)
 
+
+
+def _sharded(pg) -> bool:
+    """True when ``pg`` is one rank's ``exec.ShardedGraph``: the pg-level
+    channels then route to the sharded implementations."""
+    return getattr(pg, "sharded", False)
 
 
 def _check_backend(backend: str) -> None:
@@ -313,6 +324,10 @@ def broadcast(pg: PartitionedGraph, vals: torch.Tensor,
     representation; results and stats are layout-invariant.
     ``count=False`` returns no stats."""
     _check_backend(backend)
+    if _sharded(pg):
+        from repro_torch.core import exec as exec_mod
+        return exec_mod.broadcast_sharded(pg, vals, active, op, relay,
+                                          use_mirroring, backend)
     kind = "eg" if use_mirroring else "all"
     esrc = getattr(pg, f"{kind}_src").long()
     edst = getattr(pg, f"{kind}_dst")
@@ -536,6 +551,9 @@ def gather(pg: PartitionedGraph, vals: torch.Tensor, targets: torch.Tensor,
            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Distributed pointer read ``vals[target]`` for state-shaped target
     rows (S-V / MSF pointer chasing)."""
+    if _sharded(pg):
+        from repro_torch.core import exec as exec_mod
+        return exec_mod.gather_sharded(pg, vals, targets, tmask, dedup)
     return rr_gather(vals, targets, tmask, pg.M, pg.n_loc, dedup)
 
 
@@ -547,6 +565,9 @@ def gather_edges(pg: PartitionedGraph, vals: torch.Tensor,
     adjacency (attribute broadcast, MSF neighbour reads): padded rows go
     through ``rr_gather``, flat csr through ``rr_gather_flat`` with the
     per-edge source worker of ``pg.all_src``."""
+    if _sharded(pg):
+        from repro_torch.core import exec as exec_mod
+        return exec_mod.gather_edges_sharded(pg, vals, targets, tmask, dedup)
     if pg.layout == "csr":
         worker, log_of = _flat_worker(pg, "all")
         return rr_gather_flat(vals, targets, worker, tmask, pg.M, pg.n_loc,
@@ -560,6 +581,10 @@ def scatter_state(pg: PartitionedGraph, base: torch.Tensor,
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Distributed scatter-``op`` for state-shaped runtime targets (S-V
     hooking writes)."""
+    if _sharded(pg):
+        from repro_torch.core import exec as exec_mod
+        return exec_mod.scatter_state_sharded(pg, base, targets, upd, mask,
+                                              op, backend)
     return scatter_combine(base, targets, upd, mask, op, pg.M, pg.n_loc,
                            backend=backend)
 
@@ -570,6 +595,10 @@ def scatter_edges(pg: PartitionedGraph, base: torch.Tensor,
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Distributed scatter-``op`` for edge-shaped runtime values aligned
     with the ``all`` adjacency (MSF min-edge election)."""
+    if _sharded(pg):
+        from repro_torch.core import exec as exec_mod
+        return exec_mod.scatter_edges_sharded(pg, base, targets, upd, mask,
+                                              op, backend)
     if pg.layout == "csr":
         worker, log_of = _flat_worker(pg, "all")
         return scatter_combine_flat(base, targets, upd, mask, worker, op,

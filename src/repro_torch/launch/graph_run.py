@@ -6,11 +6,18 @@
 Runs a full BSP computation on one device (``--device``, the GPU by
 default) and reports the paper's metrics: total messages under each
 channel mode, per-worker balance, supersteps, wall time.  The same flags
-and output lines as ``repro.launch.graph_run`` for the single-device path.
+and output lines as ``repro.launch.graph_run``.
+
+``--devices D`` runs the sharded executor on D ranks, one process each
+(``torch.multiprocessing``): on ``--device cuda`` an NCCL group with rank
+r on ``cuda:r`` (D may not exceed the visible GPUs), on ``--device cpu`` a
+gloo group.  Every rank builds the graph from ``--seed``; rank 0 prints.
 """
 from __future__ import annotations
 
 import argparse
+import datetime
+import socket
 import time
 
 import numpy as np
@@ -46,7 +53,59 @@ def build(graph: str, n: int, seed: int, M: int, tau_arg: str,
     return g, pg, tau
 
 
-def main(argv=None):
+#: the process group's collective timeout, and how long the launcher
+#: waits for its ranks
+GROUP_TIMEOUT_S = 120
+JOIN_TIMEOUT_S = 3600
+
+
+def free_port() -> int:
+    """A free TCP port on localhost for the process group's rendezvous."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(fn, args: tuple, nprocs: int, timeout_s: float) -> None:
+    """Run ``fn(rank, *args)`` in ``nprocs`` spawned processes and join
+    them within ``timeout_s``; a rank that fails or hangs fails the
+    launch, and every rank is stopped."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{nprocs} ranks did not finish within "
+                                   f"{timeout_s:.0f} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def _rank_main(rank: int, argv, port: int) -> None:
+    """One rank of ``--devices D``: join the process group, then run."""
+    import torch
+    import torch.distributed as dist
+    args = parse_args(argv)
+    cuda = torch.device(args.device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(rank)
+    dist.init_process_group(
+        "nccl" if cuda else "gloo", init_method=f"tcp://127.0.0.1:{port}",
+        world_size=args.devices, rank=rank,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    try:
+        run(args, rank=rank,
+            device=torch.device("cuda", rank) if cuda else "cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--algo", default="hashmin", choices=list(ALGOS))
     ap.add_argument("--graph", default="powerlaw", choices=list(GRAPH_NAMES))
@@ -83,23 +142,50 @@ def main(argv=None):
                     help="gcn: full-graph AdamW steps")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (cuda, or cpu)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--devices", type=int, default=None,
+                    help="run the sharded executor on this many ranks, one "
+                         "process each (NCCL on cuda:<rank>, gloo on cpu)")
+    return ap.parse_args(argv)
 
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.devices is None:
+        run(args)
+        return
+    from repro_torch.graph.structs import resolve_device
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        import torch
+        if args.devices > torch.cuda.device_count():
+            raise RuntimeError(
+                f"--devices {args.devices} on cuda puts one GPU under each "
+                f"rank; {torch.cuda.device_count()} are visible")
+    spawn_ranks(_rank_main, (argv, free_port()), args.devices,
+                JOIN_TIMEOUT_S)
+
+
+def run(args, rank: int = 0, device=None):
+    """The run itself, on ``device`` (default ``--device``); only rank 0
+    prints."""
     from repro_torch.api import Engine
     from repro_torch.core.cost_model import straggler_report
 
+    device = args.device if device is None else device
+    show = print if rank == 0 else (lambda *a, **k: None)
+    part_dev = "cpu" if args.devices is not None else device
     g, pg, tau = build(args.graph, args.n, args.seed, args.workers,
                        args.tau, layout=args.layout, balance=args.balance,
-                       split_factor=args.split_factor, device=args.device)
-    print(f"[graph] {args.graph}: n={g.n} m={g.m} M={args.workers} "
-          f"tau={tau} max_deg={int(g.out_degrees().max())} "
-          f"backend={args.backend} layout={args.layout} "
-          f"balance={args.balance} device={pg.device}")
+                       split_factor=args.split_factor, device=part_dev)
+    show(f"[graph] {args.graph}: n={g.n} m={g.m} M={args.workers} "
+        f"tau={tau} max_deg={int(g.out_degrees().max())} "
+        f"backend={args.backend} layout={args.layout} "
+        f"balance={args.balance} device={device} devices={args.devices}")
 
     mirror = not args.no_mirroring and tau is not None
     eng = Engine(backend=args.backend, layout=args.layout,
                  balance=args.balance, split_factor=args.split_factor,
-                 use_mirroring=mirror, device=args.device)
+                 use_mirroring=mirror, devices=args.devices, device=device)
 
     t0 = time.time()
     if args.algo == "sssp":
@@ -117,9 +203,9 @@ def main(argv=None):
         pg = eng.partition(gw.symmetrized(), args.workers, tau=None,
                            seed=args.seed)
         res = eng.run("msf", pg)
-        print(f"[msf] total weight {float(res.state[1]):.2f}, "
-              f"{int(res.state[2])} edges, {res.jump_reads} host reads in "
-              "its pointer jumping")
+        show(f"[msf] total weight {float(res.state[1]):.2f}, "
+             f"{int(res.state[2])} edges, {res.jump_reads} host reads in "
+             "its pointer jumping")
     elif args.algo == "gcn":
         from repro_torch.core.gspmm import gspmm_stats
         from repro_torch.train.gcn import normalize_adjacency
@@ -130,10 +216,10 @@ def main(argv=None):
                       hidden=args.hidden, n_classes=args.classes,
                       epochs=args.epochs, seed=args.seed)
         losses = res.history
-        print(f"[gcn] F={args.feat_dim} hidden={args.hidden} "
-              f"classes={args.classes}: loss "
-              f"{losses[0]:.4f} -> {losses[-1]:.4f} over "
-              f"{args.epochs} epochs")
+        show(f"[gcn] F={args.feat_dim} hidden={args.hidden} "
+             f"classes={args.classes}: loss "
+             f"{losses[0]:.4f} -> {losses[-1]:.4f} over "
+             f"{args.epochs} epochs")
         # message accounting for ONE aggregation join (the training step
         # runs 4 per epoch: 2 forward + 2 backward-cotangent joins)
         _, res.stats = gspmm_stats(pg, "u_mul_e_sum", res.state["emb"],
@@ -152,19 +238,19 @@ def main(argv=None):
     dt = time.time() - t0
 
     rep = straggler_report(pg.edge_load(phys=True))
-    print(f"[balance] {args.balance}: workers {pg.M} -> {pg.M_phys} "
-          f"physical shards; edge-load max/mean="
-          f"{rep['max_over_mean']:.2f} cv={rep['cv']:.2f}")
-    print(f"[run] {args.algo}: {int(n_ss)} supersteps in {dt:.2f}s")
+    show(f"[balance] {args.balance}: workers {pg.M} -> {pg.M_phys} "
+         f"physical shards; edge-load max/mean="
+         f"{rep['max_over_mean']:.2f} cv={rep['cv']:.2f}")
+    show(f"[run] {args.algo}: {int(n_ss)} supersteps in {dt:.2f}s")
     for k in ("msgs_total", "msgs_combined", "msgs_mirror", "msgs_basic",
               "msgs_rr"):
         if k in stats:
-            print(f"  {k:16s} {int(stats[k]):>14,d}")
+            show(f"  {k:16s} {int(stats[k]):>14,d}")
     for k in ("per_worker_total", "per_worker_rr", "per_worker_basic"):
         if k in stats:
             rep = straggler_report(np.asarray(stats[k]))
-            print(f"  balance[{k}]: max/mean={rep['max_over_mean']:.2f} "
-                  f"cv={rep['cv']:.2f} gini={rep['gini']:.3f}")
+            show(f"  balance[{k}]: max/mean={rep['max_over_mean']:.2f} "
+                 f"cv={rep['cv']:.2f} gini={rep['gini']:.3f}")
 
 
 if __name__ == "__main__":

@@ -156,7 +156,8 @@ def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
     params, losses = train_gcn(
         pg, feat_dim=feat_dim, hidden=hidden, n_classes=n_classes,
         epochs=epochs, lr=lr, seed=seed, backend=cfg.backend,
-        use_mirroring=cfg.use_mirroring, params=params)
+        devices=cfg.devices, use_mirroring=cfg.use_mirroring,
+        params=params)
     return RunResult(state=params, stats={}, n_supersteps=epochs,
                      history=losses)
 
@@ -170,6 +171,10 @@ def train_gcn(pg: PartitionedGraph, feat_dim: int = 32, hidden: int = 64,
     ``(params, loss_history)``.  ``pg`` must be partitioned from a
     :func:`normalize_adjacency`'d (or at least symmetrized) graph."""
     check_config(EngineConfig(devices=devices, pipeline=pipeline))
+    if devices is not None:
+        raise NotImplementedError(
+            f"GCN training with devices={devices!r}: the sharded GNN path "
+            "(gspmm_sharded) comes with a later slice of the port")
     torch.backends.cuda.matmul.allow_tf32 = False
     if params is None:
         params = init_gcn_params(pg, feat_dim, hidden, n_classes, seed)

@@ -137,7 +137,7 @@ def test_engine_partitions_host_graphs_like_the_reference():
 
 def test_what_this_slice_does_not_run_raises():
     with pytest.raises(NotImplementedError, match="sharded"):
-        tapi.Engine(devices=2, device=CPU)
+        tapi.Engine(devices=(1, 2), device=CPU)
     with pytest.raises(NotImplementedError, match="pipeline"):
         tapi.Engine(pipeline=True, device=CPU)
     _, g_t = graph_pair("powerlaw", 100, seed=0)
@@ -147,7 +147,7 @@ def test_what_this_slice_does_not_run_raises():
     pg = eng.partition(g_t, 2)
     from repro_torch.algorithms import hashmin
     with pytest.raises(NotImplementedError):
-        hashmin.run(pg, tapi.EngineConfig(devices=4))
+        hashmin.run(pg, tapi.EngineConfig(devices=(2, 2)))
 
 
 def test_bsp_totals_are_exact_int64():

@@ -2,7 +2,8 @@
 vector), the flash attention kernel and the SSD chunk scan kernel against
 their plain PyTorch versions, and the main paths at a small size (the
 algorithms, the request-respond ones among them, and GCN training with the
-kernels against the dense backend and the CPU, a hybrid model's prefill
+kernels against the dense backend and the CPU, Hash-Min and S-V on the
+sharded executor over an NCCL group of size 1, a hybrid model's prefill
 and decode with the kernels against the plain path).
 
 Every test here carries the ``cuda`` marker and skips without a GPU.  The
@@ -400,6 +401,43 @@ def test_request_respond_on_the_card(cuda, algo, layout):
         else:
             np.testing.assert_array_equal(res.state.cpu().numpy(),
                                           base.state.numpy())
+
+
+@pytest.mark.parametrize("algo", ["hashmin", "sv"])
+def test_sharded_on_one_card_over_nccl(cuda, algo):
+    """The sharded executor through an in-process NCCL group of size 1
+    equals the single-device run on the card: labels bitwise, every stat
+    equal, the same supersteps and the same kernel launches a superstep
+    (this rank's plan rows go through the scalar kernel)."""
+    import datetime
+    import torch.distributed as dist
+    g = tgen.powerlaw(3000, avg_deg=8, seed=1, weighted=True).symmetrized()
+    one = Engine(backend="pallas", layout="csr", device=cuda)
+    pg = one.partition(g, 8, tau=20, seed=0)
+    runs = {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        sharded = Engine(backend="pallas", layout="csr", devices=1,
+                         device=cuda)
+        for name, eng in (("one", one), ("sharded", sharded)):
+            before = tkernel.segment_combine_blocks.launches
+            res = eng.run(algo, pg)
+            torch.cuda.synchronize()
+            runs[name] = (res, tkernel.segment_combine_blocks.launches
+                          - before)
+    finally:
+        dist.destroy_process_group()
+    (a, la), (b, lb) = runs["one"], runs["sharded"]
+    assert b.n_supersteps == a.n_supersteps
+    assert la == lb == (3 if algo == "hashmin" else 2) * a.n_supersteps
+    assert torch.equal(a.state, b.state)
+    assert set(a.stats) == set(b.stats)
+    for k in a.stats:
+        np.testing.assert_array_equal(np.asarray(b.stats[k]),
+                                      np.asarray(a.stats[k]))
+    assert b.sharded["host_reads"] >= b.n_supersteps
 
 
 def test_device_plan_is_uploaded_once_per_card(cuda):
