@@ -46,20 +46,42 @@ Phases; any failure exits non-zero and prints no result:
    phase's own single-device runs: states bitwise (PageRank rtol 1e-5,
    MSF's weight 1e-6), every ``msgs_*``/``per_worker_*`` equal, the same
    supersteps, and the scalar kernel's launches a superstep of
-   ``SHARDED_PER_SS`` (the counts are zeroed before and read after).
+   ``SHARDED_PER_SS``, 3/3/3/2/0/0 (the counts are zeroed before each run
+   and read after it).
    ``[sharded] D=1`` lines give the device ms a superstep beside the
    single-device one and the host reads a superstep; ``[profile] sharded``
-   lines the device time of Hash-Min, S-V, MSF and attr_bcast by op.  One superstep's
-   plan launches of Hash-Min and S-V are then replayed through the kernel
-   and its plain version (exact).
-3c. D ranks (spawned, ``tcp://127.0.0.1``) on the n=200k graph of phase 5
-   with M=8, each building it from ``--seed``: NCCL with a card a rank
-   where the machine has two or more (D the largest of 2, 4, 8), else
-   gloo with both ranks on cuda:0 (gloo stages every collective through
-   the host; those host-clock times are labelled so).  The six algorithms
-   on csr/pallas and padded/dense; rank 0 holds each to the one-device run
-   on its card under the gates of 3b and prints the exchange rounds of
-   each routed join.
+   lines the device time of Hash-Min, S-V, MSF and attr_bcast by op.  One
+   superstep's plan launches of Hash-Min and S-V are then replayed through
+   the kernel and its plain version (exact).  Then three more modes over
+   a new group of world size 1, each algorithm once under the same gates:
+   ``devices=(1, 1)`` (the hierarchical exchanges through subgroups of
+   one rank), ``devices=1, pipeline=True`` with two chunks a join (forced:
+   the default on one rank is one; the exchanged plans must hold two
+   chunks, and the kernel runs once a chunk, ``PIPELINED_PER_SS``
+   4/4/4/3/0/0), and a ``balance="split"`` partition of the same graph at
+   ``SPLIT_FACTOR`` 1.0, which must cut workers (M_phys > M; host seconds
+   of the partition and its shard build printed), held to its own
+   one-device run; one superstep of Hash-Min and S-V under split and
+   under the pipeline replayed through the kernel and its plain version
+   (exact).  ``[balance]`` lines: each device's edge load (max/mean)
+   under the hash and split partitions at D = 2, 4, 8, and the
+   cross-worker/device/host fractions and exchange volume of the (2, 4)
+   mesh beside the flat D=8 mesh's lanes across the same host boundary
+   (host tables of the hash partition, not host-affine: the paper's load
+   balance and per-level combining).
+3c. ranks (spawned, ``tcp://127.0.0.1``) on the n=200k graph of phase 5
+   with M=8, each building it from ``--seed``: on one card, gloo with
+   every rank on cuda:0 (gloo stages every collective through the host;
+   those host-clock times are labelled so): 2 ranks on the 1-D mesh
+   (csr/pallas and padded/dense), under split (``SPLIT_FACTOR``, which
+   must cut workers; the cut workers whose shards lie on two ranks are
+   counted) and under the pipeline (two chunks a join, checked), and 4
+   ranks on the (2, 2) mesh of a host-affine partition; with two or
+   more cards NCCL, a card a rank: the 1-D mesh on D the largest of 2, 4,
+   8, the (1, 2) and (2, 1) meshes, split and the pipeline on 2, and the
+   (2, 2) mesh where there are four.  The six algorithms in each; rank 0
+   holds each to the one-device run on its card under the gates of 3b and
+   prints the exchange rounds of each routed join and inter-host leg.
 4. GCN training at full width on that graph: ``Engine.run("gcn")`` with
    F=32, hidden=64, 8 classes, lr=1e-2, 4 epochs.  The vector kernel's
    launch count must equal what the plan chunks predict (2 joins at F=32
@@ -116,12 +138,14 @@ Phases; any failure exits non-zero and prints no result:
    of the profiled prefill (torch.profiler) and its CUDA launches a call.
 
 One JSON line ``{"kernels": [...]}`` with all four kernels (the scalar
-kernel's entry carries ``sharded``: phase 3b's launches and its replay's
-times), then the last line ``{"ok": true, "device": {...}}``.
+kernel's entry carries ``sharded``: phase 3b's launches, each mode's, the
+replays' times and the static balance figures), then the last line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -180,16 +204,29 @@ PLAIN_FACTOR = 4.0
 # max); a mask, GQA, state or ring-buffer fault moves it by O(1)
 LAYER_RTOL = 1e-3
 LOGIT_RTOL = 1e-3
-# Scalar kernel launches a superstep on each rank of the sharded executor
-# (phases 3b and 3c): the rank's own eg plan rows (values and hit counts)
-# and mirror plan rows (values; the fan-out needs no exchange) for the
-# broadcast algorithms; the all plan's values and hit counts for S-V; none
-# for MSF and attribute broadcast, whose combines have runtime targets and
-# go through the routed sorted segments.  A rank's stacked plan has at
-# least one row, so it launches even when the rank holds no edge of a kind.
+SHARDED_M = 8                # workers of phase 3c, M=8 over D ranks
+# The scalar kernel's launches a superstep on a rank of the sharded
+# executor, the same on the 1-D and 2-D meshes and under split: the
+# broadcast algorithms launch for the eg plan's values and hit counts and
+# the mirror plan's values, S-V for the all plan's values and hit counts,
+# MSF and attribute broadcast never (their combines have runtime targets
+# and go through the routed sorted segments).  A rank's stacked plan has
+# at least one row, so it launches even when it holds no edge of a kind.
 SHARDED_PER_SS = {"hashmin": 3, "pagerank": 3, "sssp": 3, "sv": 2,
                   "msf": 0, "attr_bcast": 0}
-SHARDED_M = 8                # workers of phase 3c, M=8 over D ranks
+# under the pipeline with PIPELINE_CHUNKS chunks a join, the exchanged
+# plans' values (eg, all) launch once a chunk; the mirror fan-out of a
+# partition that is not split is destination-local, one launch
+PIPELINE_CHUNKS = 2
+PIPELINED_PER_SS = {"hashmin": 4, "pagerank": 4, "sssp": 4, "sv": 3,
+                    "msf": 0, "attr_bcast": 0}
+CHUNKED_PLAN = {"hashmin": "eg", "pagerank": "eg", "sssp": "eg",
+                "sv": "all"}
+# the split partitions' hot-worker factor: the partitioner's own vertex
+# cut already holds every worker of these graphs under 1.2 (and 1.05) of
+# the mean edge load, so the default 1.2 cuts none; at 1.0 every worker
+# above the mean is cut into two shards (M=32 -> 61 at n=200k)
+SPLIT_FACTOR = 1.0
 GROUP_TIMEOUT_S = 120        # every process group's collective timeout
 SHARDED_JOIN_S = 600         # deadline for the phase 3c ranks
 
@@ -933,6 +970,50 @@ def large_ids(torch, np, api, structs, kernel, dev):
 # phases 3b and 3c: the sharded executor
 # ---------------------------------------------------------------------------
 
+def per_ss_of(pipeline: bool) -> dict:
+    return PIPELINED_PER_SS if pipeline else SHARDED_PER_SS
+
+
+def check_chunks(sg, algo, name):
+    """Fail unless the plan that ``algo`` exchanges was cut into
+    ``PIPELINE_CHUNKS`` chunks on this rank."""
+    kind = CHUNKED_PLAN.get(algo)
+    if kind is not None and sg.plans[kind].n_chunks != PIPELINE_CHUNKS:
+        fail(f"{name}: the {kind} plan has {sg.plans[kind].n_chunks} "
+             f"pipeline chunks, expected {PIPELINE_CHUNKS}")
+
+
+def check_cut(pg, name):
+    """Fail unless the split partition ``pg`` cut at least one worker."""
+    if pg.M_phys <= pg.M:
+        fail(f"{name}: the split partition cut no worker (M_phys="
+             f"{pg.M_phys}, M={pg.M})")
+
+
+def straddling(pg, bounds) -> int:
+    """Workers of a split partition whose shards lie on two or more
+    ranks, from the shard bounds ``bounds["phys"]`` of the placement."""
+    pb = bounds["phys"][1:-1]
+    pb = pb[(pb > 0) & (pb < pg.M_phys)]
+    return len(set(int(pg.phys_log[b]) for b in pb
+                   if pg.phys_log[b - 1] == pg.phys_log[b]))
+
+
+@contextlib.contextmanager
+def forced_chunks(exec_mod, on: bool):
+    """``PIPELINE_CHUNKS`` chunks a join under the pipeline on a mesh of
+    one rank, where the executor's default is one (nothing to overlap),
+    so that the chunked plan exchange runs at the main path's size."""
+    chunks_of = exec_mod._chunks_of
+    if on:
+        exec_mod._chunks_of = (lambda D, pipeline, chunks:
+                               PIPELINE_CHUNKS if pipeline else None)
+    try:
+        yield
+    finally:
+        exec_mod._chunks_of = chunks_of
+
+
 def sharded_gate(torch, np, name, algo, one, sh):
     """Fail unless the sharded run ``sh`` equals the single-device run
     ``one``: state bitwise (PageRank within rtol 1e-5; MSF's labels and
@@ -960,8 +1041,40 @@ def rounds_text(info) -> str:
     r = info["rounds"]
     if not r:
         return "no routed join"
-    return (f"{len(r)} routed joins, exchange rounds a join: max {max(r)}, "
-            f"mean {sum(r) / len(r):.3f}")
+    inner = info.get("inner_rounds") or []
+    text = (f"{len(r) - len(inner)} routed joins, exchange rounds a join: "
+            f"max {max(r)}, mean {sum(r) / len(r):.3f}")
+    if inner:
+        text += (f"; {len(inner)} inter-host legs (one host read each), "
+                 f"rounds max {max(inner)}")
+    return text
+
+
+def sharded_run(torch, np, name, eng, pg, algo, params, one, one_ms, per_ss,
+                kernel, phases):
+    """One sharded run held to its one-device run ``one`` (device ms
+    ``one_ms``), with the scalar kernel's launches counted from 0 just
+    before it and read just after, against ``per_ss[algo]`` a superstep."""
+    counter = kernel.segment_combine_blocks
+    counter.launches = counter.launches_vec = 0
+    res, dev_ms, host_s = phases.run(name, timed, torch,
+                                     lambda: eng.run(algo, pg, **params))
+    launches, vec = counter.launches, counter.launches_vec
+    sharded_gate(torch, np, name, algo, one, res)
+    n = res.n_supersteps
+    per_ss = per_ss[algo]
+    if launches != per_ss * n or vec:
+        fail(f"{name}: {launches} kernel launches ({vec} vector) in {n} "
+             f"supersteps, expected {per_ss} per superstep: the path did "
+             "not go through the kernel")
+    reads = res.sharded["host_reads"] + (res.jump_reads or 0)
+    log(f"[sharded] {name}: {n} supersteps, {dev_ms / n:.3f} ms a "
+        f"superstep on the device clock (one device {one_ms / n:.3f}), "
+        f"{host_s:.3f} s host; "
+        f"{launches} kernel launches ({per_ss} a superstep); "
+        f"{reads / n:.2f} host reads a superstep; "
+        f"{rounds_text(res.sharded)}")
+    return res, launches, dev_ms, host_s
 
 
 def sharded_one(torch, np, mods, pg, runs, algos, ref_fn, dev, phases):
@@ -989,36 +1102,19 @@ def sharded_one(torch, np, mods, pg, runs, algos, ref_fn, dev, phases):
         log(f"[sharded] D=1 shard build: {sg.build_s:.3f} s on the host; "
             f"the rank's tables {sg.table_bytes() / 2**30:.3f} GiB on the "
             f"device ({added / 2**30:.3f} GiB allocated)")
-        counter = kernel.segment_combine_blocks
-        counter.launches = counter.launches_vec = 0   # the path starts here
+        total = 0
         for algo, params in algos:
             # the first run also pays NCCL's lazy set-up and the caching
             # allocator's growth; the second is the steady state
             for tag in ("cold", "warm"):
-                before = counter.launches
-                res, dev_ms, host_s = phases.run(
-                    f"sharded-1-{algo}-{tag}", timed, torch,
-                    lambda: eng.run(algo, pg, **params))
-                launches = counter.launches - before
                 one, _, one_ms = runs[algo]
-                sharded_gate(torch, np, f"sharded D=1 {algo}", algo, one, res)
-                n = res.n_supersteps
-                if launches != SHARDED_PER_SS[algo] * n:
-                    fail(f"sharded D=1 {algo}: {launches} kernel launches in "
-                         f"{n} supersteps, expected {SHARDED_PER_SS[algo]} "
-                         "per superstep: the path did not go through the "
-                         "kernel")
-                reads = res.sharded["host_reads"] + (res.jump_reads or 0)
-                log(f"[sharded] D=1 {algo} ({tag}): {n} supersteps, "
-                    f"{dev_ms / n:.3f} ms a superstep on the device clock (one "
-                    f"device {one_ms / n:.3f}), {host_s:.3f} s host; "
-                    f"{launches} kernel launches; {reads / n:.2f} host reads "
-                    f"a superstep; {rounds_text(res.sharded)}")
-        total = counter.launches                   # ... and ends here
-        if counter.launches_vec:
-            fail(f"{counter.launches_vec} vector launches on the sharded path")
+                _, launches, _, _ = sharded_run(
+                    torch, np, f"sharded D=1 {algo} ({tag})", eng, pg, algo,
+                    params, one, one_ms, SHARDED_PER_SS, kernel, phases)
+                total += launches
+        want_n = SHARDED_PER_SS["hashmin"] + SHARDED_PER_SS["sv"]
         row = phases.run("sharded-1-replay", sharded_replay, torch, kernel,
-                         ref_fn, eng, pg)
+                         ref_fn, eng, pg, want_n, "D=1")
         profiled = dict(algos)
         for algo in ("hashmin", "sv", "msf", "attr_bcast"):
             phases.run(f"profile-sharded-{algo}", profile_run, torch,
@@ -1026,18 +1122,186 @@ def sharded_one(torch, np, mods, pg, runs, algos, ref_fn, dev, phases):
                        f"sharded D=1 {algo}")
     finally:
         dist.destroy_process_group()
-    for key in [k for k in pg.plan_cache if k[0] == "shard"]:
-        del pg.plan_cache[key]
+    drop_shards(pg)
     del sg
     torch.cuda.empty_cache()
     log(f"[check] sharded D=1 over NCCL == one device at n={pg.n}: states "
         "bitwise (PageRank rtol 1e-5, MSF weight 1e-6), every "
-        "msgs_*/per_worker_* equal, the same supersteps, "
-        f"{SHARDED_PER_SS} kernel launches a superstep; {total} launches")
+        "msgs_*/per_worker_* equal, the same supersteps, the kernel "
+        f"launches of SHARDED_PER_SS a superstep; {total} launches")
     return dict(D=1, launches=total, **row)
 
 
-def sharded_replay(torch, kernel, ref_fn, eng, pg):
+def drop_shards(pg):
+    """Free the sharded executor's tables cached on ``pg``."""
+    for key in [k for k in pg.plan_cache
+                if k[0] in ("shard", "device_plans")]:
+        del pg.plan_cache[key]
+
+
+def sharded_modes(torch, np, mods, g, pg, runs, algos, ref_fn, dev, phases):
+    """Phase 3b, continued: the (1, 1) mesh (the hierarchical exchanges
+    through subgroups of one rank), the pipeline (``PIPELINE_CHUNKS``
+    chunks a join, forced) and a ``balance="split"`` partition of the
+    same graph that cuts workers (``SPLIT_FACTOR``), over an NCCL group of
+    world size 1, each algorithm once, each held to its one-device run
+    (the split partition to its own warm run, made first); the scalar
+    kernel's launches counted from 0 before each run and read after it;
+    one superstep of Hash-Min and S-V replayed through the kernel and its
+    plain version under split and under the pipeline's chunks.  Returns
+    (the modes' launches, the two replay rows, the split partition)."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.core import exec as exec_mod
+    api, kernel = mods[0], mods[5]
+    kinds = ("eg", "mir", "all")
+    t0 = time.perf_counter()
+    eng_s = api.Engine(backend="pallas", layout="csr", balance="split",
+                       split_factor=SPLIT_FACTOR, device=dev)
+    pgs = phases.run("split-partition", eng_s.partition, g, pg.M, tau=pg.tau,
+                     seed=0)
+    log(f"[sharded] split partition (split_factor {SPLIT_FACTOR}) of the "
+        f"n={g.n} graph: {time.perf_counter() - t0:.3f} s on the host, "
+        f"M={pgs.M} -> M_phys={pgs.M_phys} physical shards")
+    check_cut(pgs, "phase 3b")
+    split_runs = {}
+    for algo, params in algos:
+        p = dict(params)
+        if algo == "sssp":
+            p["source"] = int(pgs.perm[0])
+        if algo == "attr_bcast":
+            p["attr"] = 3 * torch.arange(pgs.n_pad, dtype=torch.float32,
+                                         device=dev).view(pgs.M, pgs.n_loc)
+        # the first run also packs the split partition's plans on the
+        # host; the second is the steady state, the yardstick
+        for tag in ("cold", "warm"):
+            res, dev_ms, _ = phases.run(f"split-one-{algo}-{tag}", timed,
+                                        torch,
+                                        lambda: eng_s.run(algo, pgs, **p))
+        log(f"[sharded] split one device {algo}: {res.n_supersteps} "
+            f"supersteps, {dev_ms / res.n_supersteps:.3f} ms a superstep "
+            "on the device clock (warm)")
+        split_runs[algo] = (res, p, dev_ms)
+    modes = [("mesh 1x1", pg, dict(devices=(1, 1), balance="hash")),
+             ("pipeline", pg, dict(devices=1, balance="hash",
+                                   pipeline=True)),
+             ("split", pgs, dict(devices=1, balance="split",
+                                 split_factor=SPLIT_FACTOR))]
+    out, replays = {}, {}
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    try:
+        for mode, p_g, cfg in modes:
+            pipe = cfg.get("pipeline", False)
+            eng = api.Engine(backend="pallas", layout="csr", device=dev,
+                             **cfg)
+            with forced_chunks(exec_mod, pipe):
+                sg = phases.run(f"sharded-{mode}-build", exec_mod.shard, p_g,
+                                cfg["devices"], kinds, dev, pipeline=pipe)
+                log(f"[sharded] {mode} shard build: {sg.build_s:.3f} s on "
+                    f"the host; the rank's tables "
+                    f"{sg.table_bytes() / 2**30:.3f} GiB on the device")
+                if pipe:
+                    for algo in ("hashmin", "sv"):
+                        check_chunks(sg, algo, f"sharded {mode}")
+                # NCCL's communicators of the mode's subgroups form on
+                # first use: one superstep of Hash-Min before the timed runs
+                eng.run("hashmin", p_g, max_supersteps=1)
+                launches = {}
+                for algo, params in algos:
+                    if mode == "split":
+                        one, params, one_ms = split_runs[algo]
+                    else:
+                        one, _, one_ms = runs[algo]
+                    _, launches[algo], _, _ = sharded_run(
+                        torch, np, f"sharded {mode} {algo}", eng, p_g, algo,
+                        params, one, one_ms, per_ss_of(pipe), kernel,
+                        phases)
+                out[mode] = launches
+                if mode in ("pipeline", "split"):
+                    per_ss = per_ss_of(pipe)
+                    replays[mode] = phases.run(
+                        f"sharded-{mode}-replay", sharded_replay, torch,
+                        kernel, ref_fn, eng, p_g,
+                        per_ss["hashmin"] + per_ss["sv"], mode)
+            drop_shards(p_g)
+            del sg
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    log(f"[check] sharded (1, 1) mesh, pipeline ({PIPELINE_CHUNKS} chunks a "
+        f"join) and split (M_phys={pgs.M_phys} > M={pgs.M}) over NCCL == "
+        f"one device at n={pg.n}: states bitwise (PageRank rtol 1e-5, MSF "
+        "weight 1e-6), every msgs_*/per_worker_* equal, the same "
+        "supersteps, the kernel launches a superstep of SHARDED_PER_SS "
+        f"(PIPELINED_PER_SS under the pipeline): {json.dumps(out)}")
+    del split_runs
+    return out, replays, pgs
+
+
+def flat_lanes(np, exec_mod, pg, D, hosts, kinds, nb):
+    """The wire lanes a superstep of the flat D-device mesh's static
+    exchanges (the plan exchanges of ``kinds`` and the fetch plans), in
+    all and those between devices of different hosts when the D devices
+    are grouped ``hosts`` to a host block in flat order (what
+    ``exchange_volume_report`` counts on the 1-D mesh as its total)."""
+    meta, arrays = exec_mod._shard_graph(pg, D, kinds, nb)
+    hid = np.arange(D) // (D // hosts)
+    off = hid[:, None] != hid[None]
+    sent = [arrays[f"plan_{k}_xval"].sum(axis=2) for k in meta["plan_meta"]]
+    sent += [(arrays[f"fetch_{f}_send_slot"] >= 0).sum(axis=2)
+             for f in meta["fetch_meta"]]
+    total = sum(int(x.sum() - np.trace(x)) for x in sent)
+    return total, sum(int(x[off].sum()) for x in sent)
+
+
+def balance_lines(np, exec_mod, pg, pgs, nb):
+    """The static load balance of the n=4M graph, read from host tables:
+    each device's superstep edge load (Ch_msg + mirror fan-out) under the
+    hash partition and the split partition of phase 3b at D = 2, 4 and 8;
+    the cross-worker, device and host message fractions and the
+    per-superstep exchange volume of the (2, 4) mesh beside the flat D=8
+    mesh's lanes that cross the same host boundary (both on the hash
+    partition, which is not host-affine: ``graph_run --hosts`` builds a
+    host-affine one)."""
+    out = {}
+    for D in (2, 4, 8):
+        for name, p in (("hash", pg), (f"split {SPLIT_FACTOR}", pgs)):
+            loads = exec_mod.device_edge_loads(p, D)
+            ratio = float(loads.max() / loads.mean())
+            out[f"{name.split()[0]}-{D}"] = ratio
+            cut = ""
+            if p.M_phys > p.M:
+                cut = (f", {straddling(p, exec_mod.device_edge_bounds(p, D))}"
+                       " cut workers on two ranks")
+            log(f"[balance] {name} D={D}: device edge-load max/mean "
+                f"{ratio:.4f} (max {int(loads.max())}, mean "
+                f"{loads.mean():.1f} edges; M_phys={p.M_phys}{cut})")
+    cr = exec_mod.crossness_report(pg, (2, 4))
+    log(f"[balance] crossness at (2, 4), hash: {cr['total']} combined "
+        f"messages, cross-worker {cr['cross_worker_frac']:.4f}, "
+        f"cross-device {cr['cross_device_frac']:.4f}, cross-host "
+        f"{cr['cross_host_frac']:.4f}")
+    kinds = ("eg", "mir")
+    vol = exec_mod.exchange_volume_report(pg, (2, 4), kinds, nb=nb)
+    flat_total, flat_cross = flat_lanes(np, exec_mod, pg, 8, 2, kinds, nb)
+    log(f"[balance] exchange volume a superstep on the hash partition "
+        f"(plan and fetch lanes, nb={nb}): (2, 4) total {vol['total']}, "
+        f"intra-host {vol['intra_host']}, cross-host {vol['cross_host']}; "
+        f"flat D=8 total {flat_total}, of which between devices 0-3 and "
+        f"4-7 {flat_cross} (cross-host, (2, 4) / flat "
+        f"{vol['cross_host'] / max(flat_cross, 1):.4f})")
+    for name, e in sorted(vol["per_exchange"].items()):
+        log(f"[balance]   (2, 4) {name}: intra {e['intra_host']}, cross "
+            f"{e['cross_host']}")
+    drop_shards(pg)
+    drop_shards(pgs)
+    return dict(out, cross_host=vol["cross_host"], flat_total=flat_total,
+                flat_cross_host=flat_cross)
+
+
+def sharded_replay(torch, kernel, ref_fn, eng, pg, want_n, tag):
     """One superstep's plan launches of Hash-Min and S-V on the rank,
     recorded and replayed through the kernel and the plain version on the
     same inputs (these launches are not counted); min and max combines
@@ -1054,10 +1318,9 @@ def sharded_replay(torch, kernel, ref_fn, eng, pg):
             eng.run(algo, pg, max_supersteps=1)
     finally:
         kernel.launch = launch
-    want_n = SHARDED_PER_SS["hashmin"] + SHARDED_PER_SS["sv"]
     if len(seen) != want_n:
-        fail(f"sharded replay: {len(seen)} launches in one superstep of "
-             f"Hash-Min and S-V, expected {want_n}")
+        fail(f"sharded {tag} replay: {len(seen)} launches in one superstep "
+             f"of Hash-Min and S-V, expected {want_n}")
     row = {"replayed": len(seen), "ms": 0.0, "plain_ms": 0.0,
            "max_abs_err": 0.0}
     for vals, idx, op, nb in seen:
@@ -1067,47 +1330,73 @@ def sharded_replay(torch, kernel, ref_fn, eng, pg):
         row["plain_ms"] += plain_ms
         row["max_abs_err"] = max(row["max_abs_err"], compare(
             torch, got, want, vals, idx, op, nb, ref_fn))
-        log(f"[kernel] sharded D=1 replay: {op} {tuple(vals.shape)} -> "
+        log(f"[kernel] sharded {tag} replay: {op} {tuple(vals.shape)} -> "
             f"nb={nb}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     if row["max_abs_err"] != 0.0:
-        fail(f"sharded replay: max |kernel - plain| {row['max_abs_err']}")
+        fail(f"sharded {tag} replay: max |kernel - plain| "
+             f"{row['max_abs_err']}")
     return row
 
 
+#: phase 3c's modes: (tag, layout, backend, balance, hosts, devices,
+#: pipeline); ``devices`` None is the world size (the 1-D mesh)
+MODES_1D = [("1-D", "csr", "pallas", "hash", None, None, False),
+            ("1-D", "padded", "dense", "hash", None, None, False)]
+MODES_2 = [("split", "csr", "pallas", "split", None, 2, False),
+           ("pipeline", "csr", "pallas", "hash", None, 2, True)]
+MODES_MESH2 = [("mesh 1x2", "csr", "pallas", "hash", None, (1, 2), False),
+               ("mesh 2x1", "csr", "pallas", "hash", None, (2, 1), False)]
+MODES_MESH4 = [("mesh 2x2", "csr", "pallas", "hash", 2, (2, 2), False)]
+
+
+def sharded_spawns(count: int):
+    """Phase 3c's spawns, ``[(backend, world size, modes)]``: NCCL with a
+    card a rank where the machine has two or more (the 1-D modes on the
+    largest of 2, 4, 8 it allows; the (1, 2) and (2, 1) meshes, split and
+    the pipeline on 2; the (2, 2) mesh on 4 where there are four), else
+    gloo with every rank on cuda:0 (2 ranks, and 4 on the (2, 2) mesh)."""
+    if count < 2:
+        return [("gloo", 2, MODES_1D + MODES_2), ("gloo", 4, MODES_MESH4)]
+    D = max(d for d in (2, 4, 8) if d <= count)
+    spawns = {D: list(MODES_1D)}
+    spawns.setdefault(2, []).extend(MODES_MESH2 + MODES_2)
+    if count >= 4:
+        spawns.setdefault(4, []).extend(MODES_MESH4)
+    return [("nccl", d, m) for d, m in sorted(spawns.items())]
+
+
 def sharded_many(torch, args):
-    """Phase 3c: D ranks on the n=200k graph of phase 5, M=8: NCCL with
-    one card a rank where the machine has two or more (D the largest of
-    2, 4, 8 it allows), else gloo with 2 ranks on cuda:0 (gloo stages
-    each CUDA collective through the host, so those times are not the
-    executor's).  Rank 0 holds every run to the one-device run on its
-    card."""
+    """Phase 3c: ranks on the n=200k graph of phase 5, M=8, in the
+    spawns of ``sharded_spawns`` (gloo stages each CUDA collective through
+    the host, so those times are not the executor's).  Rank 0 holds every
+    run to the one-device run on its card."""
     import tempfile
     from repro_torch.launch.graph_run import free_port, spawn_ranks
     count = torch.cuda.device_count()
-    if count >= 2:
-        backend, D = "nccl", max(d for d in (2, 4, 8) if d <= count)
-    else:
-        backend, D = "gloo", 2
-    log(f"[sharded] D={D}: {backend} over {count} card(s)"
-        + ("; both ranks on cuda:0, every collective staged through the "
-           "host by gloo" if backend == "gloo" else ", one a rank"))
-    with tempfile.TemporaryDirectory() as tmp:
-        out = Path(tmp) / "rank0.json"
-        spawn_ranks(sharded_rank, (D, backend, free_port(), args.seed,
-                                   str(out)), D, SHARDED_JOIN_S)
-        summary = json.loads(out.read_text())
-    log(f"[check] sharded D={D} over {backend} == one device at "
-        f"n={PARITY_N}, M={SHARDED_M}: {len(summary)} runs (six algorithms "
-        "on csr/pallas and padded/dense), states bitwise (PageRank rtol "
-        "1e-5, MSF weight 1e-6), every msgs_*/per_worker_* equal, the same "
-        "supersteps, the kernel launches of SHARDED_PER_SS")
+    summary = []
+    for backend, D, modes in sharded_spawns(count):
+        log(f"[sharded] D={D}: {backend} over {count} card(s)"
+            + ("; every rank on cuda:0, every collective staged through "
+               "the host by gloo" if backend == "gloo" else ", one a rank")
+            + f"; modes {sorted({m[0] for m in modes})}")
+        with tempfile.TemporaryDirectory() as tmp:
+            out = Path(tmp) / "rank0.json"
+            spawn_ranks(sharded_rank, (D, backend, free_port(), args.seed,
+                                       str(out), modes), D, SHARDED_JOIN_S)
+            summary += json.loads(out.read_text())
+    log(f"[check] sharded ranks == one device at n={PARITY_N}, "
+        f"M={SHARDED_M}: {len(summary)} runs (six algorithms in each "
+        "mode), states bitwise (PageRank rtol 1e-5, MSF weight 1e-6), every "
+        "msgs_*/per_worker_* equal, the same supersteps, the kernel "
+        "launches of SHARDED_PER_SS (PIPELINED_PER_SS under the pipeline)")
     return summary
 
 
-def sharded_rank(rank, D, backend, port, seed, out_path):
+def sharded_rank(rank, D, backend, port, seed, out_path, modes):
     """One rank of phase 3c (spawned): joins the group, builds the graph
-    from ``seed``, runs the six algorithms sharded; rank 0 also runs each
-    on one device and holds the two to the gates of phase 3b."""
+    from ``seed``, runs the six algorithms sharded in each mode; rank 0
+    also runs each on one device and holds the two to the gates of phase
+    3b."""
     sys.path.insert(0, str(ROOT / "src"))
     import datetime
     import numpy as np
@@ -1115,6 +1404,7 @@ def sharded_rank(rank, D, backend, port, seed, out_path):
     import torch.distributed as dist
     from repro_torch import api
     from repro_torch.core import cost_model
+    from repro_torch.core import exec as exec_mod
     from repro_torch.graph import generators as gen
     from repro_torch.graph import structs
     from repro_torch.kernels.segment_combine import kernel
@@ -1131,13 +1421,26 @@ def sharded_rank(rank, D, backend, port, seed, out_path):
         g = normalize_adjacency(gen.powerlaw(
             PARITY_N, avg_deg=8, seed=seed, weighted=True).symmetrized())
         tau = cost_model.choose_tau(g.out_degrees(), SHARDED_M)
-        counter = kernel.segment_combine_blocks
-        for layout, be in (("csr", "pallas"), ("padded", "dense")):
-            eng = api.Engine(backend=be, layout=layout, balance="hash",
-                             devices=D, device=dev)
-            pg = eng.partition(g, SHARDED_M, tau=tau, seed=seed)
+        parts = {}
+        for tag, layout, be, balance, hosts, devices, pipe in modes:
+            devices = devices or D
+            part = dict(layout=layout, balance=balance, hosts=hosts)
+            if balance == "split":
+                part["split_factor"] = SPLIT_FACTOR
+            eng = api.Engine(backend=be, devices=devices, pipeline=pipe,
+                             device=dev, **part)
+            key = tuple(part.items())
+            if key not in parts:
+                parts[key] = eng.partition(g, SHARDED_M, tau=tau, seed=seed)
+            pg = parts[key]
+            if rank == 0 and balance == "split":
+                check_cut(pg, f"phase 3c D={D} {tag}")
+                log(f"[sharded] D={D} {tag}: split_factor {SPLIT_FACTOR}, "
+                    f"M={pg.M} -> M_phys={pg.M_phys}, "
+                    f"{straddling(pg, exec_mod.device_edge_bounds(pg, D))} "
+                    "cut workers with shards on two ranks")
             if rank == 0:
-                one = api.Engine(backend=be, layout=layout, device=dev)
+                one = api.Engine(backend=be, device=dev, **part)
                 pg_one = structs.from_numpy(structs.to_numpy(pg), device=dev)
             attr = 3 * torch.arange(pg.n_pad, dtype=torch.float32).view(
                 pg.M, pg.n_loc)
@@ -1145,35 +1448,41 @@ def sharded_rank(rank, D, backend, port, seed, out_path):
                     ("hashmin", {}), ("pagerank", {"n_iters": 30, "tol": 0.0}),
                     ("sssp", {"source": int(pg.perm[0])}), ("sv", {}),
                     ("msf", {}), ("attr_bcast", {"attr": attr})]:
-                before = counter.launches
+                counter = kernel.segment_combine_blocks
+                counter.launches = 0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 res = eng.run(algo, pg, **params)
                 torch.cuda.synchronize()
                 host_s = time.perf_counter() - t0
-                launches = counter.launches - before
+                launches = counter.launches
                 if rank != 0:
                     continue
-                name = f"sharded D={D} {layout}/{be} {algo}"
+                name = f"sharded D={D} {tag} {layout}/{be} {algo}"
+                if pipe:
+                    check_chunks(exec_mod.shard(pg, devices, (), dev,
+                                                pipeline=True), algo, name)
                 if algo == "attr_bcast":
                     params = {"attr": attr.to(dev)}
                 sharded_gate(torch, np, name, algo,
                              one.run(algo, pg_one, **params), res)
                 n = res.n_supersteps
-                want = SHARDED_PER_SS[algo] * n if be == "pallas" else 0
-                if launches != want:
+                per_ss = per_ss_of(pipe)[algo] if be == "pallas" else 0
+                if launches != per_ss * n:
                     fail(f"{name}: {launches} kernel launches in {n} "
-                         f"supersteps, expected {want}: the path did not go "
-                         "through the kernel")
+                         f"supersteps, expected {per_ss * n}: the path did "
+                         "not go through the kernel")
                 reads = res.sharded["host_reads"] + (res.jump_reads or 0)
-                log(f"[sharded] D={D} {layout}/{be} {algo}: {n} supersteps "
-                    f"in {host_s:.3f} s on the host clock ({where}); "
-                    f"{launches} kernel launches; {reads / n:.2f} host reads "
-                    f"a superstep; {rounds_text(res.sharded)}")
-                summary.append({"layout": layout, "backend": be,
-                                "algo": algo, "supersteps": n,
-                                "host_s": host_s, "launches": launches,
-                                "rounds": res.sharded["rounds"]})
+                log(f"[sharded] {name}: {n} supersteps in {host_s:.3f} s on "
+                    f"the host clock ({where}); {launches} kernel launches; "
+                    f"{reads / n:.2f} host reads a superstep; "
+                    f"{rounds_text(res.sharded)}")
+                summary.append({"mode": tag, "layout": layout,
+                                "backend": be, "algo": algo,
+                                "supersteps": n, "host_s": host_s,
+                                "launches": launches,
+                                "rounds": res.sharded["rounds"],
+                                "inner_rounds": res.sharded["inner_rounds"]})
         if rank == 0:
             Path(out_path).write_text(json.dumps(summary))
     finally:
@@ -2168,7 +2477,16 @@ def main():
     phases.run("sv-2^24", large_ids, torch, np, api, structs, kernel, dev)
     sharded_row = sharded_one(torch, np, mods, pg, runs, algos + rr_algos,
                               ref_fn, dev, phases)
+    mode_launches, replays, pgs = sharded_modes(
+        torch, np, mods, g, pg, runs, algos + rr_algos, ref_fn, dev, phases)
     del runs
+    from repro_torch.core import exec as exec_mod
+    balance = phases.run("balance", balance_lines, np, exec_mod, pg, pgs,
+                         planlib.default_nb(dev))
+    del pgs
+    torch.cuda.empty_cache()
+    sharded_row.update(modes=mode_launches, replay_split=replays["split"],
+                       replay_pipeline=replays["pipeline"], balance=balance)
     phases.run("sharded-D", sharded_many, torch, args)
     vec_launches, gcn_peak, inputs = gcn_path(torch, np, args, dev, phases,
                                               g, A, pg)

@@ -7,7 +7,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.api import EngineConfig, RunResult, check_config
+from repro_torch.api import EngineConfig, RunResult
 from repro_torch.core import bsp
 from repro_torch.core import exec as exec_mod
 from repro_torch.core.channels import gather_edges
@@ -27,7 +27,6 @@ def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
     Ch_req is a pure gather with no combine stage, so ``backend`` does
     not change the path."""
     cfg = config or EngineConfig()
-    check_config(cfg)
 
     def make_fn(g):
         def fn(a):
@@ -39,7 +38,8 @@ def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
         return RunResult(state=out, stats=bsp.finalize_totals(stats),
                          n_supersteps=1)
     out, stats, info = exec_mod.apply_sharded(
-        pg, make_fn, (attr,), devices=cfg.devices, device=device)
+        pg, make_fn, (attr,), devices=cfg.devices, device=device,
+        pipeline=cfg.pipeline)
     if pg.layout == "csr":
         # the ranks' edge slices come back with their padding: strip back
         # to the flat (E,) edge order

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.api import EngineConfig, RunResult, check_config
+from repro_torch.api import EngineConfig, RunResult
 from repro_torch.core import bsp
 from repro_torch.core import exec as exec_mod
 from repro_torch.core.channels import broadcast
@@ -22,10 +22,9 @@ def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
         device=None) -> RunResult:
     """Hash-Min under an EngineConfig.  ``state`` is the (M, n_loc) int32
     label array (min relabeled id of each component).  ``devices=None``
-    runs on ``pg``'s device; an int runs this rank of the sharded executor
-    on ``device`` (the same labels and stats)."""
+    runs on ``pg``'s device; an int or an ``(H, T)`` mesh runs this rank
+    of the sharded executor on ``device`` (the same labels and stats)."""
     cfg = config or EngineConfig()
-    check_config(cfg)
 
     def make_step(g):
         def step(state, i):
@@ -52,6 +51,7 @@ def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
         pg, make_step, init, max_supersteps, record_history=record_history,
         devices=cfg.devices, device=device, final=lambda s: s[0],
         plan_kinds=exec_mod.broadcast_plan_kinds(cfg.backend,
-                                                 cfg.use_mirroring))
+                                                 cfg.use_mirroring),
+        pipeline=cfg.pipeline)
     return RunResult(state=st, stats=stats, n_supersteps=n, history=hist,
                      sharded=info)

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.algorithms.sv import _acc
-from repro_torch.api import EngineConfig, RunResult, check_config
+from repro_torch.api import EngineConfig, RunResult
 from repro_torch.core import bsp
 from repro_torch.core import exec as exec_mod
 from repro_torch.core.channels import gather, gather_edges, scatter_edges
@@ -42,7 +42,6 @@ def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
     reference's ``jump_iters`` is unused there and not taken here); under
     ``devices`` each "changed" vote is global before its host read."""
     cfg = config or EngineConfig()
-    check_config(cfg)
     backend = cfg.backend
     jump_reads = 0
 
@@ -57,7 +56,7 @@ def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
 
             Dv, s = gather_edges(g, D, g.all_dst, g.all_mask)
             stats = _acc(stats, s)
-            Du = g.edge_src_values(D, g.all_src)
+            Du = g.edge_src_values(D, g.all_src, "all")
             cross = g.all_mask & (Dv != Du)
 
             # --- 3-stage min-edge election per supervertex ---------------
@@ -133,6 +132,7 @@ def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
         return RunResult(state=st, stats=stats, n_supersteps=n,
                          jump_reads=jump_reads)
     st, stats, n, _, info = exec_mod.run_sharded(
-        pg, make_step, init, max_rounds, devices=cfg.devices, device=device)
+        pg, make_step, init, max_rounds, devices=cfg.devices, device=device,
+        pipeline=cfg.pipeline)
     return RunResult(state=st, stats=stats, n_supersteps=n,
                      jump_reads=jump_reads, sharded=info)

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.api import EngineConfig, RunResult, check_config
+from repro_torch.api import EngineConfig, RunResult
 from repro_torch.core import bsp
 from repro_torch.core import exec as exec_mod
 from repro_torch.core.channels import broadcast
@@ -20,7 +20,6 @@ def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
     (``tol=0`` runs exactly ``n_iters`` supersteps).  Under ``devices``
     the sharded sums agree with one device to float round-off."""
     cfg = config or EngineConfig()
-    check_config(cfg)
     n = pg.n
 
     def make_step(g):
@@ -50,6 +49,7 @@ def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
         pg, make_step, init, n_iters, record_history=record_history,
         devices=cfg.devices, device=device,
         plan_kinds=exec_mod.broadcast_plan_kinds(cfg.backend,
-                                                 cfg.use_mirroring))
+                                                 cfg.use_mirroring),
+        pipeline=cfg.pipeline)
     return RunResult(state=st, stats=stats, n_supersteps=nss, history=hist,
                      sharded=info)

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.api import EngineConfig, RunResult, check_config
+from repro_torch.api import EngineConfig, RunResult
 from repro_torch.core import bsp
 from repro_torch.core import exec as exec_mod
 from repro_torch.core.channels import broadcast
@@ -13,13 +13,11 @@ from repro_torch.graph.structs import PartitionedGraph
 
 
 def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
-        source: int, max_supersteps: int = 10_000, device=None
-        ) -> RunResult:
+        source: int, max_supersteps: int = 10_000, device=None) -> RunResult:
     """SSSP under an EngineConfig.  ``source`` is a vertex id in the
     *relabeled* space (use pg.perm[orig]); ``state`` is the (M, n_loc)
     float32 distance array (inf where unreachable)."""
     cfg = config or EngineConfig()
-    check_config(cfg)
 
     def make_step(g):
         def step(state, i):
@@ -45,5 +43,6 @@ def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
         pg, make_step, init, max_supersteps, devices=cfg.devices,
         device=device, final=lambda s: s[0],
         plan_kinds=exec_mod.broadcast_plan_kinds(cfg.backend,
-                                                 cfg.use_mirroring))
+                                                 cfg.use_mirroring),
+        pipeline=cfg.pipeline)
     return RunResult(state=st, stats=stats, n_supersteps=n, sharded=info)

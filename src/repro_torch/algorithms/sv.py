@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.api import EngineConfig, RunResult, check_config
+from repro_torch.api import EngineConfig, RunResult
 from repro_torch.core import bsp
 from repro_torch.core import exec as exec_mod
 from repro_torch.core.channels import broadcast, gather, scatter_state
@@ -45,7 +45,6 @@ def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
     reads are request-respond exchanges, so ``use_mirroring`` does not
     apply."""
     cfg = config or EngineConfig()
-    check_config(cfg)
     imax = identity_of("min", torch.int32)
     backend = cfg.backend
 
@@ -113,5 +112,6 @@ def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
         pg, make_step, init, max_supersteps, devices=cfg.devices,
         device=device,
         plan_kinds=exec_mod.broadcast_plan_kinds(backend,
-                                                 use_mirroring=False))
+                                                 use_mirroring=False),
+        pipeline=cfg.pipeline)
     return RunResult(state=D, stats=stats, n_supersteps=n, sharded=info)

@@ -17,9 +17,12 @@ its own ``device`` after initializing the default ``torch.distributed``
 process group of world size D (NCCL between GPUs, gloo between CPU
 processes; ``launch/graph_run.py --devices D`` does this).  The engine
 then partitions on the host, and each rank moves only its own slice of the
-tables to its device.  Not ported yet, and refused: a ``(hosts,
-per_host)`` mesh, ``pipeline=True``, ``balance="split"`` with
-``devices``, and sharded GCN training.
+tables to its device.  ``devices=(H, T)`` runs them on the (hosts,
+per_host) mesh over a group of world size H*T (``graph_run --devices D
+--hosts H``), ``pipeline=True`` double-buffers the sharded exchanges,
+and ``balance="split"`` places the physical shards on the ranks by edge
+load.
+Sharded GCN training is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -50,8 +53,10 @@ class EngineConfig:
     fields of ``repro.api.EngineConfig``).
 
     ``devices``: None = single-device batched simulation; an int D = the
-    sharded executor over D ranks; ``hosts`` makes ``partition()`` place
-    workers host-affinely.
+    sharded executor over D ranks; an ``(H, T)`` pair = the executor on
+    the 2-D (hosts, per_host) mesh; ``hosts`` makes ``partition()`` place
+    workers host-affinely.  ``pipeline`` double-buffers the sharded
+    exchanges (nothing changes on one device).
     """
     backend: str = "dense"          # "dense" | "pallas" channel combine
     layout: str = "padded"          # "padded" | "csr" edge layout
@@ -61,23 +66,6 @@ class EngineConfig:
     pipeline: bool = False          # double-buffer sharded exchanges
     use_mirroring: bool = True      # Ch_mir for >= tau vertices
     split_factor: float = 1.2       # balance="split" hot-worker factor
-
-
-def check_config(cfg: EngineConfig) -> None:
-    """Raise for what this port does not run yet (no fallback)."""
-    if isinstance(cfg.devices, (tuple, list)):
-        raise NotImplementedError(
-            f"EngineConfig(devices={cfg.devices!r}): the (hosts, per_host) "
-            "sharded mesh comes with a later slice of the port; pass an int")
-    if cfg.devices is not None and cfg.balance == "split":
-        raise NotImplementedError(
-            'EngineConfig(balance="split") with devices: the physical-shard '
-            "device placement of the sharded executor comes with a later "
-            "slice of the port")
-    if cfg.pipeline:
-        raise NotImplementedError(
-            "EngineConfig(pipeline=True) pipelines the sharded executor's "
-            "exchanges, which comes with a later slice of the port")
 
 
 def config_of(pg: structs.PartitionedGraph, **overrides) -> EngineConfig:
@@ -134,7 +122,6 @@ class Engine:
             config = EngineConfig(**overrides)
         elif overrides:
             config = dataclasses.replace(config, **overrides)
-        check_config(config)
         self.config = config
         self.device = structs.resolve_device(device)
         if config.devices is not None:

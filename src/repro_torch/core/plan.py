@@ -370,13 +370,17 @@ def _combine_rows(packed: torch.Tensor, row_local: torch.Tensor, op: str,
 
 def combine_rows_subset(plan: EdgePlan, flat_vals: torch.Tensor,
                         rows: torch.Tensor, rows_ok: torch.Tensor,
-                        op: str) -> torch.Tensor:
+                        op: str, dp=None) -> torch.Tensor:
     """Combine one subset of plan rows (a pipeline chunk): gather the rows'
     packed lanes and run the same dispatched block combine as the
     whole-plan path.  ``rows_ok`` masks padded chunk slots (their lanes
-    combine to the op identity).  ``flat_vals`` is (E,) or (E, F)."""
+    combine to the op identity).  ``flat_vals`` is (E,) or (E, F).  ``dp``
+    holds the plan's index arrays on the device where the caller has them
+    already (the sharded executor's rank plan); by default they are
+    uploaded from ``plan``."""
     feat_shape(flat_vals, 1)
-    dp = device_plan(plan, flat_vals.device)
+    if dp is None:
+        dp = device_plan(plan, flat_vals.device)
     rows = rows.long()
     ident = identity_of(op, flat_vals.dtype)
     valid = rows_ok[:, None] & dp.row_valid[rows]

@@ -227,11 +227,12 @@ class PartitionedGraph:
     def gmax(self, x: torch.Tensor) -> torch.Tensor:
         return torch.max(x)
 
-    def edge_src_values(self, state: torch.Tensor, src: torch.Tensor
-                        ) -> torch.Tensor:
+    def edge_src_values(self, state: torch.Tensor, src: torch.Tensor,
+                        kind: Optional[str] = None) -> torch.Tensor:
         """Read per-vertex ``state`` at each edge's (locally stored) source
         endpoint: ``src`` is (M, E_loc) local slots in the padded layout,
-        flat (E,) global slot ids in csr."""
+        flat (E,) global slot ids in csr.  ``kind`` (the edge set, "all"
+        or "eg") is read only by the sharded executor's split rank view."""
         if self.layout == "csr":
             return state.reshape(-1)[src.long()]
         return torch.gather(state, 1, src.long())

@@ -12,6 +12,12 @@ and output lines as ``repro.launch.graph_run``.
 (``torch.multiprocessing``): on ``--device cuda`` an NCCL group with rank
 r on ``cuda:r`` (D may not exceed the visible GPUs), on ``--device cpu`` a
 gloo group.  Every rank builds the graph from ``--seed``; rank 0 prints.
+``--hosts H`` arranges the D ranks as the (H, D/H) mesh (the partition is
+host-affine, every routed exchange combines per level), ``--pipeline``
+double-buffers the exchanges; the ``[balance]`` lines then give the
+per-device edge load, ``[crossness]`` the static cross-worker, device and
+host message fractions, and ``[exchange]`` the static wire lanes of a
+superstep, within and across hosts.
 """
 from __future__ import annotations
 
@@ -37,7 +43,7 @@ def make_graph(graph: str, n: int, seed: int):
 
 def build(graph: str, n: int, seed: int, M: int, tau_arg: str,
           layout: str = "padded", balance: str = "hash",
-          split_factor: float = 1.2, device="cuda"):
+          split_factor: float = 1.2, device="cuda", hosts=None):
     from repro_torch.core.cost_model import choose_tau
     from repro_torch.graph.structs import partition
     g = make_graph(graph, n, seed).symmetrized()
@@ -49,7 +55,7 @@ def build(graph: str, n: int, seed: int, M: int, tau_arg: str,
         tau = int(tau_arg)
     pg = partition(g, M, tau=tau, seed=seed, layout=layout,
                    balance=balance, split_factor=split_factor,
-                   device=device)
+                   hosts=hosts, device=device)
     return g, pg, tau
 
 
@@ -145,7 +151,20 @@ def parse_args(argv=None):
     ap.add_argument("--devices", type=int, default=None,
                     help="run the sharded executor on this many ranks, one "
                          "process each (NCCL on cuda:<rank>, gloo on cpu)")
-    return ap.parse_args(argv)
+    ap.add_argument("--hosts", type=int, default=0,
+                    help="arrange --devices D as the hierarchical (hosts, "
+                         "D/hosts) mesh: the partition becomes host-affine, "
+                         "every routed exchange combines or deduplicates "
+                         "per level, and only the combined residue crosses "
+                         "hosts")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="double-buffer the sharded exchanges: chunk c's "
+                         "all_to_all is in flight while chunk c-1 combines "
+                         "(the results keep the parity contract)")
+    args = ap.parse_args(argv)
+    if args.hosts > 1 and (not args.devices or args.devices % args.hosts):
+        ap.error(f"--hosts {args.hosts} needs --devices divisible by it")
+    return args
 
 
 def main(argv=None):
@@ -174,18 +193,25 @@ def run(args, rank: int = 0, device=None):
     device = args.device if device is None else device
     show = print if rank == 0 else (lambda *a, **k: None)
     part_dev = "cpu" if args.devices is not None else device
+    hosts = args.hosts if args.hosts > 1 else None
+    # the engine's devices: None, D, or the (H, D/H) mesh
+    dev = (hosts, args.devices // hosts) if hosts else args.devices
+    dev_tag = f"{dev[0]}x{dev[1]}" if isinstance(dev, tuple) else str(dev)
     g, pg, tau = build(args.graph, args.n, args.seed, args.workers,
                        args.tau, layout=args.layout, balance=args.balance,
-                       split_factor=args.split_factor, device=part_dev)
+                       split_factor=args.split_factor, device=part_dev,
+                       hosts=hosts)
     show(f"[graph] {args.graph}: n={g.n} m={g.m} M={args.workers} "
-        f"tau={tau} max_deg={int(g.out_degrees().max())} "
-        f"backend={args.backend} layout={args.layout} "
-        f"balance={args.balance} device={device} devices={args.devices}")
+         f"tau={tau} max_deg={int(g.out_degrees().max())} "
+         f"backend={args.backend} layout={args.layout} "
+         f"balance={args.balance} device={device} devices={dev_tag} "
+         f"pipeline={'on' if args.pipeline else 'off'}")
 
     mirror = not args.no_mirroring and tau is not None
     eng = Engine(backend=args.backend, layout=args.layout,
                  balance=args.balance, split_factor=args.split_factor,
-                 use_mirroring=mirror, devices=args.devices, device=device)
+                 hosts=hosts, use_mirroring=mirror, devices=dev,
+                 pipeline=args.pipeline, device=device)
 
     t0 = time.time()
     if args.algo == "sssp":
@@ -237,10 +263,8 @@ def run(args, rank: int = 0, device=None):
     stats, n_ss = res.stats, res.n_supersteps
     dt = time.time() - t0
 
-    rep = straggler_report(pg.edge_load(phys=True))
-    show(f"[balance] {args.balance}: workers {pg.M} -> {pg.M_phys} "
-         f"physical shards; edge-load max/mean="
-         f"{rep['max_over_mean']:.2f} cv={rep['cv']:.2f}")
+    if rank == 0:
+        report_balance(args, pg, dev, dev_tag)
     show(f"[run] {args.algo}: {int(n_ss)} supersteps in {dt:.2f}s")
     for k in ("msgs_total", "msgs_combined", "msgs_mirror", "msgs_basic",
               "msgs_rr"):
@@ -251,6 +275,50 @@ def run(args, rank: int = 0, device=None):
             rep = straggler_report(np.asarray(stats[k]))
             show(f"  balance[{k}]: max/mean={rep['max_over_mean']:.2f} "
                  f"cv={rep['cv']:.2f} gini={rep['gini']:.3f}")
+    if dev and rank == 0:
+        report_exchange(pg, dev, dev_tag, args.backend, mirror, device)
+
+
+def report_balance(args, pg, dev, dev_tag) -> None:
+    """The ``[balance]`` and ``[crossness]`` lines of the partition the
+    algorithm ran on (SSSP and MSF build a weighted one)."""
+    from repro_torch.core import exec as exec_mod
+    from repro_torch.core.cost_model import straggler_report
+    rep = straggler_report(pg.edge_load(phys=True))
+    print(f"[balance] {args.balance}: workers {pg.M} -> {pg.M_phys} "
+          f"physical shards; edge-load max/mean="
+          f"{rep['max_over_mean']:.2f} cv={rep['cv']:.2f}")
+    if dev and pg.layout == "csr":
+        dl = straggler_report(exec_mod.device_edge_loads(pg, dev))
+        print(f"[balance] device edge-load max/mean="
+              f"{dl['max_over_mean']:.2f} over {dev_tag} devices")
+    cr = exec_mod.crossness_report(pg, dev)
+    line = (f"[crossness] cross-worker message fraction="
+            f"{cr['cross_worker_frac']:.3f}")
+    if "cross_device_frac" in cr:
+        line += f" cross-device={cr['cross_device_frac']:.3f}"
+    if "cross_host_frac" in cr:
+        line += f" cross-host={cr['cross_host_frac']:.3f}"
+    print(line)
+
+
+def report_exchange(pg, dev, dev_tag, backend: str, mirror: bool,
+                    device) -> None:
+    """The ``[exchange]`` lines: the static wire lanes of a superstep's
+    plan exchanges and fetch plans at ``device``'s block width, within and
+    across hosts (on the 2-D mesh ``cross_host`` is the post-combine
+    residue)."""
+    from repro_torch.core import exec as exec_mod
+    from repro_torch.core.plan import default_nb
+    vol = exec_mod.exchange_volume_report(
+        pg, dev, plan_kinds=exec_mod.broadcast_plan_kinds(backend, mirror),
+        nb=default_nb(device))
+    print(f"[exchange] devices={dev_tag}: wire lanes/superstep "
+          f"total={vol['total']:,d} intra_host={vol['intra_host']:,d} "
+          f"cross_host={vol['cross_host']:,d}")
+    for name, e in sorted(vol["per_exchange"].items()):
+        print(f"  {name:16s} intra={e['intra_host']:>12,d} "
+              f"cross={e['cross_host']:>12,d}")
 
 
 if __name__ == "__main__":

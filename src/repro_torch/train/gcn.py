@@ -18,8 +18,9 @@ them.
 The step is the reference's: the summed masked cross-entropy is
 differentiated, the gradients are divided by the count of labelled rows,
 clipped by their global norm, and handed to AdamW with its own clipping
-disarmed.  The sharded executor (``devices``) and ``pipeline`` come with a
-later slice of the port and raise here.
+disarmed.  The sharded GNN path (``devices``, and ``pipeline``, which
+double-buffers its exchanges) comes with a later slice of the port and
+raises here.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.api import EngineConfig, RunResult, check_config
+from repro_torch.api import EngineConfig, RunResult
 from repro_torch.core import gspmm
 from repro_torch.graph.structs import Graph, PartitionedGraph
 from repro_torch.models.embedding import node_embedding_init
@@ -152,12 +153,11 @@ def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
     dict, ``history`` the loss trajectory, ``n_supersteps`` the epoch
     count."""
     cfg = config or EngineConfig()
-    check_config(cfg)
     params, losses = train_gcn(
         pg, feat_dim=feat_dim, hidden=hidden, n_classes=n_classes,
         epochs=epochs, lr=lr, seed=seed, backend=cfg.backend,
         devices=cfg.devices, use_mirroring=cfg.use_mirroring,
-        params=params)
+        pipeline=cfg.pipeline, params=params)
     return RunResult(state=params, stats={}, n_supersteps=epochs,
                      history=losses)
 
@@ -170,11 +170,11 @@ def train_gcn(pg: PartitionedGraph, feat_dim: int = 32, hidden: int = 64,
     """Full training run: ``epochs`` full-graph AdamW steps; returns
     ``(params, loss_history)``.  ``pg`` must be partitioned from a
     :func:`normalize_adjacency`'d (or at least symmetrized) graph."""
-    check_config(EngineConfig(devices=devices, pipeline=pipeline))
-    if devices is not None:
+    if devices is not None or pipeline:
         raise NotImplementedError(
-            f"GCN training with devices={devices!r}: the sharded GNN path "
-            "(gspmm_sharded) comes with a later slice of the port")
+            f"GCN training with devices={devices!r}, pipeline={pipeline}: "
+            "the sharded GNN path (gspmm_sharded) and its pipelined "
+            "exchanges come with a later slice of the port")
     torch.backends.cuda.matmul.allow_tf32 = False
     if params is None:
         params = init_gcn_params(pg, feat_dim, hidden, n_classes, seed)

@@ -1,13 +1,18 @@
-"""The ranks of ``tests/test_torch_sharded.py``: spawned processes that
-join a gloo group and run a whole matrix of sharded jobs, so each world
-size pays the start-up once.  This module imports neither JAX nor the JAX
-package (every rank imports it); the test module compares what rank 0 and
-every rank write against the single-device runs.
+"""The ranks of ``tests/test_torch_sharded.py`` and
+``tests/test_torch_sharded_mesh.py``: spawned processes that join a gloo
+group and run a whole matrix of sharded jobs, so each world size pays the
+start-up once.  This module imports neither JAX nor the JAX package
+(every rank imports it); the test modules compare what rank 0 and every
+rank write against the single-device runs.
 
 A job spec (pickled by the test) holds partitions as ``structs.to_numpy``
 fields and jobs ``name -> (partition, EngineConfig fields, algo,
-params)``; ``params`` ``{"attr": "ramp"}`` stands for the attribute
-``3 * arange(n_pad)``.
+params)``; the fields may name ``devices`` (an int or an ``(H, T)`` mesh
+of the world size; default the world size); ``params`` ``{"attr":
+"ramp"}`` stands for the attribute ``3 * arange(n_pad)``.  ``exchange``
+names the partition of the routed exchanges at a forced small cap, and
+``pipelined`` a ``(partition, devices)`` on which they also run at caps
+``PIPE_CAPS``, pipelined and not.
 """
 import datetime
 import pickle
@@ -25,6 +30,7 @@ GROUP_TIMEOUT_S = 90
 HOT = 40                  # lanes of a rank aimed at rank 0's slots
 LANES = 64
 CAP = 8                   # the forced round cap: HOT lanes take 5 rounds
+PIPE_CAPS = (1, 8)        # the pipelined exchanges' forced caps
 IMAX = np.iinfo(np.int32).max
 
 
@@ -78,6 +84,19 @@ def gather_inputs(M: int, n_loc: int, R: int = 12):
     return vals, targets, tmask
 
 
+def fetch_lanes(sg, t):
+    """The routed fetch's global values (``5 * id - 7``), this rank's rows
+    of them, and its targets with three out-of-range ones."""
+    n_pad, loc_n = sg.n_pad, sg.m_loc * sg.n_loc
+    lo = sg.w0 * sg.n_loc
+    glob = np.arange(n_pad, dtype=np.int32) * 5 - 7
+    vals = torch.as_tensor(glob[lo:lo + loc_n].reshape(sg.m_loc, sg.n_loc))
+    tf = t.clone()
+    if len(tf):
+        tf[HOT:HOT + 3] = torch.tensor([-1, n_pad, n_pad + 5])
+    return glob, vals, tf
+
+
 def exchange_cases(sg) -> dict:
     """The routed exchanges at a forced small cap, on this rank's lanes,
     with what a plain scatter / read of every rank's lanes gives."""
@@ -95,11 +114,7 @@ def exchange_cases(sg) -> dict:
         out[f"scatter_{op}"] = (got.numpy(), want[lo:lo + loc_n])
     out["scatter_rounds"] = list(sg.rounds)
 
-    glob = np.arange(n_pad, dtype=np.int32) * 5 - 7
-    vals = torch.as_tensor(glob[lo:lo + loc_n].reshape(sg.m_loc, sg.n_loc))
-    tf = t.clone()
-    if len(tf):
-        tf[HOT:HOT + 3] = torch.tensor([-1, n_pad, n_pad + 5])
+    glob, vals, tf = fetch_lanes(sg, t)
     sg.rounds = []
     got = texec._routed_fetch(sg, vals, tf, ok, cap=CAP)
     inb = ok & (tf >= 0) & (tf < n_pad)
@@ -117,6 +132,30 @@ def exchange_cases(sg) -> dict:
     return out
 
 
+def pipelined_cases(pg, devices) -> dict:
+    """The routed scatter (min, sum) and fetch on this rank's lanes at
+    each cap of ``PIPE_CAPS`` (a ``(cap, cap)`` pair per level on an
+    ``(H, T)`` mesh), pipelined and not; with each run's rounds."""
+    out = {}
+    for pipe in (False, True):
+        sg = texec.shard(pg, devices, device="cpu", pipeline=pipe)
+        n_pad, loc_n = sg.n_pad, sg.m_loc * sg.n_loc
+        t, v, ok = (torch.as_tensor(a)
+                    for a in lanes_of(sg.rank, n_pad, loc_n))
+        _, vals, tf = fetch_lanes(sg, t)
+        for cap in PIPE_CAPS:
+            c = (cap, cap) if isinstance(devices, tuple) else cap
+            sg.rounds = []
+            for op in ("min", "sum"):
+                out[(pipe, cap, f"scatter_{op}")] = \
+                    texec._routed_scatter_combine(sg, t, v, ok, op,
+                                                  cap=c).numpy()
+            out[(pipe, cap, "fetch")] = texec._routed_fetch(
+                sg, vals, tf, ok, cap=c).numpy()
+            out[(pipe, cap, "rounds")] = list(sg.rounds)
+    return out
+
+
 def rank_main(rank: int, D: int, store: str, spec_path: str,
               out_path: str) -> None:
     torch.set_num_threads(1)
@@ -131,8 +170,8 @@ def rank_main(rank: int, D: int, store: str, spec_path: str,
         results = {}
         for name, (part, cfg, algo, params) in spec["jobs"].items():
             pg = parts[part]
-            res = api.Engine(devices=D, device="cpu", **cfg).run(
-                algo, pg, **job_params(pg, params))
+            res = api.Engine(device="cpu", **dict({"devices": D}, **cfg)
+                             ).run(algo, pg, **job_params(pg, params))
             results[name] = {"state": to_host(res.state),
                              "stats": res.stats,
                              "n": res.n_supersteps,
@@ -141,6 +180,9 @@ def rank_main(rank: int, D: int, store: str, spec_path: str,
         if spec.get("exchange"):
             sg = texec.shard(parts[spec["exchange"]], D, device="cpu")
             results["exchange"] = exchange_cases(sg)
+        if spec.get("pipelined"):
+            part, devices = spec["pipelined"]
+            results["pipelined"] = pipelined_cases(parts[part], devices)
         with open(f"{out_path}.{rank}", "wb") as f:
             pickle.dump(results, f)
     finally:

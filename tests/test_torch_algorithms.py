@@ -136,18 +136,24 @@ def test_engine_partitions_host_graphs_like_the_reference():
 
 
 def test_what_this_slice_does_not_run_raises():
-    with pytest.raises(NotImplementedError, match="sharded"):
+    # the (hosts, per_host) mesh runs over a process group of H*T ranks:
+    # without one it raises, as an int does (no fallback to one device)
+    with pytest.raises(RuntimeError, match="init_process_group"):
         tapi.Engine(devices=(1, 2), device=CPU)
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        tapi.Engine(pipeline=True, device=CPU)
     _, g_t = graph_pair("powerlaw", 100, seed=0)
     eng = tapi.Engine(device=CPU)
     with pytest.raises(ValueError, match="unknown algo"):
         eng.run("bfs", g_t, M=2)
     pg = eng.partition(g_t, 2)
     from repro_torch.algorithms import hashmin
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="world_size=4"):
         hashmin.run(pg, tapi.EngineConfig(devices=(2, 2)))
+    # pipeline=True double-buffers the sharded exchanges; one device runs
+    # as without it
+    a = tapi.Engine(device=CPU).run("hashmin", pg)
+    b = tapi.Engine(pipeline=True, device=CPU).run("hashmin", pg)
+    assert torch.equal(a.state, b.state)
+    assert_totals_equal(a.stats, b.stats)
 
 
 def test_bsp_totals_are_exact_int64():

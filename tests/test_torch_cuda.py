@@ -3,7 +3,8 @@ vector), the flash attention kernel and the SSD chunk scan kernel against
 their plain PyTorch versions, and the main paths at a small size (the
 algorithms, the request-respond ones among them, and GCN training with the
 kernels against the dense backend and the CPU, Hash-Min and S-V on the
-sharded executor over an NCCL group of size 1, a hybrid model's prefill
+sharded executor over an NCCL group of size 1 (the 1-D mesh, the (1, 1)
+mesh, the pipeline and a split partition), a hybrid model's prefill
 and decode with the kernels against the plain path).
 
 Every test here carries the ``cuda`` marker and skips without a GPU.  The
@@ -438,6 +439,68 @@ def test_sharded_on_one_card_over_nccl(cuda, algo):
         np.testing.assert_array_equal(np.asarray(b.stats[k]),
                                       np.asarray(a.stats[k]))
     assert b.sharded["host_reads"] >= b.n_supersteps
+
+
+@pytest.mark.parametrize("mode", ["mesh", "pipeline", "split"])
+@pytest.mark.parametrize("algo", ["hashmin", "sv"])
+def test_mesh_pipeline_split_on_one_card_over_nccl(cuda, algo, mode,
+                                                 monkeypatch):
+    """``devices=(1, 1)`` (the hierarchical exchanges through subgroups of
+    one rank), ``devices=1, pipeline=True`` with two chunks a join (forced:
+    the executor's default on one rank is one), and a split partition with
+    ``devices=1``, over an NCCL group of size 1: each equals the one-device
+    run on its partition, labels bitwise and every stat equal, and the
+    scalar kernel runs on the rank's plan rows, once a pipeline chunk."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.core import exec as exec_mod
+    balance = "split" if mode == "split" else "hash"
+    # hub-heavy for split (alpha 1.5): hot workers cut into several shards
+    g = tgen.powerlaw(3000, avg_deg=8, seed=1, weighted=True,
+                      alpha=1.5 if mode == "split" else 2.0).symmetrized()
+    one = Engine(backend="pallas", layout="csr", balance=balance,
+                 split_factor=1.1, device=cuda)
+    pg = one.partition(g, 8, tau=20, seed=0)
+    kw = {"devices": (1, 1) if mode == "mesh" else 1,
+          "pipeline": mode == "pipeline"}
+    monkeypatch.setattr(exec_mod, "_chunks_of",
+                        lambda D, pipeline, chunks: 2 if pipeline else None)
+    kinds = exec_mod.broadcast_plan_kinds("pallas", algo == "hashmin")
+    runs = {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        sharded = Engine(backend="pallas", layout="csr", balance=balance,
+                         split_factor=1.1, device=cuda, **kw)
+        for name, eng in (("one", one), ("sharded", sharded)):
+            before = tkernel.segment_combine_blocks.launches
+            res = eng.run(algo, pg)
+            torch.cuda.synchronize()
+            runs[name] = (res, tkernel.segment_combine_blocks.launches
+                          - before)
+        sg = exec_mod.shard(pg, kw["devices"], kinds, cuda,
+                            pipeline=kw["pipeline"])
+    finally:
+        dist.destroy_process_group()
+    (a, la), (b, lb) = runs["one"], runs["sharded"]
+    assert b.n_supersteps == a.n_supersteps
+    # values a chunk (or one launch unchunked) plus the hit counts; and
+    # the mirror fan-out for Hash-Min
+    per_ss = (2 if mode == "pipeline" else 1) + 1 + (algo == "hashmin")
+    if mode == "pipeline":
+        assert sg.plans[kinds[0]].n_chunks == 2
+    if mode == "split":
+        assert pg.M_phys > pg.M
+    assert lb == per_ss * b.n_supersteps
+    assert la == (3 if algo == "hashmin" else 2) * a.n_supersteps
+    assert torch.equal(a.state, b.state)
+    assert set(a.stats) == set(b.stats)
+    for k in a.stats:
+        np.testing.assert_array_equal(np.asarray(b.stats[k]),
+                                      np.asarray(a.stats[k]))
+    if mode == "mesh":
+        assert b.sharded["inner_rounds"] or algo == "hashmin"
 
 
 def test_device_plan_is_uploaded_once_per_card(cuda):

@@ -251,12 +251,6 @@ def test_sharded_gather_with_a_masked_row(parts, sharded, D):
 
 def test_what_the_sharded_executor_refuses():
     _, g_t = graph_pair("powerlaw", 100, seed=0)
-    with pytest.raises(NotImplementedError, match="hosts, per_host"):
-        tapi.Engine(devices=(1, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        tapi.Engine(devices=2, pipeline=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="split"):
-        tapi.Engine(devices=2, balance="split", layout="csr", device="cpu")
     with pytest.raises(RuntimeError, match="init_process_group"):
         tapi.Engine(devices=2, device="cpu")
     pg = tstructs.partition(g_t, 2, device="cpu")
