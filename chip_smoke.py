@@ -68,8 +68,29 @@ Phases; any failure exits non-zero and prints no result:
    cross-worker/device/host fractions and exchange volume of the (2, 4)
    mesh beside the flat D=8 mesh's lanes across the same host boundary
    (host tables of the hash partition, not host-affine: the paper's load
-   balance and per-level combining).
-3c. ranks (spawned, ``tcp://127.0.0.1``) on the n=200k graph of phase 5
+   balance and per-level combining).  After phase 4, the sharded GCN over
+   a new NCCL group of world size 1: ``Engine(devices=1).run("gcn")``
+   for 4 epochs on the 1-D mesh and 2 epochs each on the (1, 1) mesh,
+   under the pipeline (two chunks, forced and checked) and on the split
+   partition, each from phase 4's params (the split partition's in its
+   vertex layout) after one warm-up epoch.  Gates against the one-device
+   run of the same partition and epochs: the loss history within rtol
+   2e-4 and atol 2e-5 (the reference's sharded contract; at n=4M the
+   loss moves about 1e-4 in 4 epochs, so this gate cannot fail there and
+   the params gate carries the check), every trained leaf finite and its
+   change within PARAM_RTOL of the one-device change, the vector kernel's
+   launches (counted from 0 before each run, read after it)
+   ``SHARDED_VEC_PER_EPOCH`` = 222 an epoch on the hash partition and
+   ``SPLIT_VEC_PER_EPOCH`` = 310 on the split one (a D=1 rank's plans are
+   the one-device plans and nothing leaves the rank), and no scalar
+   launch.  The params gate's control: the 1-D run again with its first
+   vector combine dropped, which that gate must reject.  ``[sharded] ...
+   gcn`` lines give ms an epoch beside the one-device epoch, the peak
+   device memory beside phase 4's, and ``[profile] sharded D=1 gcn`` the
+   busy share of one epoch; then one ``gspmm_sharded("u_mul_e_sum")``
+   call at F=64 whose stats must equal ``gspmm_stats`` on one device,
+   integer for integer.
+3c. ranks (spawned, a file store) on the n=200k graph of phase 5
    with M=8, each building it from ``--seed``: on one card, gloo with
    every rank on cuda:0 (gloo stages every collective through the host;
    those host-clock times are labelled so): 2 ranks on the 1-D mesh
@@ -81,7 +102,10 @@ Phases; any failure exits non-zero and prints no result:
    8, the (1, 2) and (2, 1) meshes, split and the pipeline on 2, and the
    (2, 2) mesh where there are four.  The six algorithms in each; rank 0
    holds each to the one-device run on its card under the gates of 3b and
-   prints the exchange rounds of each routed join and inter-host leg.
+   prints the exchange rounds of each routed join and inter-host leg.  In
+   each csr/pallas mode also the GCN for 2 epochs, held to the one-device
+   run under the GCN gates of 3b, with at least one vector launch a join
+   on rank 0.
 4. GCN training at full width on that graph: ``Engine.run("gcn")`` with
    F=32, hidden=64, 8 classes, lr=1e-2, 4 epochs.  The vector kernel's
    launch count must equal what the plan chunks predict (2 joins at F=32
@@ -139,8 +163,9 @@ Phases; any failure exits non-zero and prints no result:
 
 One JSON line ``{"kernels": [...]}`` with all four kernels (the scalar
 kernel's entry carries ``sharded``: phase 3b's launches, each mode's, the
-replays' times and the static balance figures), then the last line
-``{"ok": true, "device": {...}}``.
+replays' times and the static balance figures; the vector kernel's the
+sharded GCN's launches, ms an epoch and peak memory by mode, and phase
+3c's GCN runs), then the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -229,6 +254,34 @@ CHUNKED_PLAN = {"hashmin": "eg", "pagerank": "eg", "sssp": "eg",
 SPLIT_FACTOR = 1.0
 GROUP_TIMEOUT_S = 120        # every process group's collective timeout
 SHARDED_JOIN_S = 600         # deadline for the phase 3c ranks
+# The vector kernel's launches an epoch of the sharded GCN on a rank at
+# D=1 (n=4M, M=32): each of an epoch's four joins (two forward, two
+# backward) runs the eg and mirror plans in vec_chunk_rows chunks; a D=1
+# rank's plans are the single-device plans, and no segment leaves the rank
+# (so the pipeline cuts no rows either), so it launches what one device
+# launches: 222 an epoch (888 in 4 epochs).
+SHARDED_VEC_PER_EPOCH = 222
+# The same on the split partition at SPLIT_FACTOR 1.0: a D=1 rank runs the
+# split partition's one-device plans, whose eg plan has more rows (its
+# cut workers' shards pad their blocks apart), so it launches what the
+# one-device GCN launches on that partition: 310 an epoch (measured on
+# the H100, PERF.md), checked against that one-device run here too.
+SPLIT_VEC_PER_EPOCH = 310
+# the (n, M) those constants are for; at another --n the one-device runs'
+# counts stand in
+GCN_SIZE = (4_000_000, 32)
+GCN_SHARDED_EPOCHS = 2       # epochs of each sharded GCN mode but the 1-D
+# the loss history of a sharded GCN against one device (the reference's
+# own sharded contract, tests/test_gspmm.py)
+GCN_LOSS_RTOL, GCN_LOSS_ATOL = 2e-4, 2e-5
+# Trained params against one device, |d change| / |change| of each leaf:
+# two one-device runs on the card already differ (atomic float adds
+# reorder the joins' sums, a pre-activation within round-off of 0 may
+# take the other side of the relu, and the epochs amplify it): H100 runs
+# (PERF.md) read at most 6.3e-4 between two one-device runs and 5.9e-4
+# between a sharded and a one-device run.  The control (one vector
+# combine of the run dropped) must read above the limit.
+PARAM_RTOL = 5e-3
 
 
 def fail(msg: str) -> None:
@@ -543,7 +596,8 @@ def join_inputs(torch, eng, pg, params0):
     """The input of every gSpMM join of a replay of the counted GCN run
     (same params, same epochs), in call order: per epoch the two forward
     joins' features and the two backward joins' cotangents.  Recorded by
-    wrapping ``channels.broadcast``, through which every join runs."""
+    wrapping ``channels.broadcast``, through which every join runs.
+    Returns them and the replay's result."""
     from repro_torch.core import channels
     seen = []
     broadcast = channels.broadcast
@@ -553,13 +607,13 @@ def join_inputs(torch, eng, pg, params0):
         return broadcast(g, vals, *a, **kw)
     channels.broadcast = record
     try:
-        eng.run("gcn", pg, epochs=GCN_EPOCHS, params=params0, **GCN)
+        res = eng.run("gcn", pg, epochs=GCN_EPOCHS, params=params0, **GCN)
     finally:
         channels.broadcast = broadcast
     if len(seen) != 4 * GCN_EPOCHS:
         fail(f"gcn replay: {len(seen)} joins in {GCN_EPOCHS} epochs, "
              "expected 4 an epoch")
-    return seen
+    return seen, res
 
 
 def gcn_launches(torch, planlib, kernel, ref_fn, pg, inputs):
@@ -1085,6 +1139,7 @@ def sharded_one(torch, np, mods, pg, runs, algos, ref_fn, dev, phases):
     S-V replayed through the kernel and its plain version."""
     import datetime
     import torch.distributed as dist
+    from repro_torch.launch import mesh as meshlib
     from repro_torch.core import exec as exec_mod
     api, kernel = mods[0], mods[5]
     dist.init_process_group(
@@ -1121,7 +1176,7 @@ def sharded_one(torch, np, mods, pg, runs, algos, ref_fn, dev, phases):
                        lambda: eng.run(algo, pg, **profiled[algo]),
                        f"sharded D=1 {algo}")
     finally:
-        dist.destroy_process_group()
+        meshlib.destroy()
     drop_shards(pg)
     del sg
     torch.cuda.empty_cache()
@@ -1152,6 +1207,7 @@ def sharded_modes(torch, np, mods, g, pg, runs, algos, ref_fn, dev, phases):
     (the modes' launches, the two replay rows, the split partition)."""
     import datetime
     import torch.distributed as dist
+    from repro_torch.launch import mesh as meshlib
     from repro_torch.core import exec as exec_mod
     api, kernel = mods[0], mods[5]
     kinds = ("eg", "mir", "all")
@@ -1229,7 +1285,7 @@ def sharded_modes(torch, np, mods, g, pg, runs, algos, ref_fn, dev, phases):
             del sg
             torch.cuda.empty_cache()
     finally:
-        dist.destroy_process_group()
+        meshlib.destroy()
     log(f"[check] sharded (1, 1) mesh, pipeline ({PIPELINE_CHUNKS} chunks a "
         f"join) and split (M_phys={pgs.M_phys} > M={pgs.M}) over NCCL == "
         f"one device at n={pg.n}: states bitwise (PageRank rtol 1e-5, MSF "
@@ -1371,7 +1427,7 @@ def sharded_many(torch, args):
     the host, so those times are not the executor's).  Rank 0 holds every
     run to the one-device run on its card."""
     import tempfile
-    from repro_torch.launch.graph_run import free_port, spawn_ranks
+    from repro_torch.launch.graph_run import rendezvous, spawn_ranks
     count = torch.cuda.device_count()
     summary = []
     for backend, D, modes in sharded_spawns(count):
@@ -1381,18 +1437,20 @@ def sharded_many(torch, args):
             + f"; modes {sorted({m[0] for m in modes})}")
         with tempfile.TemporaryDirectory() as tmp:
             out = Path(tmp) / "rank0.json"
-            spawn_ranks(sharded_rank, (D, backend, free_port(), args.seed,
-                                       str(out), modes), D, SHARDED_JOIN_S)
+            spawn_ranks(sharded_rank, (D, backend, rendezvous(tmp),
+                                       args.seed, str(out), modes), D,
+                        SHARDED_JOIN_S)
             summary += json.loads(out.read_text())
     log(f"[check] sharded ranks == one device at n={PARITY_N}, "
         f"M={SHARDED_M}: {len(summary)} runs (six algorithms in each "
-        "mode), states bitwise (PageRank rtol 1e-5, MSF weight 1e-6), every "
-        "msgs_*/per_worker_* equal, the same supersteps, the kernel "
-        "launches of SHARDED_PER_SS (PIPELINED_PER_SS under the pipeline)")
+        "mode, the GCN in each csr/pallas mode), states bitwise (PageRank "
+        "rtol 1e-5, MSF weight 1e-6), every msgs_*/per_worker_* equal, "
+        "the same supersteps, the kernel launches of SHARDED_PER_SS "
+        "(PIPELINED_PER_SS under the pipeline)")
     return summary
 
 
-def sharded_rank(rank, D, backend, port, seed, out_path, modes):
+def sharded_rank(rank, D, backend, init_method, seed, out_path, modes):
     """One rank of phase 3c (spawned): joins the group, builds the graph
     from ``seed``, runs the six algorithms sharded in each mode; rank 0
     also runs each on one device and holds the two to the gates of phase
@@ -1402,6 +1460,7 @@ def sharded_rank(rank, D, backend, port, seed, out_path, modes):
     import numpy as np
     import torch
     import torch.distributed as dist
+    from repro_torch.launch import mesh as meshlib
     from repro_torch import api
     from repro_torch.core import cost_model
     from repro_torch.core import exec as exec_mod
@@ -1412,7 +1471,7 @@ def sharded_rank(rank, D, backend, port, seed, out_path, modes):
     dev = torch.device("cuda", rank if backend == "nccl" else 0)
     torch.cuda.set_device(dev)
     dist.init_process_group(
-        backend, init_method=f"tcp://127.0.0.1:{port}", world_size=D,
+        backend, init_method=init_method, world_size=D,
         rank=rank, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
     where = ("staged through the host by gloo" if backend == "gloo"
              else "NCCL")
@@ -1483,10 +1542,333 @@ def sharded_rank(rank, D, backend, port, seed, out_path, modes):
                                 "launches": launches,
                                 "rounds": res.sharded["rounds"],
                                 "inner_rounds": res.sharded["inner_rounds"]})
+            if be == "pallas" and layout == "csr":
+                summary += sharded_rank_gcn(
+                    torch, np, rank, D, tag, eng, pg, devices, pipe,
+                    one if rank == 0 else None,
+                    pg_one if rank == 0 else None, kernel, dev, where)
         if rank == 0:
             Path(out_path).write_text(json.dumps(summary))
     finally:
-        dist.destroy_process_group()
+        meshlib.destroy()
+
+
+# ---------------------------------------------------------------------------
+# phases 3b and 3c, continued: the sharded GCN
+# ---------------------------------------------------------------------------
+
+def gcn_readings(torch, np, name, sh, runs, p0):
+    """The gates' readings of a sharded GCN run ``sh`` against the
+    one-device run from the same params ``p0``: ``runs`` holds two
+    one-device runs (``(one, again)``) of the same epochs.  Returns
+    whether the loss history is within GCN_LOSS_RTOL / GCN_LOSS_ATOL of
+    ``one``, and for each trained leaf (failing on a leaf that is not
+    finite) |change - one-device change| / |one-device change|, the same
+    for the two one-device runs, and the limit of the first (PARAM_RTOL
+    plus the float32 rounding of the values)."""
+    one, again = runs
+    loss_ok = (len(sh.history) == len(one.history)
+               and np.allclose(sh.history, one.history, rtol=GCN_LOSS_RTOL,
+                               atol=GCN_LOSS_ATOL))
+    norm = torch.linalg.vector_norm
+    errs = {}
+    for k, v in one.state.items():
+        s = sh.state[k].to(v.device)
+        if s.shape != v.shape or not bool(torch.isfinite(s).all()):
+            fail(f"{name}: the trained {k} is {tuple(s.shape)}, finite "
+                 f"{bool(torch.isfinite(s).all())}")
+        diff = float(norm((s - v).double()))
+        spread = float(norm((again.state[k].to(v.device) - v).double()))
+        step = max(float(norm((v - p0[k].to(v.device)).double())), 1e-30)
+        lim = PARAM_RTOL + U32 * float(norm(v.double())) / step
+        errs[k] = (diff / step, spread / step, lim)
+    return loss_ok, errs
+
+
+def gcn_gate(torch, np, name, sh, runs, p0):
+    """Fail unless the sharded GCN run ``sh`` equals the one-device run
+    from the same params ``p0`` (``gcn_readings``): the loss history
+    within its tolerance, every trained leaf finite and within its
+    limit.  Returns the leaves' readings."""
+    loss_ok, errs = gcn_readings(torch, np, name, sh, runs, p0)
+    if not loss_ok:
+        fail(f"{name}: loss {sh.history} vs one device {runs[0].history}")
+    for k, (err, spread, lim) in errs.items():
+        if err > lim:
+            fail(f"{name}: the trained {k} differs from one device by "
+                 f"{err:.3g} of its change (limit {lim:.3g}); two "
+                 f"one-device runs differ by {spread:.3g}")
+    return errs
+
+
+def gcn_control(torch, np, planlib, eng, pg, p0, runs):
+    """The params gate's control: GCN_SHARDED_EPOCHS epochs of the sharded
+    GCN with the run's first vector combine dropped (its rows' lanes never
+    reach their blocks; one of the run's hundreds of launches), held to
+    the one-device runs ``runs`` of those epochs.  Fails unless the
+    params gate rejects it.  Returns its readings."""
+    combine = planlib._combine_rows
+    left = [1]
+
+    def dropped(packed, row_local, op, nb):
+        out = combine(packed, row_local, op, nb)
+        if packed.dim() == 3 and left[0]:
+            left[0] = 0
+            if op != "sum":
+                fail(f"the control drops a sum combine, not a {op} one")
+            out = torch.zeros_like(out)
+        return out
+    planlib._combine_rows = dropped
+    try:
+        res = eng.run("gcn", pg, epochs=GCN_SHARDED_EPOCHS, params=p0, **GCN)
+    finally:
+        planlib._combine_rows = combine
+    if left[0]:
+        fail("the control dropped no vector combine")
+    loss_ok, errs = gcn_readings(torch, np, "control", res, runs, p0)
+    if all(err <= lim for err, _, lim in errs.values()):
+        fail("the params gate passes a GCN run with a vector combine "
+             "dropped: " + gate_text(errs))
+    log(f"[check] the params gate's control, one vector combine of "
+        f"{GCN_SHARDED_EPOCHS} epochs dropped: rejected (loss gate "
+        f"{'passed' if loss_ok else 'failed'}, loss "
+        f"{' -> '.join(f'{x:.5f}' for x in res.history)}); "
+        + gate_text(errs))
+    return {k: err for k, (err, _, _) in errs.items()}
+
+
+def gate_text(errs) -> str:
+    return ("trained leaf vs one device |d change|/|change| (two one-device "
+            "runs) " + ", ".join(f"{k} {a:.2g} ({b:.2g})"
+                                 for k, (a, b, _) in errs.items()))
+
+
+def relayout(torch, params, pg_from, pg_to):
+    """GCN params of ``pg_from`` in the vertex layout of ``pg_to``: each
+    original vertex's embedding row moves to its slot there."""
+    emb = params["emb"]
+    F = emb.shape[-1]
+    src = torch.as_tensor(pg_from.perm, device=emb.device).long()
+    dst = torch.as_tensor(pg_to.perm, device=emb.device).long()
+    out = torch.zeros((pg_to.n_pad, F), dtype=emb.dtype, device=emb.device)
+    out[dst] = emb.reshape(-1, F)[src]
+    return dict(params, emb=out.view(pg_to.M, pg_to.n_loc, F))
+
+
+def gspmm_sharded_check(torch, np, gspmm, kernel, pg, dev):
+    """One ``gspmm_sharded("u_mul_e_sum")`` call at F=64 on the rank of
+    world size 1 against ``gspmm_stats`` on one device: stats equal,
+    integer for integer; values within 1e-5 of |A_hat|^T |X| (summation
+    order).  Returns the call's (scalar, vector) launches."""
+    x = torch.randn((pg.M, pg.n_loc, GCN["hidden"]), device=dev,
+                    generator=torch.Generator(dev).manual_seed(4))
+    counter = kernel.segment_combine_blocks
+    counter.launches = counter.launches_vec = 0
+    got, stats = gspmm.gspmm_sharded(pg, "u_mul_e_sum", x, devices=1,
+                                     backend="pallas", device=dev)
+    launches = (counter.launches, counter.launches_vec)
+    want, wstats = gspmm.gspmm_stats(pg, "u_mul_e_sum", x, backend="pallas")
+    assert_stats_equal(np, "gspmm_sharded", wstats, stats,
+                       between="the sharded and one-device joins")
+    mag, _ = gspmm.gspmm_stats(pg, "u_mul_e_sum", x.abs(), backend="pallas")
+    worst = float(((got - want).abs() / mag.clamp(min=1e-30)).max())
+    if not worst <= 1e-5:
+        fail(f"gspmm_sharded: |sharded - one device| / (|A|^T|X|) {worst:.3g}"
+             " (limit 1e-5)")
+    log(f"[check] gspmm_sharded(u_mul_e_sum) at F={x.shape[-1]}, D=1 == "
+        f"one device: every msgs_*/per_worker_* equal (msgs_total "
+        f"{int(stats['msgs_total'])}), values max |err|/(|A|^T|X|) "
+        f"{worst:.3g} (limit 1e-5); {launches[1]} vector and {launches[0]}"
+        " scalar launches")
+    return launches
+
+
+def sharded_gcn(torch, np, mods, pg, pgs, params0, runs4, one_ms, one_added,
+                one_vec, dev, phases):
+    """Phase 3b, GCN: ``Engine(devices=1).run("gcn")`` over an NCCL group
+    of world size 1 on the main path's partition, GCN_EPOCHS epochs on the
+    1-D mesh, GCN_SHARDED_EPOCHS each on the (1, 1) mesh, under the
+    pipeline (PIPELINE_CHUNKS chunks, forced) and on the split partition
+    of phase 3b; each from the one-device run's params (the split
+    partition's in its layout), held by ``gcn_gate`` to two one-device
+    runs of its partition and epochs (``runs4``: phase 4's run and its
+    replay), with the vector kernel's launches counted from 0 before each
+    run and read after it: SHARDED_VEC_PER_EPOCH an epoch on the hash
+    partition, SPLIT_VEC_PER_EPOCH on the split one (which its one-device
+    run must launch too), and no scalar launch (a training join keeps no
+    message count).  Device ms are set beside a warm one-device run's,
+    the memory a run adds beside what phase 4's one-device run added.
+    After the 1-D run, the params gate's control (``gcn_control``) and
+    one ``gspmm_sharded`` call.  Returns the launches, times and memory
+    by mode."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.core import exec as exec_mod
+    from repro_torch.core import gspmm
+    api, kernel = mods[0], mods[5]
+    counter = kernel.segment_combine_blocks
+    E = GCN_SHARDED_EPOCHS
+    eng1 = api.Engine(backend="pallas", layout="csr", balance="hash",
+                      device=dev)
+    runs2 = tuple(phases.run(f"gcn-one-{E}-{i}", timed, torch,
+                             lambda: eng1.run("gcn", pg, epochs=E,
+                                              params=params0, **GCN))
+                  for i in (0, 1))
+    warm_ms = runs2[1][1] / E
+    split = dict(balance="split", split_factor=SPLIT_FACTOR)
+    ps0 = relayout(torch, params0, pg, pgs)
+    eng_s = api.Engine(backend="pallas", layout="csr", device=dev, **split)
+    runs_s = []
+    for i in (0, 1):
+        counter.launches_vec = 0
+        runs_s.append(phases.run(f"gcn-split-one-{i}", timed, torch,
+                                 lambda: eng_s.run("gcn", pgs, epochs=E,
+                                                   params=ps0, **GCN)))
+    split_per_epoch = counter.launches_vec // E
+    split_ms = runs_s[1][1] / E
+    log(f"[gcn] one device, warm, {E} epochs: {warm_ms:.3f} ms an epoch "
+        f"(phase 4's first run {one_ms / GCN_EPOCHS:.3f}); split "
+        f"partition: {split_ms:.3f} ms an epoch, {split_per_epoch} vector "
+        "launches an epoch; loss "
+        f"{' -> '.join(f'{x:.5f}' for x in runs_s[0][0].history)}")
+    # the constants hold at the default size; elsewhere the one-device
+    # runs' counts stand in
+    want, want_split = one_vec // GCN_EPOCHS, split_per_epoch
+    if (pg.n, pg.M) == GCN_SIZE:
+        want, want_split = SHARDED_VEC_PER_EPOCH, SPLIT_VEC_PER_EPOCH
+        if split_per_epoch != want_split:
+            fail(f"the one-device GCN on the split partition launched "
+                 f"{split_per_epoch} vector combines an epoch, the design "
+                 f"{want_split}")
+    pair2 = (runs2[0][0], runs2[1][0])
+    modes = [("1-D", pg, dict(devices=1, balance="hash"), GCN_EPOCHS,
+              params0, runs4, warm_ms, want),
+             ("mesh 1x1", pg, dict(devices=(1, 1), balance="hash"), E,
+              params0, pair2, warm_ms, want),
+             ("pipeline", pg, dict(devices=1, balance="hash",
+                                   pipeline=True), E, params0, pair2,
+              warm_ms, want),
+             ("split", pgs, dict(devices=1, **split), E, ps0,
+              (runs_s[0][0], runs_s[1][0]), split_ms, want_split)]
+    out = {}
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    try:
+        for mode, p_g, cfg, epochs, p0, yard, yard_ms, per_epoch in modes:
+            name = f"sharded {mode} gcn"
+            pipe = cfg.get("pipeline", False)
+            eng = api.Engine(backend="pallas", layout="csr", device=dev,
+                             **cfg)
+            with forced_chunks(exec_mod, pipe):
+                sg = phases.run(f"sharded-gcn-{mode}-build", exec_mod.shard,
+                                p_g, cfg["devices"], ("eg", "mir"), dev,
+                                pipeline=pipe)
+                if pipe and sg.plans["eg"].n_chunks != PIPELINE_CHUNKS:
+                    fail(f"{name}: the eg plan has {sg.plans['eg'].n_chunks}"
+                         f" pipeline chunks, expected {PIPELINE_CHUNKS}")
+                # NCCL's communicators form on first use: one epoch first
+                eng.run("gcn", p_g, epochs=1, params=p0, **GCN)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                counter.launches = counter.launches_vec = 0
+                res, dev_ms, host_s = phases.run(
+                    name, timed, torch, lambda: eng.run(
+                        "gcn", p_g, epochs=epochs, params=p0, **GCN))
+                scalar, vec = counter.launches, counter.launches_vec
+                added = torch.cuda.max_memory_allocated() - held
+                errs = gcn_gate(torch, np, name, res, yard, p0)
+                if vec != per_epoch * epochs or scalar:
+                    fail(f"{name}: {vec} vector and {scalar} scalar kernel "
+                         f"launches in {epochs} epochs, expected "
+                         f"{per_epoch} vector launches an epoch and no "
+                         "scalar one: the path did not go through the "
+                         "kernel")
+                log(f"[sharded] {name}: {epochs} epochs, "
+                    f"{dev_ms / epochs:.3f} ms an epoch on the device clock "
+                    f"(one device, warm: {yard_ms:.3f}), {host_s:.3f} s "
+                    f"host; {vec} vector launches ({per_epoch} an epoch), "
+                    f"{scalar} scalar; the run added "
+                    f"{added / 2**30:.2f} GiB to the device memory it held "
+                    f"(one device {one_added / 2**30:.2f}), beside the "
+                    f"rank's tables {sg.table_bytes() / 2**30:.3f} GiB; "
+                    f"host reads {res.sharded['host_reads']}; loss "
+                    f"{' -> '.join(f'{x:.5f}' for x in res.history)}; "
+                    + gate_text(errs))
+                out[mode] = {"epochs": epochs, "launches": vec,
+                             "ms_epoch": dev_ms / epochs,
+                             "one_device_ms_epoch": yard_ms,
+                             "added_gib": added / 2**30,
+                             "one_device_added_gib": one_added / 2**30,
+                             "table_gib": sg.table_bytes() / 2**30}
+                if mode == "1-D":
+                    phases.run("profile-sharded-gcn", profile_run, torch,
+                               lambda: eng.run("gcn", p_g, epochs=1,
+                                               params=p0, **GCN),
+                               "sharded D=1 gcn", unit="epochs")
+                    out["gspmm_sharded"] = phases.run(
+                        "gspmm-sharded", gspmm_sharded_check, torch, np,
+                        gspmm, kernel, p_g, dev)
+                    out["control"] = phases.run(
+                        "gcn-control", gcn_control, torch, np, mods[4], eng,
+                        p_g, p0, pair2)
+            del sg, res
+            drop_shards(p_g)
+            torch.cuda.empty_cache()
+    finally:
+        meshlib.destroy()
+    log(f"[check] sharded GCN over NCCL == one device at n={pg.n}: loss "
+        f"within rtol {GCN_LOSS_RTOL}, atol {GCN_LOSS_ATOL}; trained params "
+        f"within PARAM_RTOL {PARAM_RTOL} of the change; vector launches "
+        f"{want} an epoch (split {want_split}): {json.dumps(out)}")
+    return out
+
+
+def sharded_rank_gcn(torch, np, rank, D, tag, eng, pg, devices, pipe, one,
+                     pg_one, kernel, dev, where):
+    """Phase 3c's GCN in one mode: GCN_SHARDED_EPOCHS epochs on the ranks
+    from the same numpy-drawn params; rank 0 holds the run to two
+    one-device runs on its card (``gcn_gate``) and to at least one vector
+    launch a join, and returns its summary entry."""
+    from repro_torch.core import exec as exec_mod
+    from repro_torch.train.gcn import init_gcn_params
+    E = GCN_SHARDED_EPOCHS
+    dims = {k: GCN[k] for k in ("feat_dim", "hidden", "n_classes")}
+    p0 = init_gcn_params(pg, **dims)
+    counter = kernel.segment_combine_blocks
+    counter.launches = counter.launches_vec = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.run("gcn", pg, epochs=E, params=p0, **GCN)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    vec, scalar = counter.launches_vec, counter.launches
+    if rank != 0:
+        return []
+    name = f"sharded D={D} {tag} gcn"
+    if pipe:
+        sg = exec_mod.shard(pg, devices, (), dev, pipeline=True)
+        if sg.plans["eg"].n_chunks < 2:
+            fail(f"{name}: the eg plan has {sg.plans['eg'].n_chunks} "
+                 "pipeline chunk")
+    p_dev = {k: v.to(dev) for k, v in p0.items()}
+    pair = tuple(one.run("gcn", pg_one, epochs=E, params=p_dev, **GCN)
+                 for _ in range(2))
+    errs = gcn_gate(torch, np, name, res, pair, p_dev)
+    if vec < 4 * E or scalar:
+        fail(f"{name}: {vec} vector and {scalar} scalar launches on rank 0 "
+             f"in {E} epochs of 4 joins: the path did not go through the "
+             "kernel")
+    log(f"[sharded] {name}: {E} epochs in {host_s:.3f} s on the host clock "
+        f"({where}); {vec} vector launches on rank 0; loss "
+        f"{' -> '.join(f'{x:.5f}' for x in res.history)}; "
+        + gate_text(errs))
+    return [{"mode": tag, "layout": "csr", "backend": "pallas",
+             "algo": "gcn", "epochs": E, "host_s": host_s,
+             "launches": vec, "rounds": res.sharded["rounds"],
+             "inner_rounds": res.sharded["inner_rounds"]}]
 
 
 # ---------------------------------------------------------------------------
@@ -1530,6 +1912,7 @@ def gcn_path(torch, np, args, dev, phases, g, A, pg):
     params0 = phases.run("gcn-init", init_gcn_params, pg, **dims)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     counter.launches = counter.launches_vec = 0   # the path starts here
     res, dev_ms, host_s = phases.run(
         "gcn", timed, torch, lambda: eng.run(
@@ -1540,8 +1923,9 @@ def gcn_path(torch, np, args, dev, phases, g, A, pg):
     log(f"[run] gcn: {GCN_EPOCHS} epochs, {dev_ms:.3f} ms on the device "
         f"clock ({dev_ms / GCN_EPOCHS:.3f} ms an epoch), {host_s:.3f} s "
         f"host; {vec} vector and {scalar} scalar kernel launches; peak "
-        f"device memory {peak / 2**30:.2f} GiB; loss "
-        f"{' -> '.join(f'{x:.5f}' for x in losses)}")
+        f"device memory {peak / 2**30:.2f} GiB, "
+        f"{(peak - held) / 2**30:.2f} above the {held / 2**30:.2f} held "
+        f"before the run; loss {' -> '.join(f'{x:.5f}' for x in losses)}")
     if vec != per_epoch * GCN_EPOCHS:
         fail(f"gcn: {vec} vector kernel launches in {GCN_EPOCHS} epochs, "
              f"expected {per_epoch} an epoch: the path did not go through "
@@ -1551,7 +1935,8 @@ def gcn_path(torch, np, args, dev, phases, g, A, pg):
     for k, v in res.state.items():
         if not bool(torch.isfinite(v).all()):
             fail(f"gcn: non-finite values in the trained {k}")
-    inputs = phases.run("gcn-replay", join_inputs, torch, eng, pg, params0)
+    inputs, again = phases.run("gcn-replay", join_inputs, torch, eng, pg,
+                               params0)
     phases.run("gcn-stats-cost", stats_cost, torch, np, gspmm, pg, dev)
 
     # the first layer's join and its gradient against scipy in float64
@@ -1591,7 +1976,7 @@ def gcn_path(torch, np, args, dev, phases, g, A, pg):
     phases.run("profile-gcn", profile_run, torch,
                lambda: eng.run("gcn", pg, epochs=1, params=res.state, **GCN),
                "gcn", unit="epochs")
-    return vec, peak, inputs
+    return vec, peak, inputs, params0, (res, again), dev_ms, peak - held
 
 
 def stats_cost(torch, np, gspmm, pg, dev, reps: int = 3):
@@ -2483,14 +2868,18 @@ def main():
     from repro_torch.core import exec as exec_mod
     balance = phases.run("balance", balance_lines, np, exec_mod, pg, pgs,
                          planlib.default_nb(dev))
-    del pgs
     torch.cuda.empty_cache()
     sharded_row.update(modes=mode_launches, replay_split=replays["split"],
                        replay_pipeline=replays["pipeline"], balance=balance)
-    phases.run("sharded-D", sharded_many, torch, args)
-    vec_launches, gcn_peak, inputs = gcn_path(torch, np, args, dev, phases,
-                                              g, A, pg)
+    summary_3c = phases.run("sharded-D", sharded_many, torch, args)
+    (vec_launches, gcn_peak, inputs, params0, gcn_runs, gcn_ms,
+     gcn_added) = gcn_path(torch, np, args, dev, phases, g, A, pg)
     del g, A
+    sharded_vec = sharded_gcn(torch, np, mods, pg, pgs, params0, gcn_runs,
+                              gcn_ms, gcn_added, vec_launches, dev, phases)
+    sharded_vec["ranks"] = [r for r in summary_3c if r["algo"] == "gcn"]
+    del pgs, params0, gcn_runs
+    torch.cuda.empty_cache()
     phases.run("parity-200k", parity_small, torch, np, args, dev, phases)
     eng = api.Engine(backend="pallas", layout="csr", balance="hash",
                      device=dev)
@@ -2534,11 +2923,17 @@ def main():
         "per_launch": rows,
         "sharded": sharded_row,
     })
-    # every launch of the counted GCN run: GCN_EPOCHS epochs of 4 joins
+    # every launch of the counted GCN runs: GCN_EPOCHS epochs of 4 joins on
+    # one device (the timed rows), then the sharded runs of phase 3b and
+    # rank 0's of phase 3c
+    sharded_launches = (
+        sum(v["launches"] for k, v in sharded_vec.items()
+            if isinstance(v, dict) and "epochs" in v)
+        + sum(r["launches"] for r in sharded_vec["ranks"]))
     vec_entry = add_ratios({
         "name": "segment_combine_blocks_vec", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": VEC_KERNEL_REPLACES,
-        "launches": vec_launches,
+        "launches": vec_launches + sharded_launches,
         "max_abs_err": max([vec_err] + [r["max_abs_err"] for r in vec_rows]),
         "ms": sum(r["ms"] for r in vec_rows),
         "plain_ms": sum(r["plain_ms"] for r in vec_rows),
@@ -2547,7 +2942,10 @@ def main():
                                     for r in vec_rows) else "operations"),
         "library_ms": sum(r["library_ms"] for r in vec_rows),
         "epochs": GCN_EPOCHS,
+        "launches_one_device": vec_launches,
+        "launches_sharded": sharded_launches,
         "per_launch": vec_rows,
+        "sharded": sharded_vec,
     })
     log(f"[kernel] segment_combine_blocks: {launches} launches in the "
         f"algorithm runs: kernel {entry['ms']:.3f} ms, plain "
@@ -2555,7 +2953,8 @@ def main():
         f"{entry['bound_ms']:.3f}; {ratio_text(entry)}")
     E = GCN_EPOCHS
     log(f"[kernel] segment_combine_blocks_vec: {vec_launches} launches in "
-        f"{E} epochs: kernel {vec_entry['ms']:.3f} ms ({vec_entry['ms'] / E:.3f}"
+        f"{E} epochs on one device (and {sharded_launches} in the sharded "
+        f"runs): kernel {vec_entry['ms']:.3f} ms ({vec_entry['ms'] / E:.3f}"
         f" an epoch), plain {vec_entry['plain_ms']:.3f} "
         f"({vec_entry['plain_ms'] / E:.3f}), library "
         f"{vec_entry['library_ms']:.3f} ({vec_entry['library_ms'] / E:.3f}), "

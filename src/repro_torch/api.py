@@ -21,8 +21,8 @@ tables to its device.  ``devices=(H, T)`` runs them on the (hosts,
 per_host) mesh over a group of world size H*T (``graph_run --devices D
 --hosts H``), ``pipeline=True`` double-buffers the sharded exchanges,
 and ``balance="split"`` places the physical shards on the ranks by edge
-load.
-Sharded GCN training is not ported yet and raises.
+load.  ``run("gcn")`` under ``devices`` trains the GCN on the sharded
+executor (``train/gcn.py``).
 """
 from __future__ import annotations
 
@@ -154,7 +154,7 @@ class Engine:
             raise ValueError(f"unknown algo {algo!r}; one of "
                              f"{sorted(ALGORITHMS)}")
         sharded = self.config.devices is not None
-        if sharded and algo != "gcn":        # gcn refuses devices itself
+        if sharded:
             algo_params = dict(algo_params, device=self.device)
         if isinstance(graph, structs.PartitionedGraph):
             pg = graph

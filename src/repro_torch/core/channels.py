@@ -327,7 +327,7 @@ def broadcast(pg: PartitionedGraph, vals: torch.Tensor,
     if _sharded(pg):
         from repro_torch.core import exec as exec_mod
         return exec_mod.broadcast_sharded(pg, vals, active, op, relay,
-                                          use_mirroring, backend)
+                                          use_mirroring, backend, count)
     kind = "eg" if use_mirroring else "all"
     esrc = getattr(pg, f"{kind}_src").long()
     edst = getattr(pg, f"{kind}_dst")

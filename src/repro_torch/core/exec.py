@@ -83,14 +83,24 @@ loop over the host-read round count; ``bsp.run`` votes ``halted`` over all
 ranks before its one host read a superstep.
 
 Parity contract (``tests/test_torch_sharded.py``,
-``tests/test_torch_sharded_mesh.py``): any mesh, split or pipeline gives
-the single-device result bitwise for integer, min and max combines, sums
-(PageRank) to float round-off, and every ``msgs_*`` / ``per_worker_*``
-integer-exact, in the same number of supersteps.
+``tests/test_torch_sharded_mesh.py``, ``tests/test_torch_sharded_gnn.py``):
+any mesh, split or pipeline gives the single-device result bitwise for
+integer, min and max combines, sums (PageRank, gSpMM, the GCN's loss) to
+float round-off, and every ``msgs_*`` / ``per_worker_*`` integer-exact, in
+the same number of supersteps.
+
+Feature-blocked payloads ``(..., F)`` (the sharded GNN path: gSpMM joins,
+GCN training, embedding fetches) ride every channel: the routed exchanges
+and fetch plans carry an (F,) row a lane, under the pipeline at a cap
+shrunk by F (``_pipeline_cap``), and the plan combine runs each rank's
+rows through the vector kernel in ``plan.vec_chunk_rows`` chunks, merged
+straight into the rank's blocks or into the send slots of the segments
+that leave it (``VecPlan``), so no (n_segs, nb, F) buffer exists.  A
+mirror fetch carries the mirrors' activity explicitly (a feature may
+equal the identity).
 
 Not in this module yet: frozen shard profiles (the graph service's
-resident executors) and feature-blocked payloads (the sharded GNN path);
-the channels and ``train.gcn`` refuse them.
+resident executors).
 """
 from __future__ import annotations
 
@@ -105,8 +115,9 @@ import torch.distributed as dist
 from repro_torch.core import bsp
 from repro_torch.core import cost_model
 from repro_torch.core import plan as planlib
-from repro_torch.core.channels import _dedup_row, relay_values
-from repro_torch.core.plan import identity_of, per_worker, scatter_op
+from repro_torch.core.channels import _dedup_row, _edge_map, relay_values
+from repro_torch.core.plan import (EdgeMap, feat_mask, feat_shape,
+                                   identity_of, per_worker, scatter_op)
 from repro_torch.launch import mesh as meshlib
 
 _MERGE = {"min": torch.minimum, "max": torch.maximum, "sum": torch.add}
@@ -859,6 +870,17 @@ class ShardPlan:
     x2val: Optional[torch.Tensor] = None
     r2blk: Optional[torch.Tensor] = None     # (H, x2cap) local dst block
     r2val: Optional[torch.Tensor] = None
+    # the feature-blocked combine's tables, built by ``vec_build`` when a
+    # feature-blocked payload first needs them (``vec_plan``)
+    vec: Optional["VecPlan"] = None
+    vec_build: Optional[Callable] = dataclasses.field(default=None,
+                                                      repr=False)
+
+    def vec_plan(self) -> "VecPlan":
+        if self.vec is None:
+            self.vec = self.vec_build(self)
+            self.vec_build = None
+        return self.vec
 
 
 @dataclasses.dataclass
@@ -988,6 +1010,11 @@ class ShardedGraph:
         for p in list(self.plans.values()) + list(self.fetch.values()):
             tensors += [v for v in vars(p).values()
                         if isinstance(v, torch.Tensor)]
+        for vp in [p.vec for p in self.plans.values() if p.vec is not None]:
+            for v in vars(vp).values():
+                # a view of the plan's own tables is counted there
+                tensors += [t for t in (v if isinstance(v, list) else [v])
+                            if isinstance(t, torch.Tensor) and t._base is None]
         return sum(t.numel() * t.element_size() for t in tensors)
 
     def local_ids(self) -> torch.Tensor:
@@ -1110,6 +1137,176 @@ _HIER_TABLES = (("x1cap", "n_iseg", "x2cap", "hchunks"),
                 ("x1val", "ival", "x2val", "r2val"))
 
 
+@dataclasses.dataclass
+class VecPlan:
+    """One rank's tables of the feature-blocked plan combine, derived from
+    its stacked plan.  The combine writes into one *work* buffer of
+    ``n_work`` (nb, F) blocks: my ``m_loc*B_per_w`` local blocks first,
+    then the send slots of the segments that leave this rank, then one
+    dump block (dummy segments).  Each row merges straight into its
+    segment's block (``row_dst``), so the segment partials exist only for
+    segments that leave the rank, in the buffer the exchange sends; at
+    D=1 nothing leaves it.  1-D mesh: ``xcr`` slots a destination rank;
+    the receive side is the plan's own ``rblk``/``rval`` (views, cut to
+    ``xcr`` lanes; ``peers`` masks my own row); under the pipeline ``ccr``
+    a chunk and destination (views of ``crblk``/``crval``), the chunks'
+    rows ``crows``.  2-D
+    mesh: leg 1 carries my segments that leave me, compacted
+    (``x1cr``; ``iscat``/``ival`` into the intermediate buffer of
+    ``n_ibuf`` blocks, only those that receive lanes, plus a dump);
+    intermediate segments of my own blocks go straight to my blocks
+    (``self_iseg`` -> ``self_blk``); leg 2 carries the rest (``x2cr``).
+    Every cap is the maximum over the ranks, so the ``all_to_all``
+    splits agree."""
+    n_work: int
+    row_dst: torch.Tensor                     # (n_rows,) work block of a row
+    peers: Optional[torch.Tensor] = None      # (D, 1) bool, not my row
+    xcr: int = 0
+    rblk: Optional[torch.Tensor] = None       # (D, xcr) view of the plan's
+    rval: Optional[torch.Tensor] = None
+    ccr: int = 0
+    crows: Optional[List[torch.Tensor]] = None
+    crblk: Optional[torch.Tensor] = None      # (C, D, ccr) views
+    crval: Optional[torch.Tensor] = None
+    x1cr: int = 0
+    iscat: Optional[torch.Tensor] = None      # (T, x1cr) -> intermediate
+    ival: Optional[torch.Tensor] = None
+    n_ibuf: int = 1
+    self_iseg: Optional[torch.Tensor] = None  # intermediate segments of mine
+    self_blk: Optional[torch.Tensor] = None   # ... and their local blocks
+    x2cr: int = 0
+    x2seg: Optional[torch.Tensor] = None      # (H, x2cr) intermediate
+    x2val: Optional[torch.Tensor] = None
+    r2blk: Optional[torch.Tensor] = None      # (H, x2cr) local block
+    r2val: Optional[torch.Tensor] = None
+
+
+#: the stacked plan tables ``_vec_tables`` reads (not the (rows, eb) ones)
+_VEC_INPUTS = ("seg_blk", "row_seg", "xseg", "xval", "x1seg", "x1val",
+               "iscat", "ival", "x2seg", "x2val", "r2blk", "r2val")
+
+
+def _vec_tables(pm, arrays, kind: str, rank: int, m_loc: int, hier
+                ) -> dict:
+    """Host numpy fields of one rank's ``VecPlan`` that the plan does not
+    hold, from the stacked tables of ``_stack_plans`` (every rank's: the
+    caps are the maxima over the ranks).  A segment is *mine* when its
+    block is; every other real segment gets a send slot in the position
+    order of the stacked exchange lists."""
+    def a(k):
+        return arrays[f"plan_{kind}_{k}"]
+    bpd = m_loc * pm["B_per_w"]
+    seg_blk = a("seg_blk")[rank].astype(np.int64)
+    seg_dst = np.full(len(seg_blk), -1, np.int64)
+    out = {}
+    if hier is None:
+        xseg, xval = a("xseg"), a("xval")
+        D = xseg.shape[0]
+        cnt = xval.sum(axis=2)
+        xcr = int((cnt - np.diag(np.diag(cnt))).max())
+        own = xseg[rank, rank][xval[rank, rank]]
+        seg_dst[own] = seg_blk[own] - rank * bpd
+        chunked = "n_chunks" in pm
+        C, ccap = ((pm["n_chunks"], pm["ccap"]) if chunked
+                   else (1, max(xcr, 1)))
+        ccr = min(ccap, xcr)
+        for d2 in range(D):
+            if d2 != rank:
+                sel = xseg[rank, d2][xval[rank, d2]]
+                j = np.arange(len(sel))
+                seg_dst[sel] = (bpd + (j // ccap) * D * ccr + d2 * ccr
+                                + j % ccap)
+        n_send = C * D * ccr
+        out.update(xcr=xcr, ccr=ccr if chunked else 0)
+    else:
+        H, T = hier
+        D = H * T
+        h, t = divmod(rank, T)
+        x1seg, x1val = a("x1seg"), a("x1val")
+
+        def leaves(d):
+            """Device d's segments bound for its own column (leg 1 to
+            itself), as positions of that list: True where the segment
+            is not d's own, and so crosses hosts after the
+            intermediate combine."""
+            sel = x1seg[d, d % T][x1val[d, d % T]]
+            return a("seg_blk")[d][sel] // bpd != d
+        x1cr = 0
+        for d in range(D):
+            c1 = x1val[d].sum(axis=1)
+            c1[d % T] = leaves(d).sum()
+            x1cr = max(x1cr, int(c1.max()))
+        keep = leaves(rank)
+        for t2 in range(T):
+            sel = x1seg[rank, t2][x1val[rank, t2]]
+            if t2 == t:
+                mine = sel[~keep]
+                seg_dst[mine] = seg_blk[mine] - rank * bpd
+                sel = sel[keep]
+            seg_dst[sel] = bpd + t2 * x1cr + np.arange(len(sel))
+        n_send = T * x1cr
+        iscat, ival = a("iscat")[rank], a("ival")[rank]
+        viscat = np.zeros((T, x1cr), np.int64)
+        vival = np.zeros((T, x1cr), bool)
+        for t1 in range(T):
+            pos = np.flatnonzero(ival[t1])
+            if t1 == t:
+                pos = pos[keep]
+            viscat[t1, :len(pos)] = iscat[t1, pos]
+            vival[t1, :len(pos)] = True
+        need = np.unique(viscat[vival])
+        imap = np.full(pm["n_iseg"], len(need), np.int64)
+        imap[need] = np.arange(len(need))
+        c2 = a("x2val").sum(axis=2)                    # (D, H)
+        c2[np.arange(D), np.arange(D) // T] = 0        # the self pair
+        x2cr = int(c2.max())
+        x2seg, x2val = a("x2seg")[rank], a("x2val")[rank]
+        n_self = int(x2val[h].sum())
+        vx2val = x2val[:, :x2cr].copy()
+        vx2val[h] = False
+        vr2val = a("r2val")[rank][:, :x2cr].copy()
+        vr2val[h] = False
+        out.update(x1cr=x1cr, iscat=imap[viscat], ival=vival,
+                   n_ibuf=len(need) + 1,
+                   self_iseg=imap[x2seg[h, :n_self]],
+                   self_blk=a("r2blk")[rank][h, :n_self],
+                   x2cr=x2cr, x2seg=imap[x2seg[:, :x2cr]], x2val=vx2val,
+                   r2blk=a("r2blk")[rank][:, :x2cr], r2val=vr2val)
+    n_work = bpd + n_send + 1
+    seg_dst[seg_dst < 0] = n_work - 1
+    out.update(n_work=n_work, row_dst=seg_dst[a("row_seg")[rank]])
+    return out
+
+
+def _vec_builder(pm, arrays, kind: str, rank: int, m_loc: int, hier
+                 ) -> Callable:
+    """``ShardPlan.vec_build``: makes this rank's ``VecPlan`` beside the
+    plan, keeping until then only the stacked tables it reads."""
+    keep = {k: v for k, v in arrays.items()
+            if k.startswith(f"plan_{kind}_")
+            and k[len(f"plan_{kind}_"):] in _VEC_INPUTS}
+
+    def build(plan: ShardPlan) -> VecPlan:
+        f = _vec_tables(pm, keep, kind, rank, m_loc, hier)
+        device = plan.row_seg.device
+        for k, v in f.items():
+            if isinstance(v, np.ndarray):
+                f[k] = _upload(v, device, long=v.dtype != bool)
+        if hier is None:
+            D = plan.xseg.shape[0]
+            f["peers"] = (torch.arange(D, device=device) != rank)[:, None]
+            if f["ccr"]:
+                f.update(crows=[plan.crow[c][plan.crow_ok[c]]
+                                for c in range(plan.n_chunks)],
+                         crblk=plan.crblk[..., :f["ccr"]],
+                         crval=plan.crval[..., :f["ccr"]])
+            else:
+                f.update(rblk=plan.rblk[:, :f["xcr"]],
+                         rval=plan.rval[:, :f["xcr"]])
+        return VecPlan(**f)
+    return build
+
+
 def _make_plan(meta, arrays, kind: str, rank: int, device) -> ShardPlan:
     pm = meta["plan_meta"][kind]
 
@@ -1130,7 +1327,9 @@ def _make_plan(meta, arrays, kind: str, rank: int, device) -> ShardPlan:
         seg_blk=part("seg_blk", long=True),
         seg_worker=part("seg_worker", long=True),
         xseg=part("xseg", long=True), xval=part("xval"),
-        rblk=part("rblk", long=True), rval=part("rval"), **extra)
+        rblk=part("rblk", long=True), rval=part("rval"),
+        vec_build=_vec_builder(pm, arrays, kind, rank, meta["m_loc"],
+                               meta["hier"]), **extra)
 
 
 def _make_fetch(fm, arrays, name: str, rank: int, device) -> ShardFetch:
@@ -1247,8 +1446,9 @@ def shard(pg, devices, plan_kinds: Sequence[str] = (), device=None,
     for kind in [k for k in plan_kinds if k not in sg.plans]:
         t0 = time.perf_counter()
         pmeta, arrays = _stacked_plan(pg, devices, kind, nb, chunks)
-        sg.plans[kind] = _make_plan({"plan_meta": {kind: pmeta}}, arrays,
-                                    kind, rank, device)
+        sg.plans[kind] = _make_plan(
+            {"plan_meta": {kind: pmeta}, "m_loc": sg.m_loc,
+             "hier": hier}, arrays, kind, rank, device)
         sg.build_s += time.perf_counter() - t0
     if hier:
         sg.group_w, sg.group_h = meshlib.graph_mesh(*hier)
@@ -1321,24 +1521,30 @@ def _round_lanes(off: torch.Tensor, r: int, cap: int, L: int):
 
 
 def _with_sentinel(x: torch.Tensor, fill) -> torch.Tensor:
-    return torch.cat([x, torch.full((1,), fill, dtype=x.dtype,
-                                    device=x.device)])
+    """``x`` with one more lane (or (F,) row) of ``fill`` at its end."""
+    return torch.cat([x, torch.full((1,) + tuple(x.shape[1:]), fill,
+                                    dtype=x.dtype, device=x.device)])
 
 
-def _check_scalar(x: torch.Tensor, lane_ndim: int) -> None:
-    if x.dim() != lane_ndim:
-        raise NotImplementedError(
-            "feature-blocked payloads on the sharded executor come with "
-            "the sharded GNN path, a later slice of the port")
+def _feat_elems(feat: tuple) -> int:
+    e = 1
+    for s in feat:
+        e *= int(s)
+    return e
 
 
-def _pipeline_cap(sg: ShardedGraph, cap: int) -> int:
+def _pipeline_cap(sg: ShardedGraph, cap: int, feat_elems: int = 1) -> int:
     """Shrink a routed-exchange round cap so that one join spans about
     ``sg.pipeline_chunks`` rounds, the chunks the double buffer overlaps.
-    It only shrinks (an explicit small cap passes through)."""
+    It only shrinks (an explicit small cap passes through).  A
+    feature-blocked payload shrinks it further by its width
+    (``feat_elems`` values a lane), so the two buffers in flight hold
+    about as many bytes as a scalar join's; at ``feat_elems`` 1 the
+    expression is the scalar one."""
     if not (sg.pipeline and sg.pipeline_chunks > 1):
         return cap
-    return min(cap, max(8, _pad8(-(-cap // sg.pipeline_chunks))))
+    chunks = sg.pipeline_chunks * max(1, int(feat_elems))
+    return min(cap, max(8, _pad8(-(-cap // chunks))))
 
 
 def _double_buffer(sg: ShardedGraph, n: int, issue: Callable,
@@ -1364,39 +1570,47 @@ def _double_buffer(sg: ShardedGraph, n: int, issue: Callable,
 
 def _scatter_received(op: str, buf, base: int, t_recv, v_recv, ident):
     """Combine received (target, value) lanes into my local buffer;
-    lanes that are not mine (padding) are masked."""
+    lanes that are not mine (padding) are masked.  ``v_recv`` may carry
+    a trailing feature axis."""
     slot = t_recv.long() - base
     okr = (slot >= 0) & (slot < buf.shape[0])
     scatter_op(op, buf, torch.where(okr, slot, 0).reshape(-1),
-               torch.where(okr, v_recv, ident).reshape(-1))
+               torch.where(feat_mask(okr, v_recv, okr.dim()), v_recv, ident
+                           ).reshape((-1,) + tuple(buf.shape[1:])))
 
 
 def _routed_scatter_combine(sg: ShardedGraph, targets, values, valid,
                             op: str, cap=None) -> torch.Tensor:
     """Destination-routed combine: (L,) lanes of (global target, value)
     are bucketed by owner device, exchanged in cap-sized ``all_to_all``
-    rounds and combined into MY local (m_loc*n_loc,) buffer.  Received
-    lanes that are not mine (padding) are masked before the scatter.
+    rounds and combined into MY local (m_loc*n_loc[, F]) buffer.
+    Received lanes that are not mine (padding) are masked before the
+    scatter.  ``values`` is (L,) or feature-blocked (L, F): the (cap, F)
+    blocks ride the same rounds, at a cap shrunk by F under the pipeline.
     Under the pipeline the rounds are double-buffered; they still combine
     in order, so the result is bitwise the same."""
     if sg.hier:
         return _hier_scatter_combine(sg, targets, values, valid, op, cap)
     loc_n = sg.m_loc * sg.n_loc
     L = targets.shape[0]
-    cap = _pipeline_cap(sg, cap or _cap_for(L, sg.D))
+    feat = feat_shape(values, 1)
+    cap = _pipeline_cap(sg, cap or _cap_for(L, sg.D), _feat_elems(feat))
     ident = identity_of(op, values.dtype)
     order, off = _bucket(sg, targets, valid)
     st_ = _with_sentinel(torch.where(valid, targets, sg.n_pad)[order],
                          sg.n_pad)
-    sv_ = _with_sentinel(torch.where(valid, values, ident)[order], ident)
+    sv_ = _with_sentinel(torch.where(feat_mask(valid, values, 1), values,
+                                     ident)[order], ident)
     rounds = _rounds_for(sg, off, cap)
     base = sg.w0 * sg.n_loc
-    buf = torch.full((loc_n,), ident, dtype=values.dtype, device=sg.device)
+    buf = torch.full((loc_n,) + feat, ident, dtype=values.dtype,
+                     device=sg.device)
 
     def issue(r):
         idxc, ok = _round_lanes(off, r, cap, L)
+        sv_c = sv_[idxc]
         return (sg.start(torch.where(ok, st_[idxc], sg.n_pad)),
-                sg.start(torch.where(ok, sv_[idxc], ident)))
+                sg.start(torch.where(feat_mask(ok, sv_c, 2), sv_c, ident)))
 
     def finish(sent):
         _scatter_received(op, buf, base, sent[0].wait(), sent[1].wait(),
@@ -1405,19 +1619,21 @@ def _routed_scatter_combine(sg: ShardedGraph, targets, values, valid,
     return buf
 
 
-def _hier_caps(sg: ShardedGraph, L: int, cap) -> Tuple[int, int]:
+def _hier_caps(sg: ShardedGraph, L: int, cap,
+               feat_elems: int = 1) -> Tuple[int, int]:
     """Per-level lane caps of one hierarchical routed exchange.  A flat
     int cap is a 1-D quantity and would under-cap the funnel legs (the
     intra-host leg routes to T columns, the inter-host leg a column's
     residue to H hosts), so unless an explicit ``(cap1, cap2)`` pair is
     given both are derived per level from the level-aware hints.  The
-    pipeline chunks the inter-host leg."""
+    pipeline chunks the inter-host leg (by ``feat_elems`` more for a
+    feature-blocked payload)."""
     if isinstance(cap, tuple):
         cap1, cap2 = int(cap[0]), int(cap[1])
     else:
         cap1 = _cap_for(L, sg.T, sg.cap_hint_w)
         cap2 = _cap_for(sg.T * cap1, sg.H, sg.cap_hint_h)
-    return cap1, _pipeline_cap(sg, cap2)
+    return cap1, _pipeline_cap(sg, cap2, feat_elems)
 
 
 def _hier_scatter_combine(sg: ShardedGraph, targets, values, valid,
@@ -1431,37 +1647,42 @@ def _hier_scatter_combine(sg: ShardedGraph, targets, values, valid,
     the whole group."""
     n_pad = sg.n_pad
     L = targets.shape[0]
-    cap1, cap2 = _hier_caps(sg, L, cap)
+    feat = feat_shape(values, 1)
+    cap1, cap2 = _hier_caps(sg, L, cap, _feat_elems(feat))
     ident = identity_of(op, values.dtype)
     order, off = _bucket(sg, targets, valid, "w")
     st_ = _with_sentinel(torch.where(valid, targets, n_pad)[order], n_pad)
-    sv_ = _with_sentinel(torch.where(valid, values, ident)[order], ident)
+    sv_ = _with_sentinel(torch.where(feat_mask(valid, values, 1), values,
+                                     ident)[order], ident)
     rounds1 = _rounds_for(sg, off, cap1)
     base = sg.w0 * sg.n_loc
     L2 = sg.T * cap1
     zerow = torch.zeros(L2, dtype=torch.int32, device=sg.device)
-    buf = torch.full((sg.m_loc * sg.n_loc,), ident, dtype=values.dtype,
-                     device=sg.device)
+    buf = torch.full((sg.m_loc * sg.n_loc,) + feat, ident,
+                     dtype=values.dtype, device=sg.device)
     for r in range(rounds1):
         idxc, ok = _round_lanes(off, r, cap1, L)
+        sv_c = sv_[idxc]
         tf = sg.all_to_all(torch.where(ok, st_[idxc], n_pad),
                            sg.group_w).reshape(-1)
-        vf = sg.all_to_all(torch.where(ok, sv_[idxc], ident),
-                           sg.group_w).reshape(-1)
+        vf = sg.all_to_all(torch.where(feat_mask(ok, sv_c, 2), sv_c, ident),
+                           sg.group_w).reshape((-1,) + feat)
         # the intermediate combine: duplicates aimed at one target merge
         # BEFORE crossing hosts (worker key 0: keyed by target alone)
         realf, seg_t, seg_val, _, _ = planlib.sorted_segments_flat(
             tf, vf, tf < n_pad, zerow, op, n_pad)
         ord2, off2 = _bucket(sg, seg_t, realf, "h")
         t2_ = _with_sentinel(torch.where(realf, seg_t, n_pad)[ord2], n_pad)
-        v2_ = _with_sentinel(torch.where(realf, seg_val, ident)[ord2],
-                             ident)
+        v2_ = _with_sentinel(torch.where(feat_mask(realf, seg_val, 1),
+                                         seg_val, ident)[ord2], ident)
         rounds2 = _rounds_for(sg, off2, cap2, inner=True)
 
         def issue(r2, off2=off2, t2_=t2_, v2_=v2_):
             i2, ok2 = _round_lanes(off2, r2, cap2, L2)
+            v2_c = v2_[i2]
             return (sg.start(torch.where(ok2, t2_[i2], n_pad), sg.group_h),
-                    sg.start(torch.where(ok2, v2_[i2], ident), sg.group_h))
+                    sg.start(torch.where(feat_mask(ok2, v2_c, 2), v2_c,
+                                         ident), sg.group_h))
 
         def finish(sent):
             _scatter_received(op, buf, base, sent[0].wait(), sent[1].wait(),
@@ -1471,12 +1692,13 @@ def _hier_scatter_combine(sg: ShardedGraph, targets, values, valid,
 
 
 def _answer(sg: ShardedGraph, flat, req_r: torch.Tensor) -> torch.Tensor:
-    """The owner's side of a request round: my value at each received
-    request, 0 where the request is not mine (padding)."""
+    """The owner's side of a request round: my value (or (F,) row) at
+    each received request, 0 where the request is not mine (padding)."""
     loc_n = flat.shape[0]
     slot = req_r.long() - sg.w0 * sg.n_loc
     okr = (slot >= 0) & (slot < loc_n)
-    return torch.where(okr, flat[slot.clamp(0, loc_n - 1)], 0)
+    got = flat[slot.clamp(0, loc_n - 1)]
+    return torch.where(feat_mask(okr, got, okr.dim()), got, 0)
 
 
 def _fetch_rounds(sg: ShardedGraph, flat, req_sorted, off, cap: int,
@@ -1485,8 +1707,9 @@ def _fetch_rounds(sg: ShardedGraph, flat, req_sorted, off, cap: int,
     cap-sized rounds, owners answer, responses back on the same lanes.
     Under the pipeline round r's trip is issued before round r-1's
     responses are written (they write disjoint lanes).  Returns the (L,)
-    responses in bucket order."""
-    out = torch.zeros(L + 1, dtype=flat.dtype, device=sg.device)
+    (or (L, F)) responses in bucket order."""
+    out = torch.zeros((L + 1,) + tuple(flat.shape[1:]), dtype=flat.dtype,
+                      device=sg.device)
 
     def issue(r):
         idxc, ok = _round_lanes(off, r, cap, L)
@@ -1496,8 +1719,10 @@ def _fetch_rounds(sg: ShardedGraph, flat, req_sorted, off, cap: int,
 
     def finish(trip):
         idxc, ok, resp = trip
+        resp = resp.wait()
         # lanes outside the window write the sentinel slot L
-        out[torch.where(ok, idxc, L)] = torch.where(ok, resp.wait(), 0)
+        out[torch.where(ok, idxc, L)] = torch.where(
+            feat_mask(ok, resp, 2), resp, 0)
     _double_buffer(sg, rounds, issue, finish)
     return out[:L]
 
@@ -1506,36 +1731,40 @@ def _routed_fetch(sg: ShardedGraph, vals, targets, valid,
                   cap=None) -> torch.Tensor:
     """The request-respond transport, a two-way trip: (L,) global
     ``targets`` are bucketed by owner device, requests go out in cap-sized
-    ``all_to_all`` rounds, owners answer from their local (m_loc, n_loc)
-    rows, responses come back on the same lanes.  Returns (L,) values, 0
-    where ``~valid`` (the reference's convention for masked requests)."""
+    ``all_to_all`` rounds, owners answer from their local (m_loc, n_loc[,
+    F]) rows, responses come back on the same lanes.  Returns (L[, F])
+    values, 0 where ``~valid`` (the reference's convention for masked
+    requests)."""
     if sg.hier:
         return _hier_routed_fetch(sg, vals, targets, valid, cap)
     L = targets.shape[0]
-    cap = _pipeline_cap(sg, cap or _cap_for(L, sg.D))
+    feat = feat_shape(vals, 2)
+    cap = _pipeline_cap(sg, cap or _cap_for(L, sg.D), _feat_elems(feat))
     ok_t = valid & (targets >= 0) & (targets < sg.n_pad)
     order, off = _bucket(sg, targets, ok_t)
     st_ = _with_sentinel(torch.where(ok_t, targets, sg.n_pad)[order],
                          sg.n_pad)
     rounds = _rounds_for(sg, off, cap)
-    got_sorted = _fetch_rounds(sg, vals.reshape(-1), st_, off, cap, L,
-                               rounds, None)
-    got = torch.zeros(L, dtype=vals.dtype, device=sg.device)
+    got_sorted = _fetch_rounds(sg, vals.reshape((-1,) + feat), st_, off,
+                               cap, L, rounds, None)
+    got = torch.zeros((L,) + feat, dtype=vals.dtype, device=sg.device)
     got[order] = got_sorted
-    return torch.where(ok_t, got, 0)
+    return torch.where(feat_mask(ok_t, got, 1), got, 0)
 
 
 def _carry_heads(first: torch.Tensor, head_vals: torch.Tensor
                  ) -> torch.Tensor:
-    """Carry each segment head's value down its segment (``first`` marks
-    the heads of sorted lanes): by segment id, a cumsum, where the
-    reference takes a running max of head positions, which torch's
-    cummax makes a slow scan on the card."""
+    """Carry each segment head's value (or (F,) row) down its segment
+    (``first`` marks the heads of sorted lanes): by segment id, a cumsum,
+    where the reference takes a running max of head positions, which
+    torch's cummax makes a slow scan on the card."""
     L = first.shape[0]
     seg = (torch.cumsum(first, 0) - 1).clamp(min=0)
-    per_seg = torch.zeros(L + 1, dtype=head_vals.dtype,
-                          device=head_vals.device)
-    per_seg.scatter_(0, torch.where(first, seg, L), head_vals)
+    per_seg = torch.zeros((L + 1,) + tuple(head_vals.shape[1:]),
+                          dtype=head_vals.dtype, device=head_vals.device)
+    idx = torch.where(first, seg, L)
+    per_seg.scatter_(0, idx.view((-1,) + (1,) * (head_vals.dim() - 1)
+                                 ).expand_as(head_vals), head_vals)
     return per_seg[seg]
 
 
@@ -1549,14 +1778,15 @@ def _hier_routed_fetch(sg: ShardedGraph, vals, targets, valid,
     duplicates and returned over the host-group lanes."""
     n_pad = sg.n_pad
     L = targets.shape[0]
-    cap1, cap2 = _hier_caps(sg, L, cap)
-    flat = vals.reshape(-1)
+    feat = feat_shape(vals, 2)
+    cap1, cap2 = _hier_caps(sg, L, cap, _feat_elems(feat))
+    flat = vals.reshape((-1,) + feat)
     ok_t = valid & (targets >= 0) & (targets < n_pad)
     order, off = _bucket(sg, targets, ok_t, "w")
     st_ = _with_sentinel(torch.where(ok_t, targets, n_pad)[order], n_pad)
     rounds1 = _rounds_for(sg, off, cap1)
     Lr = sg.T * cap1
-    out = torch.zeros(L + 1, dtype=vals.dtype, device=sg.device)
+    out = torch.zeros((L + 1,) + feat, dtype=vals.dtype, device=sg.device)
     for r in range(rounds1):
         idxc, ok = _round_lanes(off, r, cap1, L)
         reqs = sg.all_to_all(torch.where(ok, st_[idxc], n_pad),
@@ -1572,46 +1802,49 @@ def _hier_routed_fetch(sg: ShardedGraph, vals, targets, valid,
         rounds2 = _rounds_for(sg, off2, cap2, inner=True)
         head3 = _fetch_rounds(sg, flat, rh_, off2, cap2, Lr, rounds2,
                               sg.group_h)
-        heads = torch.zeros(Lr, dtype=vals.dtype, device=sg.device)
+        heads = torch.zeros((Lr,) + feat, dtype=vals.dtype,
+                            device=sg.device)
         heads[ord3] = head3
-        got = torch.zeros(Lr, dtype=vals.dtype, device=sg.device)
+        got = torch.zeros((Lr,) + feat, dtype=vals.dtype, device=sg.device)
         got[ord2] = _carry_heads(first, heads)
-        got = torch.where(reqs < n_pad, got, 0).view(sg.T, cap1)
+        got = torch.where(feat_mask(reqs < n_pad, got, 1), got, 0
+                          ).view((sg.T, cap1) + feat)
         resp = sg.all_to_all(got, sg.group_w)
-        out[torch.where(ok, idxc, L)] = torch.where(ok, resp, 0)
-    got = torch.zeros(L, dtype=vals.dtype, device=sg.device)
+        out[torch.where(ok, idxc, L)] = torch.where(feat_mask(ok, resp, 2),
+                                                    resp, 0)
+    got = torch.zeros((L,) + feat, dtype=vals.dtype, device=sg.device)
     got[order] = out[:L]
-    return torch.where(ok_t, got, 0)
+    return torch.where(feat_mask(ok_t, got, 1), got, 0)
 
 
 def _fetch_planned(sg: ShardedGraph, fp: ShardFetch, flat_vals, fill
                    ) -> torch.Tensor:
-    """Run one static fetch plan: returns my compact (n_need,) values.
-    ``flat_vals`` is my local (m_loc*n_loc,) owner-side array; the -1
-    padding of the tables is clamped and masked.  On the 2-D mesh the
-    values ride the gateway's two legs: one inter-host lane per (slot,
-    consuming host), then the fan-out within the host."""
-    n = flat_vals.shape[0]
+    """Run one static fetch plan: returns my compact (n_need[, F])
+    values.  ``flat_vals`` is my local (m_loc*n_loc[, F]) owner-side
+    array; the -1 padding of the tables is clamped and masked, and each
+    (F,) row rides its slot's lane.  On the 2-D mesh the values ride the
+    gateway's two legs: one inter-host lane per (slot, consuming host),
+    then the fan-out within the host."""
+    feat = tuple(flat_vals.shape[1:])
+
+    def pick(src, slots):
+        g = src[slots.clamp(0, src.shape[0] - 1)]
+        return torch.where(feat_mask(slots >= 0, g, slots.dim()), g, fill)
 
     def scatter_into(size, pos, recv):
-        buf = torch.full((size + 1,), fill, dtype=flat_vals.dtype,
+        buf = torch.full((size + 1,) + feat, fill, dtype=flat_vals.dtype,
                          device=sg.device)
-        buf[torch.where(pos >= 0, pos, size).reshape(-1)] = recv.reshape(-1)
+        buf[torch.where(pos >= 0, pos, size).reshape(-1)] = recv.reshape(
+            (-1,) + feat)
         return buf[:-1]
 
     if fp.a_send is not None:
-        ga = flat_vals[fp.a_send.clamp(0, n - 1)]
-        recv_a = sg.all_to_all(torch.where(fp.a_send >= 0, ga, fill),
-                               sg.group_h)
+        recv_a = sg.all_to_all(pick(flat_vals, fp.a_send), sg.group_h)
         gw = scatter_into(fp.n_gw, fp.a_recv, recv_a)
-        gb = gw[fp.b_send.clamp(0, fp.n_gw - 1)]
-        recv = sg.all_to_all(torch.where(fp.b_send >= 0, gb, fill),
-                             sg.group_w)
+        recv = sg.all_to_all(pick(gw, fp.b_send), sg.group_w)
         return scatter_into(fp.n_need, fp.b_recv, recv)
-    gs = flat_vals[fp.send_slot.clamp(0, n - 1)]
-    recv = sg.all_to_all(torch.where(fp.send_slot >= 0, gs, fill))
+    recv = sg.all_to_all(pick(flat_vals, fp.send_slot))
     return scatter_into(fp.n_need, fp.recv_pos, recv)
-
 
 # ---------------------------------------------------------------------------
 # sharded channel implementations
@@ -1630,11 +1863,12 @@ def _plan_seg_hits(plan: ShardPlan, flat_hits: torch.Tensor
 
 
 def _scatter_blocks(op: str, loc, blk, val, recv, ident):
-    """Scatter received (K, cap, nb) segment partials into my local
+    """Scatter received (K, cap, nb[, F]) segment partials into my local
     block range at ``blk``, masked by ``val``."""
+    m = val.view(tuple(val.shape) + (1,) * (recv.dim() - val.dim()))
     scatter_op(op, loc, torch.where(val, blk, 0).reshape(-1),
-               torch.where(val[:, :, None], recv, ident
-                           ).reshape(-1, loc.shape[1]))
+               torch.where(m, recv, ident).reshape((-1,)
+                                                   + tuple(loc.shape[1:])))
 
 
 def _plan_exchange_pipelined(sg: ShardedGraph, plan: ShardPlan, flat_vals,
@@ -1676,40 +1910,158 @@ def _plan_exchange_hier(sg: ShardedGraph, plan: ShardPlan, seg_out, op: str,
     ibuf = torch.full((plan.n_iseg, plan.nb), ident, dtype=seg_out.dtype,
                       device=sg.device)
     _scatter_blocks(op, ibuf, plan.iscat, plan.ival, recv1, ident)
-    C = plan.hchunks if sg.pipeline else 1
-    ck = -(-plan.x2cap // C)
-    sls = [slice(c * ck, min((c + 1) * ck, plan.x2cap)) for c in range(C)]
+    _leg2(sg, plan.hchunks, plan.x2cap, ibuf, plan.x2seg, plan.x2val,
+          plan.r2blk, plan.r2val, op, loc, ident)
+
+
+def _leg2(sg: ShardedGraph, hchunks: int, x2cap: int, ibuf, x2seg, x2val,
+          r2blk, r2val, op: str, loc, ident) -> None:
+    """The inter-host leg of a 2-D plan exchange: intermediate segments
+    ``ibuf[x2seg]`` to the owner hosts over the column group, scattered
+    there into ``loc`` at ``r2blk``; under the pipeline in ``hchunks``
+    static position chunks, double-buffered (every rank alike: the tables
+    are stacked, so empty last chunks are skipped everywhere)."""
+    C = hchunks if sg.pipeline else 1
+    ck = -(-x2cap // C)
+    sls = [slice(c * ck, min((c + 1) * ck, x2cap)) for c in range(C)]
     sls = [s for s in sls if s.start < s.stop]
 
     def issue(c):
         sl = sls[c]
-        g2 = ibuf[plan.x2seg[:, sl]]
-        return sl, sg.start(torch.where(plan.x2val[:, sl, None], g2, ident),
-                            sg.group_h)
+        g2 = ibuf[x2seg[:, sl]]
+        m = x2val[:, sl].view(tuple(x2val[:, sl].shape)
+                              + (1,) * (g2.dim() - 2))
+        return sl, sg.start(torch.where(m, g2, ident), sg.group_h)
 
     def finish(sent):
         sl, recv = sent
-        _scatter_blocks(op, loc, plan.r2blk[:, sl], plan.r2val[:, sl],
-                        recv.wait(), ident)
+        _scatter_blocks(op, loc, r2blk[:, sl], r2val[:, sl], recv.wait(),
+                        ident)
     _double_buffer(sg, len(sls), issue, finish)
 
 
+def _vec_rows(plan: ShardPlan, values: EdgeMap, op: str, work, ident,
+              rows: Optional[torch.Tensor] = None) -> None:
+    """Combine plan rows (all of them, or the int64 ``rows``) through the
+    vector ``segment_combine`` kernel in chunks of
+    ``plan.vec_chunk_rows`` rows (one launch each), each chunk's lanes
+    computed from ``values`` and its (rows, nb, F) output merged at once
+    into ``work`` at its rows' blocks."""
+    itemsize = torch.empty((), dtype=values.dtype).element_size()
+    step = planlib.vec_chunk_rows(plan, values.feat, itemsize)
+    n = plan.n_rows if rows is None else rows.shape[0]
+    for r0 in range(0, n, step):
+        sel = slice(r0, r0 + step) if rows is None else rows[r0:r0 + step]
+        packed = torch.where(plan.row_valid[sel][..., None],
+                             values.take(plan.row_gather[sel]), ident)
+        out = planlib._combine_rows(packed, plan.row_local[sel], op,
+                                    plan.nb)
+        del packed
+        scatter_op(op, work, plan.vec_plan().row_dst[sel], out)
+
+
+def _combine_plan_vec_sharded(sg: ShardedGraph, plan: ShardPlan,
+                              values: EdgeMap, op: str, exchange: bool
+                              ) -> torch.Tensor:
+    """The feature-blocked per-rank plan combine (``VecPlan``): my rows in
+    vector chunks, merged straight into my blocks or into the send slots
+    of the segments that leave me, which then take the 1-D exchange (one
+    ``all_to_all``; under the pipeline chunk by chunk, a pipeline chunk's
+    rows split again into vector chunks) or the two legs of the 2-D mesh.
+    Neither the packed lanes, nor the kernel output, nor an (n_segs, nb,
+    F) segment buffer exists whole.  Returns the (m_loc, n_loc, F)
+    inbox."""
+    ident = identity_of(op, values.dtype)
+    vp = plan.vec_plan()
+    nbl = sg.m_loc * plan.B_per_w
+    blk = (plan.nb, values.feat)
+    work = torch.full((vp.n_work,) + blk, ident, dtype=values.dtype,
+                      device=sg.device)
+    loc = work[:nbl]
+    if exchange and vp.crows is not None and vp.ccr:
+        D, ccr = sg.D, vp.ccr
+
+        def issue(c):
+            _vec_rows(plan, values, op, work, ident, vp.crows[c])
+            lo = nbl + c * D * ccr
+            return c, sg.start(work[lo:lo + D * ccr].view((D, ccr) + blk))
+
+        def finish(sent):
+            c, recv = sent
+            _scatter_blocks(op, loc, vp.crblk[c], vp.crval[c] & vp.peers,
+                            recv.wait(), ident)
+        _double_buffer(sg, len(vp.crows), issue, finish)
+    else:
+        _vec_rows(plan, values, op, work, ident)
+        if exchange and sg.hier:
+            _vec_exchange_hier(sg, plan, work, op, loc, ident)
+        elif exchange and vp.xcr:
+            send = work[nbl:nbl + sg.D * vp.xcr].view((sg.D, vp.xcr) + blk)
+            _scatter_blocks(op, loc, vp.rblk, vp.rval & vp.peers,
+                            sg.all_to_all(send), ident)
+    return loc.view(sg.m_loc, plan.B_per_w * plan.nb,
+                    values.feat)[:, :sg.n_loc]
+
+
+def _vec_exchange_hier(sg: ShardedGraph, plan: ShardPlan, work, op: str,
+                       loc, ident) -> None:
+    """The two legs of the 2-D mesh for the send slots of ``work``: leg 1
+    to the destination column's device, which combines what it received
+    into its compacted intermediate blocks (those of its own blocks go
+    straight into ``loc``), leg 2 (``_leg2``) across hosts."""
+    vp = plan.vec_plan()
+    if not vp.x1cr:
+        return
+    nbl = sg.m_loc * plan.B_per_w
+    blk = tuple(work.shape[1:])
+    send = work[nbl:nbl + sg.T * vp.x1cr].view((sg.T, vp.x1cr) + blk)
+    ibuf = torch.full((vp.n_ibuf,) + blk, ident, dtype=work.dtype,
+                      device=sg.device)
+    _scatter_blocks(op, ibuf, vp.iscat, vp.ival,
+                    sg.all_to_all(send, sg.group_w), ident)
+    scatter_op(op, loc, vp.self_blk, ibuf[vp.self_iseg])
+    if vp.x2cr:
+        _leg2(sg, plan.hchunks, vp.x2cr, ibuf, vp.x2seg, vp.x2val,
+              vp.r2blk, vp.r2val, op, loc, ident)
+
+
 def _combine_with_plan_sharded(sg: ShardedGraph, plan: ShardPlan,
-                               flat_vals: torch.Tensor, op: str,
+                               flat_vals, op: str,
                                flat_hits: Optional[torch.Tensor] = None,
                                count_cross: bool = True,
                                exchange: bool = True):
     """Per-rank destination-blocked combine plus the routed segment
-    exchange: my rows go through the scalar ``segment_combine`` kernel
-    (``plan._combine_rows``, under ``"auto"`` on a CUDA tensor), my
-    (source, block) segment partials take ONE ``all_to_all`` to the ranks
-    owning their blocks (two legs on the 2-D mesh; chunked and
-    double-buffered under the 1-D pipeline, one kernel launch a chunk),
-    and I scatter what was routed to me into my local (m_loc*B_per_w, nb)
-    block range.  ``exchange=False`` skips the collective when every
-    segment is destination-local (the mirror fan-out of a partition that
-    is not split: mirror edges are sharded by destination).  Padded
-    exchange lanes read segment 0 and are masked to the identity."""
+    exchange.  Scalar (E,) values: my rows go through the scalar
+    ``segment_combine`` kernel (``plan._combine_rows``, under ``"auto"``
+    on a CUDA tensor), my (source, block) segment partials take ONE
+    ``all_to_all`` to the ranks owning their blocks (two legs on the 2-D
+    mesh; chunked and double-buffered under the 1-D pipeline, one kernel
+    launch a chunk), and I scatter what was routed to me into my local
+    (m_loc*B_per_w, nb) block range.  Feature-blocked (E, F) values or an
+    ``EdgeMap``: ``_combine_plan_vec_sharded``, through the vector
+    kernel.  ``exchange=False`` skips the collective when every segment is
+    destination-local (the mirror fan-out of a partition that is not
+    split: mirror edges are sharded by destination).  Padded exchange
+    lanes read segment 0 and are masked to the identity."""
+    if isinstance(flat_vals, EdgeMap) or flat_vals.dim() == 2:
+        if isinstance(flat_vals, torch.Tensor):
+            flat_vals = EdgeMap.of(flat_vals)
+        inbox = _combine_plan_vec_sharded(sg, plan, flat_vals, op, exchange)
+    else:
+        inbox = _combine_plan_scalar(sg, plan, flat_vals, op, exchange)
+    if not count_cross:
+        return inbox, None
+    sh = _plan_seg_hits(plan, flat_hits)
+    seg_log = sg.log_of(plan.seg_worker)
+    owner = torch.div(plan.seg_blk, plan.B_per_w, rounding_mode="floor")
+    per_seg = (sh & (owner != seg_log)[:, None]).sum(dim=1)
+    return inbox, (per_seg.sum(), per_worker(seg_log, per_seg, sg.M))
+
+
+def _combine_plan_scalar(sg: ShardedGraph, plan: ShardPlan, flat_vals, op,
+                         exchange: bool) -> torch.Tensor:
+    """The scalar body of ``_combine_with_plan_sharded``: returns the
+    (m_loc, n_loc) inbox."""
     ident = identity_of(op, flat_vals.dtype)
     nbl = sg.m_loc * plan.B_per_w
     loc = torch.full((nbl, plan.nb), ident, dtype=flat_vals.dtype,
@@ -1737,43 +2089,37 @@ def _combine_with_plan_sharded(sg: ShardedGraph, plan: ShardPlan,
                                ident)
             _scatter_blocks(op, loc, plan.rblk, plan.rval,
                             sg.all_to_all(send), ident)
-    inbox = loc.view(sg.m_loc, plan.B_per_w * plan.nb)[:, :sg.n_loc]
-    if not count_cross:
-        return inbox, None
-    sh = _plan_seg_hits(plan, flat_hits)
-    seg_log = sg.log_of(plan.seg_worker)
-    owner = torch.div(plan.seg_blk, plan.B_per_w, rounding_mode="floor")
-    per_seg = (sh & (owner != seg_log)[:, None]).sum(dim=1)
-    return inbox, (per_seg.sum(), per_worker(seg_log, per_seg, sg.M))
+    return loc.view(sg.m_loc, plan.B_per_w * plan.nb)[:, :sg.n_loc]
 
 
 def _combine_sorted_rows_sharded(sg: ShardedGraph, targets, values, mask,
                                  op: str):
     """Sharded ``plan.combine_sorted``: the sorted segmented combine on my
-    (m_loc, K) rows, then the surviving segments routed to their owners.
-    Crossness is mask-driven: a live segment IS >= 1 real message."""
+    (m_loc, K[, F]) rows, then the surviving segments routed to their
+    owners.  Crossness is mask-driven: a live segment IS >= 1 real
+    message."""
     real, seg_t, seg_val, seg_row, _ = planlib.sorted_segments(
         targets, values, mask, op, sg.n_pad)
     buf = _routed_scatter_combine(sg, seg_t, seg_val, real, op)
     src_w = seg_row.long() + sg.w0
     cross = real & (torch.div(seg_t, sg.n_loc, rounding_mode="floor")
                     != src_w)
-    return (buf.view(sg.m_loc, sg.n_loc),
+    return (buf.view((sg.m_loc, sg.n_loc) + feat_shape(values, 2)),
             (cross.sum(), per_worker(src_w, cross, sg.M)))
 
 
 def _combine_sorted_flat_sharded(sg: ShardedGraph, targets, values, mask,
                                  worker, op: str, cap=None):
-    """Flat-csr twin: ``plan.sorted_segments_flat`` on my (E_dev,) edges
-    (source workers global; physical shards under a split partition),
-    routed exchange, mask-driven counts by logical worker."""
+    """Flat-csr twin: ``plan.sorted_segments_flat`` on my (E_dev[, F])
+    edges (source workers global; physical shards under a split
+    partition), routed exchange, mask-driven counts by logical worker."""
     real, seg_t, seg_val, seg_w, _ = planlib.sorted_segments_flat(
         targets, values, mask, worker, op, sg.n_pad)
     buf = _routed_scatter_combine(sg, seg_t, seg_val, real, op, cap=cap)
     seg_log = sg.log_of(torch.where(real, seg_w, 0))
     cross = real & (torch.div(seg_t, sg.n_loc, rounding_mode="floor")
                     != seg_log)
-    return (buf.view(sg.m_loc, sg.n_loc),
+    return (buf.view((sg.m_loc, sg.n_loc) + feat_shape(values, 1)),
             (cross.sum(), per_worker(seg_log, cross, sg.M)))
 
 
@@ -1785,75 +2131,112 @@ def _combined_stats(msgs, pw, base) -> Dict[str, torch.Tensor]:
 
 def push_combined_sharded(sg: ShardedGraph, targets, values, mask, op: str,
                           backend: str = "dense",
-                          plan: Optional[ShardPlan] = None):
-    """Sharded Ch_msg, padded rows: my (m_loc, K) edges.  With a plan the
-    combine runs destination-blocked through the kernel; without one
-    through the sorted segmented core.  Stats are this rank's part."""
-    raw_cross = mask & (torch.div(targets, sg.n_loc, rounding_mode="floor")
-                        != sg.worker_ids()[:, None])
-    base = {"msgs_basic": raw_cross.sum(),
-            "per_worker_basic": _place_rows(sg, raw_cross.sum(dim=1))}
+                          plan: Optional[ShardPlan] = None,
+                          count: bool = True):
+    """Sharded Ch_msg, padded rows: my (m_loc, K) edges; ``values`` is
+    (m_loc, K), (m_loc, K, F) or an ``EdgeMap`` of the m_loc*K edges.
+    With a plan the combine runs destination-blocked through the kernel;
+    without one through the sorted segmented core.  Stats are this rank's
+    part (none when ``count`` is False)."""
+    ident = identity_of(op, values.dtype)
+    base = {}
+    if count:
+        raw_cross = mask & (torch.div(targets, sg.n_loc,
+                                      rounding_mode="floor")
+                            != sg.worker_ids()[:, None])
+        base = {"msgs_basic": raw_cross.sum(),
+                "per_worker_basic": _place_rows(sg, raw_cross.sum(dim=1))}
     if backend == "pallas" and plan is not None:
-        masked = torch.where(mask, values, identity_of(op, values.dtype))
-        inbox, (msgs, pw) = _combine_with_plan_sharded(
-            sg, plan, masked.reshape(-1), op, flat_hits=mask.reshape(-1))
+        if isinstance(values, EdgeMap):
+            masked = values.where(mask.reshape(-1), ident)
+        else:
+            masked = torch.where(feat_mask(mask, values, 2), values, ident)
+            masked = masked.reshape((-1,) + feat_shape(values, 2))
+        inbox, cnt = _combine_with_plan_sharded(
+            sg, plan, masked, op, flat_hits=mask.reshape(-1),
+            count_cross=count)
     else:
-        inbox, (msgs, pw) = _combine_sorted_rows_sharded(
-            sg, targets, values, mask, op)
-    return inbox, _combined_stats(msgs, pw, base)
+        if isinstance(values, EdgeMap):
+            values = values.materialize().view(targets.shape
+                                               + (values.feat,))
+        inbox, cnt = _combine_sorted_rows_sharded(sg, targets, values, mask,
+                                                  op)
+    return inbox, (_combined_stats(*cnt, base) if count else {})
 
 
 def push_combined_flat_sharded(sg: ShardedGraph, targets, values, mask,
                                worker, op: str, backend: str = "dense",
-                               plan: Optional[ShardPlan] = None):
+                               plan: Optional[ShardPlan] = None,
+                               count: bool = True):
     """Sharded Ch_msg, csr layout: my flat (E_dev,) edges with global
     per-edge source workers (physical shards under a split partition: a
     shard never straddles devices, so the per-rank distinct-pair counts
-    sum exactly)."""
+    sum exactly); ``values`` is (E_dev,), (E_dev, F) or an ``EdgeMap``."""
     worker = worker.long()
-    wlog = sg.log_of(worker)
-    raw_cross = mask & (torch.div(targets, sg.n_loc, rounding_mode="floor")
-                        != wlog)
-    base = {"msgs_basic": raw_cross.sum(),
-            "per_worker_basic": per_worker(wlog, raw_cross, sg.M)}
+    ident = identity_of(op, values.dtype)
+    base = {}
+    if count:
+        wlog = sg.log_of(worker)
+        raw_cross = mask & (torch.div(targets, sg.n_loc,
+                                      rounding_mode="floor") != wlog)
+        base = {"msgs_basic": raw_cross.sum(),
+                "per_worker_basic": per_worker(wlog, raw_cross, sg.M)}
     if backend == "pallas" and plan is not None:
-        masked = torch.where(mask, values, identity_of(op, values.dtype))
-        inbox, (msgs, pw) = _combine_with_plan_sharded(
-            sg, plan, masked, op, flat_hits=mask)
+        if isinstance(values, EdgeMap):
+            masked = values.where(mask, ident)
+        else:
+            masked = torch.where(feat_mask(mask, values, 1), values, ident)
+        inbox, cnt = _combine_with_plan_sharded(
+            sg, plan, masked, op, flat_hits=mask, count_cross=count)
     else:
+        if isinstance(values, EdgeMap):
+            values = values.materialize()
         cap = (_cap_for(targets.shape[0], sg.D, sg.cap_hint)
                if sg.cap_hint else None)
-        inbox, (msgs, pw) = _combine_sorted_flat_sharded(
+        inbox, cnt = _combine_sorted_flat_sharded(
             sg, targets, values, mask, worker, op, cap=cap)
-    return inbox, _combined_stats(msgs, pw, base)
+    return inbox, (_combined_stats(*cnt, base) if count else {})
 
 
 def push_mirror_sharded(sg: ShardedGraph, vals, active, op: str,
-                        relay: str = "none", backend: str = "dense"):
+                        relay: str = "none", backend: str = "dense",
+                        count: bool = True):
     """Sharded Ch_mir: each rank fetches the mirror values its fan-out
     edges reference through the static mirror fetch plan (owners serve
     their active mirrored vertices; one ``all_to_all``), then fans out on
     its local mirror edges; under a split partition the fan-out's
     destinations may be another rank's, so it goes through the exchange.
-    Stats are owner-side: a mirrored vertex is owned by exactly one rank,
-    so the partial counts sum exactly."""
+    A feature-blocked payload fetches the mirrors' activity through the
+    same plan (a feature may equal the identity) and fans out as an
+    ``EdgeMap``.  Stats are owner-side: a mirrored vertex is owned by
+    exactly one rank, so the partial counts sum exactly."""
     ident = identity_of(op, vals.dtype)
     n_pad = sg.n_pad
     loc_n = sg.m_loc * sg.n_loc
-    flat_vals = vals.reshape(-1)
+    feat = feat_shape(vals, 2)
+    flat_vals = vals.reshape((-1,) + feat)
     flat_act = active.reshape(-1)
-    contrib = torch.where(flat_act, flat_vals, ident)   # owner-side payload
+    contrib = torch.where(feat_mask(flat_act, flat_vals, 1), flat_vals,
+                          ident)                      # owner-side payload
     lv = _fetch_planned(sg, sg.fetch["mir"], contrib, ident)
-    raw = lv[sg.mir_cesrc]
-    act_e = sg.mir_emask & (raw != ident)
-    ev = torch.where(act_e, relay_values(raw, sg.mir_ew, relay), ident)
+    if feat:
+        la = _fetch_planned(sg, sg.fetch["mir"], flat_act.to(torch.int32), 0)
+        act_e = sg.mir_emask & (la[sg.mir_cesrc] > 0)
+        ev = _edge_map(lv, sg.mir_cesrc.reshape(-1), sg.mir_ew.reshape(-1),
+                       relay).where(act_e.reshape(-1), ident)
+        if backend != "pallas":
+            ev = ev.materialize().view(act_e.shape + feat)
+    else:
+        raw = lv[sg.mir_cesrc]
+        act_e = sg.mir_emask & (raw != ident)
+        ev = torch.where(act_e, relay_values(raw, sg.mir_ew, relay), ident)
     if backend == "pallas":
         inbox, _ = _combine_with_plan_sharded(
-            sg, sg.plans["mir"], ev.reshape(-1), op, count_cross=False,
-            exchange=sg.split)
+            sg, sg.plans["mir"], ev if feat else ev.reshape(-1), op,
+            count_cross=False, exchange=sg.split)
     elif sg.split:
         inbox = _routed_scatter_combine(sg, sg.mir_edst, ev, act_e, op
-                                        ).view(sg.m_loc, sg.n_loc)
+                                        ).view((sg.m_loc, sg.n_loc) + feat)
     else:
         if sg.layout == "csr":
             idx = sg.mir_edst.long() - sg.w0 * sg.n_loc
@@ -1861,9 +2244,13 @@ def push_mirror_sharded(sg: ShardedGraph, vals, active, op: str,
             row = torch.arange(sg.m_loc, device=sg.device)[:, None]
             idx = row * sg.n_loc + torch.where(sg.mir_emask, sg.mir_edst,
                                                0).long()
-        buf = torch.full((loc_n,), ident, dtype=vals.dtype, device=sg.device)
-        inbox = scatter_op(op, buf, idx.reshape(-1), ev.reshape(-1)
-                           ).view(sg.m_loc, sg.n_loc)
+        buf = torch.full((loc_n,) + feat, ident, dtype=vals.dtype,
+                         device=sg.device)
+        inbox = scatter_op(op, buf, idx.reshape(-1),
+                           ev.reshape((-1,) + feat)
+                           ).view((sg.m_loc, sg.n_loc) + feat)
+    if not count:
+        return inbox, {}
     # owner-side mask-driven stats: an ACTIVE mirrored vertex is broadcast
     # to its hosting workers whatever its value; each rank charges the
     # mirrored vertices it owns
@@ -1879,53 +2266,68 @@ def push_mirror_sharded(sg: ShardedGraph, vals, active, op: str,
 
 def broadcast_sharded(sg: ShardedGraph, vals, active, op: str,
                       relay: str = "none", use_mirroring: bool = True,
-                      backend: str = "dense"):
-    """Sharded ``channels.broadcast`` (the same stats keys)."""
-    _check_scalar(vals, 2)
+                      backend: str = "dense", count: bool = True):
+    """Sharded ``channels.broadcast`` (the same stats keys; none when
+    ``count`` is False, as a training join asks).  ``vals`` is this
+    rank's (m_loc, n_loc) or feature-blocked (m_loc, n_loc, F) rows; a
+    feature-blocked join hands the combine an ``EdgeMap`` that composes
+    the source read (local rows, or under a split partition the fetched
+    compact values), the relay and the masks, never an (E_dev, F)
+    array."""
     kind = "eg" if use_mirroring else "all"
     esrc = getattr(sg, f"{kind}_src").long()
     edst = getattr(sg, f"{kind}_dst")
     emask = getattr(sg, f"{kind}_mask")
     ew = getattr(sg, f"{kind}_w")
+    feat = feat_shape(vals, 2)
     plan = sg.plans.get(kind) if backend == "pallas" else None
     if backend == "pallas" and plan is None:
         raise ValueError(f"the sharded graph was built without the {kind!r} "
                          "plan: pass plan_kinds=broadcast_plan_kinds(...)")
+    flat = vals.reshape((-1,) + feat)
     if sg.layout == "csr":
         if sg.split:
             # edge-balanced device bounds: sources may be another rank's,
             # read through the edge set's static source fetch plan
-            fp, csrc = sg.fetch[kind], getattr(sg, f"{kind}_csrc")
-            src_val = _fetch_planned(sg, fp, vals.reshape(-1), 0)[csrc]
+            fp, index = sg.fetch[kind], getattr(sg, f"{kind}_csrc")
+            rows = _fetch_planned(sg, fp, flat, 0)
             src_act = _fetch_planned(sg, fp, active.reshape(-1).to(
-                torch.int32), 0)[csrc] > 0
+                torch.int32), 0)[index] > 0
             worker = getattr(sg, f"{kind}_pw")
         else:
-            loc_src = esrc - sg.w0 * sg.n_loc
-            src_val = vals.reshape(-1)[loc_src]
-            src_act = active.reshape(-1)[loc_src]
+            index = esrc - sg.w0 * sg.n_loc
+            rows = flat
+            src_act = active.reshape(-1)[index]
             worker = torch.div(esrc, sg.n_loc, rounding_mode="floor")
+        v = (_edge_map(rows, index, ew, relay) if feat
+             else relay_values(rows[index], ew, relay))
         inbox, stats = push_combined_flat_sharded(
-            sg, edst, relay_values(src_val, ew, relay), emask & src_act,
-            worker, op, backend=backend, plan=plan)
+            sg, edst, v, emask & src_act, worker, op, backend=backend,
+            plan=plan, count=count)
     else:
-        v = relay_values(torch.gather(vals, 1, esrc), ew, relay)
+        if feat:
+            row = torch.arange(sg.m_loc, device=sg.device)[:, None]
+            v = _edge_map(flat, (row * sg.n_loc + esrc).reshape(-1),
+                          ew.reshape(-1), relay)
+        else:
+            v = relay_values(torch.gather(vals, 1, esrc), ew, relay)
         inbox, stats = push_combined_sharded(
             sg, edst, v, emask & torch.gather(active, 1, esrc), op,
-            backend=backend, plan=plan)
+            backend=backend, plan=plan, count=count)
     if use_mirroring:
         inbox2, s2 = push_mirror_sharded(sg, vals, active, op, relay,
-                                         backend=backend)
+                                         backend=backend, count=count)
         inbox = _MERGE[op](inbox, inbox2)
         stats.update(s2)
-    else:
+    elif count:
         stats["msgs_mirror"] = torch.zeros((), dtype=torch.int64,
                                            device=sg.device)
         stats["per_worker_mirror"] = torch.zeros(sg.M, dtype=torch.int64,
                                                  device=sg.device)
-    stats["msgs_total"] = stats["msgs_combined"] + stats["msgs_mirror"]
-    stats["per_worker_total"] = (stats["per_worker_combined"]
-                                 + stats["per_worker_mirror"])
+    if count:
+        stats["msgs_total"] = stats["msgs_combined"] + stats["msgs_mirror"]
+        stats["per_worker_total"] = (stats["per_worker_combined"]
+                                     + stats["per_worker_mirror"])
     return inbox, stats
 
 
@@ -1933,9 +2335,10 @@ def gather_sharded(sg: ShardedGraph, vals, targets, tmask,
                    dedup: bool = True):
     """Sharded Ch_req for row-shaped targets (m_loc, R): each worker's
     deduplicated requests travel to their owners and back
-    (``_routed_fetch``); the Theorem-3 counts are this rank's part."""
-    _check_scalar(vals, 2)
+    (``_routed_fetch``), an (F,) row a request when ``vals`` is
+    feature-blocked; the Theorem-3 counts are this rank's part."""
     n_pad = sg.n_pad
+    feat = feat_shape(vals, 2)
     t = torch.where(tmask, targets, n_pad)
     R = t.shape[1]
     if dedup:
@@ -1944,11 +2347,14 @@ def gather_sharded(sg: ShardedGraph, vals, targets, tmask,
         uniq = t
         inv = torch.arange(R, device=sg.device).expand(t.shape)
     flat_u = uniq.reshape(-1)
-    got = _routed_fetch(sg, vals, flat_u, flat_u < n_pad).view(uniq.shape)
+    got = _routed_fetch(sg, vals, flat_u, flat_u < n_pad
+                        ).view(uniq.shape + feat)
     # a row whose requests are all masked has inv == -1 (JAX wraps it):
     # clamp, the row is masked out below
-    out = torch.gather(got, 1, inv.long().clamp(min=0))
-    out = torch.where(tmask, out, 0)
+    inv = inv.long().clamp(min=0)
+    out = torch.gather(got, 1, inv.view(inv.shape + (1,) * len(feat)
+                                        ).expand(inv.shape + feat))
+    out = torch.where(feat_mask(tmask, out, 2), out, 0)
 
     owner = torch.div(uniq, sg.n_loc, rounding_mode="floor").clamp(
         0, sg.M - 1)
@@ -1981,11 +2387,12 @@ def gather_edges_sharded(sg: ShardedGraph, vals, targets, tmask,
                          dedup: bool = True):
     """Sharded Ch_req for edge-shaped targets.  The transport always rides
     the deduplicated (worker, target) segment heads (physical shards under
-    a split partition); responses are carried back down each segment."""
+    a split partition); responses, scalars or (F,) rows, are carried back
+    down each segment."""
     if sg.layout != "csr":
         return gather_sharded(sg, vals, targets, tmask, dedup)
-    _check_scalar(vals, 2)
     n_pad = sg.n_pad
+    feat = feat_shape(vals, 2)
     worker = _edge_workers(sg)
     wlog = sg.log_of(worker)
     t = torch.where(tmask, targets, n_pad)
@@ -1994,9 +2401,10 @@ def gather_edges_sharded(sg: ShardedGraph, vals, targets, tmask,
     cap = (_cap_for(t.shape[0], sg.D, sg.cap_hint) if sg.cap_hint
            else None)
     head_vals = _routed_fetch(sg, vals, ts, heads, cap=cap)
-    out = torch.zeros(t.shape[0], dtype=vals.dtype, device=sg.device)
+    out = torch.zeros((t.shape[0],) + feat, dtype=vals.dtype,
+                      device=sg.device)
     out[order] = _carry_heads(first, head_vals)
-    out = torch.where(t < n_pad, out, 0)
+    out = torch.where(feat_mask(t < n_pad, out, 1), out, 0)
 
     tw = torch.div(targets, sg.n_loc, rounding_mode="floor")
     owner = tw.clamp(0, sg.M - 1)
@@ -2023,8 +2431,8 @@ def scatter_state_sharded(sg: ShardedGraph, base, targets, upd, mask,
                           op: str, backend: str = "dense"):
     """Sharded scatter-``op`` for row-shaped runtime targets (S-V
     hooking): both backends share the sorted segmented combine and the
-    routed exchange, as in the reference."""
-    _check_scalar(upd, 2)
+    routed exchange, as in the reference; ``upd`` may be
+    feature-blocked."""
     raw_cross = mask & (torch.div(targets, sg.n_loc, rounding_mode="floor")
                         != sg.worker_ids()[:, None])
     bstats = {"msgs_basic": raw_cross.sum(),
@@ -2041,7 +2449,6 @@ def scatter_edges_sharded(sg: ShardedGraph, base, targets, upd, mask,
     if sg.layout != "csr":
         return scatter_state_sharded(sg, base, targets, upd, mask, op,
                                      backend)
-    _check_scalar(upd, 1)
     worker = _edge_workers(sg)
     wlog = sg.log_of(worker)
     raw_cross = mask & (torch.div(targets, sg.n_loc, rounding_mode="floor")
@@ -2103,6 +2510,34 @@ def run_sharded(pg, make_step: Callable, init: Callable,
     return out, stats, n, hist, _info(sg, n)
 
 
+def _tree_map(fn: Callable, tree):
+    """``fn`` on every leaf of a tree of dicts, tuples and lists."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def place_args(sg: ShardedGraph, tree, is_sharded: Optional[Callable] = None):
+    """This rank's view of a tree of global inputs: the leaves that
+    ``is_sharded`` (leaf -> bool; default, a leading axis of ``sg.M``)
+    accepts keep this rank's rows, the others are replicated; every tensor
+    moves to the rank's device.  A tree whose replicated leaves may have M
+    rows (an (M, hidden) weight) passes its own rule."""
+    if is_sharded is None:
+        def is_sharded(x):
+            return x.dim() >= 1 and x.shape[0] == sg.M
+
+    def leaf(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if is_sharded(x):
+            x = x[sg.w0:sg.w0 + sg.m_loc]
+        return x.to(sg.device)
+    return _tree_map(leaf, tree)
+
+
 def apply_sharded(pg, make_fn: Callable, args: tuple, devices=1,
                   plan_kinds: Sequence[str] = (), device=None,
                   pipeline: bool = False,
@@ -2110,17 +2545,12 @@ def apply_sharded(pg, make_fn: Callable, args: tuple, devices=1,
     """One sharded channel application (no BSP loop): ``make_fn(g)``
     returns ``fn(*args) -> (out, stats)``.  Leaves of ``args`` with a
     leading axis of ``pg.M`` are split by rows (this rank's, moved to its
-    device).  ``out`` comes back gathered along its leading axis in rank
-    order (csr edge-shaped outputs then carry each rank's padding: strip
-    it with ``device_edge_bounds``), ``stats`` summed over the ranks, and
-    ``info`` as ``run_sharded`` gives it."""
+    device, ``place_args``).  ``out`` comes back gathered along its
+    leading axis in rank order (csr edge-shaped outputs then carry each
+    rank's padding: strip it with ``device_edge_bounds``), ``stats``
+    summed over the ranks, and ``info`` as ``run_sharded`` gives it."""
     sg = shard(pg, devices, plan_kinds, device, pipeline, pipeline_chunks)
-    m = sg.m_loc
-    local = tuple(
-        a[sg.w0:sg.w0 + m].to(sg.device)
-        if isinstance(a, torch.Tensor) and a.dim() >= 1 and a.shape[0] == sg.M
-        else a for a in args)
-    out, stats = make_fn(sg)(*local)
+    out, stats = make_fn(sg)(*place_args(sg, tuple(args)))
     for v in stats.values():
         sg.all_reduce(v)
     return sg.all_gather_rows(out), stats, _info(sg, 0)

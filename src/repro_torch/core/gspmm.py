@@ -21,8 +21,11 @@ the SAME weighted broadcast applied to the cotangent:
     d/dx [ sum_v <g[v], out[v]> ]  =  A^T (W * g)  =  A (W * g)
 
 so the backward pass is one more channel join, and the function saves no
-tensors.  ``u_mul_e_max`` is forward-only: its output carries no
-gradient.
+tensors.  On one rank's ``exec.ShardedGraph`` the join is sharded: the
+backward join issues the same collectives as the forward, so every rank's
+cotangent reaches the rows that own it (the gradient of each rank's rows
+is complete without an all-reduce).  ``u_mul_e_max`` is forward-only: its
+output carries no gradient.
 """
 from __future__ import annotations
 
@@ -68,8 +71,9 @@ class _SelfAdjointJoin(torch.autograd.Function):
 
 def gspmm_join(g, kind: str, backend: str = "dense",
                use_mirroring: bool = True) -> Callable:
-    """The differentiable gSpMM aggregation on the PartitionedGraph ``g``:
-    ``fn(feats) -> out`` with feats/out (M, n_loc, F).  The join skips the
+    """The differentiable gSpMM aggregation on the PartitionedGraph ``g``
+    (or one rank's ShardedGraph): ``fn(feats) -> out`` with feats/out
+    (M, n_loc, F) (the rank's (m_loc, n_loc, F) rows).  The join skips the
     message accounting, which the reference computes and drops; call
     :func:`gspmm_stats` for it.  The sum kinds back-propagate through one
     more join of the cotangent (the symmetrized edge set makes the join
@@ -120,9 +124,21 @@ def u_mul_e_max(g, feats, backend: str = "dense"):
 
 
 def gspmm_sharded(pg, kind: str, feats, devices=1, backend: str = "dense",
-                  pipeline: bool = False, use_mirroring: bool = True):
-    """The sharded one-shot join of the reference; it needs the sharded
-    executor, which a later slice of the port brings."""
-    raise NotImplementedError(
-        "gspmm_sharded runs on the sharded executor, which comes with a "
-        "later slice of the port; use gspmm_stats on one device")
+                  pipeline: bool = False, use_mirroring: bool = True,
+                  device=None):
+    """One-shot sharded gSpMM over the ranks of the default process group
+    (``devices`` an int or a ``(hosts, per_host)`` pair; ``device`` this
+    rank's, default the partition's): ``feats`` is the global (M, n_loc,
+    F) state, split by rows.  Returns ``(out, stats)``: ``out`` (M,
+    n_loc, F) gathered in rank order, ``stats`` summed over the ranks.
+    Max bitwise equal to one device, sums to round-off, stats exact."""
+    from repro_torch.core import exec as exec_mod
+
+    def mk(g):
+        return lambda x: gspmm_stats(g, kind, x, backend=backend,
+                                     use_mirroring=use_mirroring)
+    out, stats, _ = exec_mod.apply_sharded(
+        pg, mk, (feats,), devices=devices,
+        plan_kinds=exec_mod.broadcast_plan_kinds(backend, use_mirroring),
+        device=device, pipeline=pipeline)
+    return out, stats

@@ -8,7 +8,8 @@ default) and reports the paper's metrics: total messages under each
 channel mode, per-worker balance, supersteps, wall time.  The same flags
 and output lines as ``repro.launch.graph_run``.
 
-``--devices D`` runs the sharded executor on D ranks, one process each
+``--devices D`` runs the sharded executor on D ranks (the six algorithms
+and GCN training), one process each
 (``torch.multiprocessing``): on ``--device cuda`` an NCCL group with rank
 r on ``cuda:r`` (D may not exceed the visible GPUs), on ``--device cpu`` a
 gloo group.  Every rank builds the graph from ``--seed``; rank 0 prints.
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import argparse
 import datetime
-import socket
+import tempfile
 import time
 
 import numpy as np
@@ -65,11 +66,12 @@ GROUP_TIMEOUT_S = 120
 JOIN_TIMEOUT_S = 3600
 
 
-def free_port() -> int:
-    """A free TCP port on localhost for the process group's rendezvous."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def rendezvous(tmp: str) -> str:
+    """The process group's rendezvous for ranks on one host: a file
+    store in the directory ``tmp`` (fresh and empty).  No TCP port is
+    picked and then bound later, a window in which another process on
+    the machine can take it."""
+    return f"file://{tmp}/store"
 
 
 def spawn_ranks(fn, args: tuple, nprocs: int, timeout_s: float) -> None:
@@ -92,23 +94,24 @@ def spawn_ranks(fn, args: tuple, nprocs: int, timeout_s: float) -> None:
             p.join()
 
 
-def _rank_main(rank: int, argv, port: int) -> None:
+def _rank_main(rank: int, argv, init_method: str) -> None:
     """One rank of ``--devices D``: join the process group, then run."""
     import torch
     import torch.distributed as dist
+    from repro_torch.launch import mesh as meshlib
     args = parse_args(argv)
     cuda = torch.device(args.device).type == "cuda"
     if cuda:
         torch.cuda.set_device(rank)
     dist.init_process_group(
-        "nccl" if cuda else "gloo", init_method=f"tcp://127.0.0.1:{port}",
+        "nccl" if cuda else "gloo", init_method=init_method,
         world_size=args.devices, rank=rank,
         timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
     try:
         run(args, rank=rank,
             device=torch.device("cuda", rank) if cuda else "cpu")
     finally:
-        dist.destroy_process_group()
+        meshlib.destroy()
 
 
 def parse_args(argv=None):
@@ -180,8 +183,9 @@ def main(argv=None):
             raise RuntimeError(
                 f"--devices {args.devices} on cuda puts one GPU under each "
                 f"rank; {torch.cuda.device_count()} are visible")
-    spawn_ranks(_rank_main, (argv, free_port()), args.devices,
-                JOIN_TIMEOUT_S)
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn_ranks(_rank_main, (argv, rendezvous(tmp)), args.devices,
+                    JOIN_TIMEOUT_S)
 
 
 def run(args, rank: int = 0, device=None):
@@ -233,7 +237,7 @@ def run(args, rank: int = 0, device=None):
              f"{int(res.state[2])} edges, {res.jump_reads} host reads in "
              "its pointer jumping")
     elif args.algo == "gcn":
-        from repro_torch.core.gspmm import gspmm_stats
+        from repro_torch.core.gspmm import gspmm_sharded, gspmm_stats
         from repro_torch.train.gcn import normalize_adjacency
         gw = normalize_adjacency(
             make_graph(args.graph, args.n, args.seed).symmetrized())
@@ -248,9 +252,15 @@ def run(args, rank: int = 0, device=None):
              f"{args.epochs} epochs")
         # message accounting for ONE aggregation join (the training step
         # runs 4 per epoch: 2 forward + 2 backward-cotangent joins)
-        _, res.stats = gspmm_stats(pg, "u_mul_e_sum", res.state["emb"],
-                                   backend=args.backend,
-                                   use_mirroring=mirror)
+        if dev:
+            _, res.stats = gspmm_sharded(
+                pg, "u_mul_e_sum", res.state["emb"], devices=dev,
+                backend=args.backend, pipeline=args.pipeline,
+                use_mirroring=mirror, device=device)
+        else:
+            _, res.stats = gspmm_stats(pg, "u_mul_e_sum", res.state["emb"],
+                                       backend=args.backend,
+                                       use_mirroring=mirror)
     elif args.algo == "attr_bcast":
         import torch
         attr = 3 * torch.arange(pg.n_pad, dtype=torch.float32,

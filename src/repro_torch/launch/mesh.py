@@ -14,6 +14,7 @@ exchanges ride two families of process subgroups:
 Every rank creates every subgroup, in the same order, as
 ``torch.distributed`` requires.  The groups are made once per (H, T) and
 default group and cached: a later run on the same mesh reuses them.
+``destroy`` drops them with the default group.
 """
 from __future__ import annotations
 
@@ -62,3 +63,12 @@ def graph_mesh(hosts: int, per_host: int):
                                f"({H}, {T}) mesh did not form")
     _GROUPS[(H, T)] = (world, host_group, col_group)
     return host_group, col_group
+
+
+def destroy() -> None:
+    """Destroy the default process group and every subgroup, dropping the
+    cached mesh subgroups first: a gloo subgroup that the cache keeps
+    alive after its group is destroyed is torn down only at interpreter
+    exit, where it can abort the process."""
+    _GROUPS.clear()
+    dist.destroy_process_group()

@@ -18,9 +18,26 @@ them.
 The step is the reference's: the summed masked cross-entropy is
 differentiated, the gradients are divided by the count of labelled rows,
 clipped by their global norm, and handed to AdamW with its own clipping
-disarmed.  The sharded GNN path (``devices``, and ``pipeline``, which
-double-buffers its exchanges) comes with a later slice of the port and
-raises here.
+disarmed.
+
+``devices`` trains on the sharded executor (``core/exec.py``): each rank
+holds its rows of the embedding, its optimizer moments and its labels,
+and a replica of the dense parameters.  Its gradient contract is the
+reference's:
+
+* each rank differentiates its LOCAL masked loss sum, with no collective
+  inside it: the joins' backward is itself the collective that routes
+  every rank's cotangent to the rows that own it, so the embedding's
+  gradient is complete on each rank;
+* the dense gradients (W1, b1, W2, b2), which saw only this rank's rows,
+  the label count and the loss sum are all-reduced once, after
+  ``torch.autograd.grad``;
+* the global-norm clip all-reduces the embedding gradient's squared norm
+  only (the dense gradients are then the same on every rank).
+
+The dense parameters stay bitwise equal on every rank.  ``pipeline``
+double-buffers the sharded exchanges and acts only under ``devices``;
+the embedding rows are gathered once, at the end.
 """
 from __future__ import annotations
 
@@ -111,27 +128,58 @@ def _xent_sum(logits: torch.Tensor, labels: torch.Tensor,
     return torch.sum(nll)
 
 
+def _all_reduce_dense(g, count, lsum, grads: Params, dense) -> tuple:
+    """One all-reduce of the label count, the loss sum and the dense
+    gradients of this rank: returns the totals and the summed
+    gradients."""
+    flat = torch.cat([count.reshape(1), lsum.reshape(1)]
+                     + [grads[k].reshape(-1) for k in dense])
+    g.all_reduce(flat)
+    out, off = {}, 2
+    for k in dense:
+        n = grads[k].numel()
+        out[k] = flat[off:off + n].view_as(grads[k])
+        off += n
+    return flat[0], flat[1], out
+
+
 def make_gcn_step(cfg: OptConfig, backend: str = "dense",
                   use_mirroring: bool = True):
-    """``mk(pg) -> step(params, opt, labels, mask) ->
-    ((new_params, new_opt), metrics)``, the reference's contract on one
-    device."""
+    """``mk(g) -> step(params, opt, labels, mask) ->
+    ((new_params, new_opt), metrics)``, the reference's contract: ``g`` a
+    PartitionedGraph, or one rank's ``exec.ShardedGraph`` with this
+    rank's rows of ``emb``, its moments, ``labels`` and ``mask`` (the
+    gradient contract of the module's docstring)."""
     # clipping is applied here on the whole gradient; disarm
     # adamw_update's own re-clip
     inner_cfg = dataclasses.replace(cfg, clip_norm=1e30)
 
-    def mk(pg: PartitionedGraph):
+    def mk(g):
+        sharded = getattr(g, "sharded", False)
+
         def step(params: Params, opt: dict, labels: torch.Tensor,
                  mask: torch.Tensor):
             p = {k: v.detach().requires_grad_(True)
                  for k, v in params.items()}
-            lsum = _xent_sum(gcn_forward(pg, p, backend, use_mirroring),
+            lsum = _xent_sum(gcn_forward(g, p, backend, use_mirroring),
                              labels, mask)
             grads = dict(zip(p, torch.autograd.grad(lsum, list(p.values()))))
+            lsum = lsum.detach()
             count = torch.sum(mask.to(torch.float32))
-            loss = lsum.detach() / count
-            grads = {k: g / count for k, g in grads.items()}
-            gnorm = global_norm(grads)
+            dense = [k for k in grads if k != "emb"]
+            if sharded:
+                count, lsum, summed = _all_reduce_dense(g, count, lsum,
+                                                        grads, dense)
+                grads.update(summed)
+            loss = lsum / count
+            grads = {k: v / count for k, v in grads.items()}
+            if sharded:
+                emb2 = g.all_reduce(torch.sum(torch.square(
+                    grads["emb"])).reshape(1))[0]
+                gnorm = torch.sqrt(emb2 + sum(torch.sum(torch.square(
+                    grads[k])) for k in dense))
+            else:
+                gnorm = global_norm(grads)
             scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                                 max=1.0)
             grads = {k: g * scale for k, g in grads.items()}
@@ -148,33 +196,46 @@ def make_gcn_step(cfg: OptConfig, backend: str = "dense",
 def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
         feat_dim: int = 32, hidden: int = 64, n_classes: int = 8,
         epochs: int = 10, lr: float = 1e-2, seed: int = 0,
-        params: Optional[Params] = None) -> RunResult:
+        params: Optional[Params] = None, device=None) -> RunResult:
     """GCN training under an EngineConfig: ``state`` is the trained params
     dict, ``history`` the loss trajectory, ``n_supersteps`` the epoch
-    count."""
+    count; under ``devices`` (this rank on ``device``) ``sharded`` is the
+    executor's report of the rank's run."""
     cfg = config or EngineConfig()
+    info = {}
     params, losses = train_gcn(
         pg, feat_dim=feat_dim, hidden=hidden, n_classes=n_classes,
         epochs=epochs, lr=lr, seed=seed, backend=cfg.backend,
         devices=cfg.devices, use_mirroring=cfg.use_mirroring,
-        pipeline=cfg.pipeline, params=params)
+        pipeline=cfg.pipeline, params=params, device=device, info=info)
     return RunResult(state=params, stats={}, n_supersteps=epochs,
-                     history=losses)
+                     history=losses, sharded=info or None)
+
+
+def _sharded_leaf(pg):
+    """The placement rule of the GCN's trees: a leaf is split by rows when
+    it is vertex-shaped, (M, n_loc, ...); the dense parameters and their
+    moments are replicated, whatever their first dim."""
+    return lambda x: x.dim() >= 2 and tuple(x.shape[:2]) == (pg.M, pg.n_loc)
 
 
 def train_gcn(pg: PartitionedGraph, feat_dim: int = 32, hidden: int = 64,
               n_classes: int = 8, epochs: int = 10, lr: float = 1e-2,
               seed: int = 0, backend: str = "dense", devices=None,
               use_mirroring: bool = True, pipeline: bool = False,
-              params: Optional[Params] = None) -> Tuple[Params, list]:
+              params: Optional[Params] = None, device=None,
+              info: Optional[dict] = None) -> Tuple[Params, list]:
     """Full training run: ``epochs`` full-graph AdamW steps; returns
     ``(params, loss_history)``.  ``pg`` must be partitioned from a
-    :func:`normalize_adjacency`'d (or at least symmetrized) graph."""
-    if devices is not None or pipeline:
-        raise NotImplementedError(
-            f"GCN training with devices={devices!r}, pipeline={pipeline}: "
-            "the sharded GNN path (gspmm_sharded) and its pipelined "
-            "exchanges come with a later slice of the port")
+    :func:`normalize_adjacency`'d (or at least symmetrized) graph.
+
+    ``devices`` (an int or an ``(H, T)`` mesh) trains on the sharded
+    executor over the default process group, this rank on ``device``
+    (default the partition's), with ``pipeline`` double-buffering its
+    exchanges; the returned params are global (the embedding gathered
+    once) and the same on every rank, and ``info``, when given, receives
+    the executor's report.  ``devices=None`` is the one-device path, and
+    ``pipeline`` does nothing there."""
     torch.backends.cuda.matmul.allow_tf32 = False
     if params is None:
         params = init_gcn_params(pg, feat_dim, hidden, n_classes, seed)
@@ -183,9 +244,21 @@ def train_gcn(pg: PartitionedGraph, feat_dim: int = 32, hidden: int = 64,
     cfg = OptConfig(lr=lr, weight_decay=0.0, clip_norm=1.0,
                     warmup_steps=0, total_steps=max(epochs, 1),
                     min_lr_frac=1.0)
-    step = make_gcn_step(cfg, backend, use_mirroring)(pg)
+    g, sg = pg, None
+    if devices is not None:
+        from repro_torch.core import exec as exec_mod
+        sg = exec_mod.shard(pg, devices, exec_mod.broadcast_plan_kinds(
+            backend, use_mirroring), device, pipeline)
+        params, opt, labels, mask = exec_mod.place_args(
+            sg, (params, opt, labels, mask), _sharded_leaf(pg))
+        g = sg
+    step = make_gcn_step(cfg, backend, use_mirroring)(g)
     losses = []
     for _ in range(epochs):
         (params, opt), metrics = step(params, opt, labels, mask)
         losses.append(float(metrics["loss"]))   # one host read an epoch
+    if sg is not None:
+        params = dict(params, emb=sg.all_gather_rows(params["emb"]))
+        if info is not None:
+            info.update(exec_mod._info(sg, epochs))
     return params, losses

@@ -25,6 +25,7 @@ from repro_torch import api
 from repro_torch.core import channels
 from repro_torch.core import exec as texec
 from repro_torch.graph import structs
+from repro_torch.launch import mesh as meshlib
 
 GROUP_TIMEOUT_S = 90
 HOT = 40                  # lanes of a rank aimed at rank 0's slots
@@ -186,4 +187,4 @@ def rank_main(rank: int, D: int, store: str, spec_path: str,
         with open(f"{out_path}.{rank}", "wb") as f:
             pickle.dump(results, f)
     finally:
-        dist.destroy_process_group()
+        meshlib.destroy()

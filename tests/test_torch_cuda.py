@@ -503,6 +503,58 @@ def test_mesh_pipeline_split_on_one_card_over_nccl(cuda, algo, mode,
         assert b.sharded["inner_rounds"] or algo == "hashmin"
 
 
+@pytest.mark.parametrize("mode", ["1d", "mesh", "pipeline", "split"])
+def test_sharded_gcn_on_one_card_over_nccl(cuda, mode, monkeypatch):
+    """GCN training on the sharded executor through an NCCL group of size
+    1 (the 1-D mesh, the (1, 1) mesh, the two-chunk pipeline, a split
+    partition) equals the one-device run on its partition: the loss
+    history within rtol 2e-4 and atol 2e-5, the same vector kernel
+    launches (a rank of one's plans are the one-device plans; several a
+    join at this chunk size) and no scalar launch."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.core import exec as exec_mod
+    from repro_torch.train.gcn import normalize_adjacency
+    balance = "split" if mode == "split" else "hash"
+    g = normalize_adjacency(tgen.powerlaw(
+        3000, avg_deg=8, seed=1, alpha=1.5 if mode == "split" else 2.0
+    ).symmetrized())
+    kw = dict(feat_dim=32, hidden=64, n_classes=8, epochs=3, lr=1e-2)
+    monkeypatch.setattr(tplan, "VEC_CHUNK_BYTES", 1 << 20)
+    monkeypatch.setattr(exec_mod, "_chunks_of",
+                        lambda D, pipeline, chunks: 2 if pipeline else None)
+    one = Engine(backend="pallas", layout="csr", balance=balance,
+                 split_factor=1.1, device=cuda)
+    pg = one.partition(g, 8, tau=20, seed=0)
+    runs = {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        sharded = Engine(backend="pallas", layout="csr", balance=balance,
+                         split_factor=1.1, device=cuda,
+                         devices=(1, 1) if mode == "mesh" else 1,
+                         pipeline=mode == "pipeline")
+        for name, eng in (("one", one), ("sharded", sharded)):
+            c = tkernel.segment_combine_blocks
+            before = (c.launches, c.launches_vec)
+            res = eng.run("gcn", pg, **kw)
+            torch.cuda.synchronize()
+            runs[name] = (res, c.launches - before[0],
+                          c.launches_vec - before[1])
+    finally:
+        dist.destroy_process_group()
+    (a, sa, va), (b, sb, vb) = runs["one"], runs["sharded"]
+    assert sa == sb == 0 and va == vb > 8 * kw["epochs"]
+    np.testing.assert_allclose(b.history, a.history, rtol=2e-4, atol=2e-5)
+    assert b.history[-1] < b.history[0]
+    for k, v in a.state.items():
+        assert b.state[k].shape == v.shape and bool(
+            torch.isfinite(b.state[k]).all()), k
+    if mode == "split":
+        assert pg.M_phys > pg.M
+
+
 def test_device_plan_is_uploaded_once_per_card(cuda):
     """"cuda" and "cuda:<current>" name one card: one device copy of a
     plan, whichever name the caller used first."""

@@ -146,7 +146,8 @@ def test_convenience_entry_points_and_unknown_kind():
                                atol=1e-5)
     with pytest.raises(ValueError):
         tgspmm.gspmm_join(pg_t, "u_div_e_mean")
-    with pytest.raises(NotImplementedError, match="sharded"):
+    # the sharded join runs over a process group of world size 2
+    with pytest.raises(RuntimeError, match="world_size=2"):
         tgspmm.gspmm_sharded(pg_t, "u_mul_e_sum", xt, devices=2)
 
 
@@ -285,8 +286,15 @@ def test_gcn_layout_independent():
 
 
 def test_gcn_sharded_and_pipelined_raise():
+    """``devices=2`` without a process group of two ranks raises what the
+    algorithms raise; ``pipeline`` acts only under ``devices``, so on its
+    own it trains as one device does."""
     _, (_, pg_t) = _gcn_pgs("csr", n=100)
-    with pytest.raises(NotImplementedError, match="sharded"):
+    with pytest.raises(RuntimeError, match="world_size=2"):
         tgcn.train_gcn(pg_t, epochs=1, devices=2)
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        tgcn.run(pg_t, EngineConfig(pipeline=True), epochs=1)
+    kw = dict(feat_dim=8, hidden=16, n_classes=4, epochs=2)
+    piped = tgcn.run(pg_t, EngineConfig(pipeline=True), **kw)
+    one = tgcn.run(pg_t, EngineConfig(), **kw)
+    assert piped.history == one.history and piped.sharded is None
+    for k, v in one.state.items():
+        assert torch.equal(piped.state[k], v), k

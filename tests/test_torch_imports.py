@@ -19,7 +19,9 @@ from repro_torch.launch import graph_run, serve_model  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "tests").glob("_torch_sharded*worker.py")) + sorted(
+            (ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -258,9 +258,9 @@ def test_what_the_sharded_executor_refuses():
     with pytest.raises(RuntimeError, match="world_size=2"):
         hashmin.run(pg, tapi.EngineConfig(devices=2))
     from repro_torch.train import gcn
-    with pytest.raises(NotImplementedError, match="GCN"):
+    with pytest.raises(RuntimeError, match="world_size=2"):
         gcn.run(pg, tapi.EngineConfig(devices=2))
-    with pytest.raises(NotImplementedError, match="GCN"):
+    with pytest.raises(RuntimeError, match="world_size=2"):
         gcn.train_gcn(pg, devices=2)
 
 
