@@ -99,8 +99,16 @@ that leave it (``VecPlan``), so no (n_segs, nb, F) buffer exists.  A
 mirror fetch carries the mirrors' activity explicitly (a feature may
 equal the identity).
 
-Not in this module yet: frozen shard profiles (the graph service's
-resident executors).
+Frozen shard profiles (the graph service, ``core/service.py``): a
+``ShardProfile`` freezes the content-decided shapes of a csr partition's
+tables on the 1-D mesh (per-device edge caps, the mirror-id table, the
+mirror fetch plan, the routing cap hint) with headroom; ``shard(...,
+profile=)`` pads this rank's tables to it, and ``reshard`` writes a
+folded graph's tables into the resident tensors in place, so the step
+functions built on that ShardedGraph keep running on it after a fold.  A
+graph that outgrows the envelope raises ``ProfileOverflow``.
+``run_on`` runs a built step on a resident ShardedGraph; ``run_sharded``
+is ``shard`` and then ``run_on``.
 """
 from __future__ import annotations
 
@@ -819,6 +827,145 @@ def exchange_volume_report(pg, devices, plan_kinds: Sequence[str] = (),
 
 
 # ---------------------------------------------------------------------------
+# frozen shard profiles: the graph service's resident tables
+# ---------------------------------------------------------------------------
+#
+# The reference freezes these shapes so that its compiled programs never
+# re-trace; here nothing is compiled, and the profile keeps the resident
+# tensors themselves: a fold of the graph is padded to the same envelope
+# and copied into the same storage, so step functions built on the
+# ShardedGraph (the service's resident executors) stay valid.  Padding is
+# semantics-free (masked lanes carry nothing), and a frozen cap hint only
+# changes how many rounds a routed exchange takes, never its result.
+
+class ProfileOverflow(ValueError):
+    """The graph outgrew its frozen ShardProfile: build a new one."""
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardProfile:
+    """Frozen shape envelope of a resident ShardedGraph (csr layout, 1-D
+    mesh, no split, no message plans)."""
+    D: int
+    eg_cap: int        # per-device Ch_msg edge rows
+    all_cap: int       # per-device full-adjacency rows
+    mir_cap: int       # per-device mirror fan-out rows
+    n_mir: int         # replicated mirror-id table length
+    fetch_cap: int     # mirror fetch plan per-device-pair lanes
+    fetch_need: int    # mirror fetch plan compact buffer length
+    cap_hint: Optional[int]  # frozen pair_counts routing cap
+
+
+def _profile_supported(meta) -> None:
+    if meta["layout"] != "csr":
+        raise ValueError("ShardProfile needs layout='csr' (padded shapes "
+                         "are already content-dependent per worker)")
+    if meta["split"]:
+        raise ValueError("ShardProfile does not support balance='split': "
+                         "physical shard bounds are static meta, not "
+                         "paddable arrays")
+    if meta["hier"]:
+        raise ValueError("ShardProfile supports the 1-D mesh only")
+    if meta["plan_meta"]:
+        raise ValueError("ShardProfile supports plan_kinds=() (dense "
+                         "backend) only")
+
+
+def shard_profile(pg, devices, slack: float = 1.25,
+                  pad: int = 8) -> ShardProfile:
+    """Measure ``pg``'s natural shard shapes and inflate them by ``slack``
+    (rounded up to ``pad`` lanes) into a frozen envelope with mutation
+    headroom."""
+    D, _ = _normalize_devices(devices)
+    meta, arrays = _shard_graph(pg, devices, (), 0)
+    _profile_supported(meta)
+
+    def up(x):
+        return int(-(-int(np.ceil(x * slack)) // pad) * pad)
+
+    fm = meta["fetch_meta"]["mir"]
+    hint = meta["cap_hint"]
+    return ShardProfile(
+        D=D,
+        eg_cap=up(arrays["eg_src"].shape[1]),
+        all_cap=up(arrays["all_src"].shape[1]),
+        mir_cap=up(arrays["mir_esrc"].shape[1]),
+        n_mir=up(arrays["mir_ids"].shape[0]),
+        fetch_cap=up(fm["cap"]), fetch_need=up(fm["n_need"]),
+        cap_hint=None if hint is None else up(hint))
+
+
+def _pad_cols(a, cap, pad_col, what):
+    """(D, c) -> (D, cap) padded with the per-device column ``pad_col``."""
+    a = np.asarray(a)
+    d, c = a.shape
+    if c > cap:
+        raise ProfileOverflow(f"{what}: {c} rows exceed the frozen "
+                              f"profile cap {cap}")
+    if c == cap:
+        return a
+    pad = np.broadcast_to(np.asarray(pad_col, a.dtype).reshape(d, 1),
+                          (d, cap - c)).copy()
+    return np.concatenate([a, pad], axis=1)
+
+
+def _apply_profile(meta, arrays, prof: ShardProfile) -> None:
+    """Re-pad freshly sharded host ``arrays`` (and the content-dependent
+    meta) to the frozen envelope, in place."""
+    _profile_supported(meta)
+    D, m, n_loc = meta["D"], meta["m_loc"], meta["n_loc"]
+    if D != prof.D:
+        raise ProfileOverflow(f"profile built for D={prof.D}, got D={D}")
+    base = np.arange(D) * m * n_loc
+    zero = np.zeros(D)
+    for name, cap in (("eg", prof.eg_cap), ("all", prof.all_cap)):
+        arrays[f"{name}_src"] = _pad_cols(arrays[f"{name}_src"], cap,
+                                          base, f"{name}_src")
+        for k in ("dst", "w", "mask"):
+            arrays[f"{name}_{k}"] = _pad_cols(arrays[f"{name}_{k}"], cap,
+                                              zero, f"{name}_{k}")
+    for k, pad_col in (("esrc", zero), ("edst", base), ("ew", zero),
+                       ("emask", zero), ("cesrc", zero)):
+        arrays[f"mir_{k}"] = _pad_cols(arrays[f"mir_{k}"], prof.mir_cap,
+                                       pad_col, f"mir_{k}")
+    # replicated mirror tables: sentinel-padded ids (n_pad: inert in every
+    # need list and value gather), zero extra workers
+    ids = np.asarray(arrays["mir_ids"])
+    if len(ids) > prof.n_mir:
+        raise ProfileOverflow(f"n_mir {len(ids)} exceeds the frozen "
+                              f"profile {prof.n_mir}")
+    sent = np.full(prof.n_mir - len(ids), meta["M"] * n_loc, ids.dtype)
+    arrays["mir_ids"] = np.concatenate([ids, sent])
+    nw = np.asarray(arrays["mir_nworkers"])
+    arrays["mir_nworkers"] = np.concatenate(
+        [nw, np.zeros(prof.n_mir - len(nw), nw.dtype)])
+    # mirror fetch plan: -1 lanes are dropped by _fetch_planned; a larger
+    # n_need only grows the compact buffer (real positions untouched)
+    fm = meta["fetch_meta"]["mir"]
+    if fm["cap"] > prof.fetch_cap or fm["n_need"] > prof.fetch_need:
+        raise ProfileOverflow(
+            f"mirror fetch plan (cap {fm['cap']}, n_need {fm['n_need']}) "
+            f"exceeds the frozen profile (cap {prof.fetch_cap}, n_need "
+            f"{prof.fetch_need})")
+    for k in ("send_slot", "recv_pos"):
+        a = np.asarray(arrays[f"fetch_mir_{k}"])
+        out = np.full(a.shape[:2] + (prof.fetch_cap,), -1, a.dtype)
+        out[:, :, :a.shape[2]] = a
+        arrays[f"fetch_mir_{k}"] = out
+    meta["fetch_meta"]["mir"] = {"cap": prof.fetch_cap,
+                                 "n_need": prof.fetch_need}
+    meta["cap_hint"] = prof.cap_hint
+
+
+def reshard_arrays(pg, devices, profile: ShardProfile) -> Dict:
+    """The host tables of ``pg`` over ``devices``, padded to ``profile``
+    (what ``reshard`` writes into a resident ShardedGraph)."""
+    meta, arrays = _shard_graph(pg, devices, (), 0)
+    _apply_profile(meta, arrays, profile)
+    return arrays
+
+
+# ---------------------------------------------------------------------------
 # the device-local graph view
 # ---------------------------------------------------------------------------
 
@@ -1002,6 +1149,12 @@ class ShardedGraph:
     def w0(self) -> int:
         """Global index of this rank's first worker."""
         return self.rank * self.m_loc
+
+    def reset_counts(self) -> None:
+        """Start the per-run records (rounds, host reads) afresh."""
+        self.rounds = []
+        self.inner_rounds = []
+        self.host_reads = 0
 
     def table_bytes(self) -> int:
         """Device bytes of this rank's tables (edges, fetch and plans)."""
@@ -1420,14 +1573,16 @@ def world(M: Optional[int], devices, device) -> tuple:
 
 
 def shard(pg, devices, plan_kinds: Sequence[str] = (), device=None,
-          pipeline: bool = False, pipeline_chunks: Optional[int] = None
-          ) -> ShardedGraph:
+          pipeline: bool = False, pipeline_chunks: Optional[int] = None,
+          profile: Optional[ShardProfile] = None) -> ShardedGraph:
     """This rank's ShardedGraph of ``pg`` on ``device`` (default: the
     partition's device), with the message plans of ``plan_kinds``.  Built
-    once per (mesh, rank, device, pipeline) and cached on ``pg``; the
-    plans of a kind are added when first asked for.  On an ``(H, T)``
+    once per (mesh, rank, device, pipeline, profile) and cached on ``pg``;
+    the plans of a kind are added when first asked for.  On an ``(H, T)``
     mesh the host and column subgroups come from ``launch.mesh``.  Only
-    ``pg``'s host tables are read."""
+    ``pg``'s host tables are read.  ``profile`` pads the tables to a
+    frozen envelope (csr, 1-D mesh, no plans; ``ProfileOverflow`` when
+    they do not fit), which ``reshard`` can later refill in place."""
     device = torch.device(pg.device if device is None else device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -1435,12 +1590,14 @@ def shard(pg, devices, plan_kinds: Sequence[str] = (), device=None,
     _, hier = _normalize_devices(devices)
     nb = planlib.default_nb(device)
     chunks = _chunks_of(D, pipeline, pipeline_chunks)
-    key = ("shard", hier or D, rank, str(device), nb, chunks)
+    key = ("shard", hier or D, rank, str(device), nb, chunks, profile)
     sg = pg.plan_cache.get(key)
     t0 = time.perf_counter()
     if sg is None:
         meta, arrays = _shard_graph(pg, devices, plan_kinds, nb, pipeline,
                                     pipeline_chunks)
+        if profile is not None:
+            _apply_profile(meta, arrays, profile)
         sg = pg.plan_cache[key] = _make_sg(meta, arrays, rank, device)
         sg.build_s = time.perf_counter() - t0
     for kind in [k for k in plan_kinds if k not in sg.plans]:
@@ -1452,10 +1609,52 @@ def shard(pg, devices, plan_kinds: Sequence[str] = (), device=None,
         sg.build_s += time.perf_counter() - t0
     if hier:
         sg.group_w, sg.group_h = meshlib.graph_mesh(*hier)
-    sg.rounds = []
-    sg.inner_rounds = []
-    sg.host_reads = 0
+    sg.reset_counts()
     return sg
+
+
+def _tensors(sg: ShardedGraph):
+    """(name, tensor) of every table of a ShardedGraph built without
+    message plans, its fetch plans' included."""
+    for f in dataclasses.fields(sg):
+        v = getattr(sg, f.name)
+        if isinstance(v, torch.Tensor):
+            yield f.name, v
+    for name, fp in sorted(sg.fetch.items()):
+        for f in dataclasses.fields(fp):
+            v = getattr(fp, f.name)
+            if isinstance(v, torch.Tensor):
+                yield f"fetch_{name}.{f.name}", v
+
+
+def reshard(sg: ShardedGraph, pg, profile: ShardProfile) -> None:
+    """Write ``pg``'s tables, padded to ``profile``, into this rank's
+    resident ShardedGraph ``sg`` in place: the same tensors, shapes and
+    storage, so a step function built on ``sg`` runs on the new graph.
+    ``pg`` is a fold of the graph ``sg`` was built from, or a new
+    partition of it over the same workers; ``sg`` was built under the same
+    profile.  Raises ``ProfileOverflow`` (and leaves ``sg`` as it was)
+    when the tables outgrow the envelope."""
+    if (pg.M, pg.n_loc) != (sg.M, sg.n_loc):
+        raise ProfileOverflow(f"(M, n_loc) {(pg.M, pg.n_loc)} is not the "
+                              f"resident graph's {(sg.M, sg.n_loc)}")
+    t0 = time.perf_counter()
+    meta, arrays = _shard_graph(pg, sg.D, (), 0)
+    _apply_profile(meta, arrays, profile)
+    fresh = dict(_tensors(_make_sg(meta, arrays, sg.rank, "cpu")))
+    old = dict(_tensors(sg))
+    if sorted(fresh) != sorted(old):
+        raise ProfileOverflow(f"tables {sorted(fresh)} are not the resident "
+                              f"graph's {sorted(old)}")
+    for name, t in old.items():
+        if fresh[name].shape != t.shape or fresh[name].dtype != t.dtype:
+            raise ProfileOverflow(
+                f"{name}: {tuple(fresh[name].shape)} {fresh[name].dtype} "
+                f"does not fit the resident {tuple(t.shape)} {t.dtype}")
+    for name, t in old.items():
+        t.copy_(fresh[name])
+    sg.tau = meta["tau"]          # the cap hint and fetch sizes are frozen
+    sg.build_s += time.perf_counter() - t0
 
 
 # ---------------------------------------------------------------------------
@@ -2503,7 +2702,18 @@ def run_sharded(pg, make_step: Callable, init: Callable,
     (``inner_rounds``: those of the inter-host legs), the host seconds of
     the table builds so far and the device bytes of the tables."""
     sg = shard(pg, devices, plan_kinds, device, pipeline, pipeline_chunks)
-    st, stats, n, hist = bsp.run(make_step(sg), init(sg), max_supersteps,
+    return run_on(sg, make_step(sg), init(sg), max_supersteps,
+                  record_history, final)
+
+
+def run_on(sg: ShardedGraph, step: Callable, state, max_supersteps: int,
+           record_history: bool = False, final: Optional[Callable] = None):
+    """Run a built superstep function ``step`` (``make_step(sg)``) from
+    this rank's initial ``state`` on a resident ShardedGraph; returns what
+    ``run_sharded`` returns.  Every rank of the default group calls it
+    with the same program."""
+    sg.reset_counts()
+    st, stats, n, hist = bsp.run(step, state, max_supersteps,
                                  record_history=record_history,
                                  vote=sg.gall, reduce=sg.all_reduce)
     out = _gather_state(sg, st if final is None else final(st))

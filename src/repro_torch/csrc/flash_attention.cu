@@ -33,7 +33,8 @@
 // (0.80 ms); its bytes (q, k, v read once, out written once, 126 MB) take
 // 0.04 ms, so operations bound it.  What the design does about that:
 //   - register tiles: each thread keeps RM x 8 scores (RM = 8 rows for
-//     d <= 64, 4 for d = 128) and the matching RM x d/8 outputs in
+//     d <= 64, 4 for d = 128, 2 for d = 256) and the matching RM x d/8
+//     outputs (64 at d >= 64) in
 //     registers, so that every float it loads from shared memory feeds 4
 //     FMAs (QK^T: RM + 8 float4 loads for 32 RM FMAs; PV: RM + d/8 floats
 //     a key for RM d/8 FMAs).  The SM's 32 shared floats a clock then feed
@@ -53,7 +54,13 @@
 //     and P (BQ x 72) are 106,496 bytes at d = 64 in float32: two blocks
 //     an SM, 8 warps.  Row strides are padded so that the 8 lanes of a
 //     quarter-warp hit 8 different 16-byte bank groups (d+4 = 4 mod 32
-//     banks for K, 72 = 8 mod 32 for P's scalar stores).
+//     banks for K, 72 = 8 mod 32 for P's scalar stores).  At d = 256 the
+//     float tiles alone take 175,616 bytes (one block an SM), and two
+//     bf16 staging tiles (65,536 bytes) would pass the 232,448 a block
+//     may have: there K and V share one staging tile and take turns in
+//     it.  V(kt) still flies during S = Q K(kt)^T and the softmax, but
+//     K(kt+1) is issued only once V(kt) has been widened, and flies
+//     during P V(kt).
 // Tensor cores (wgmma in bf16 or 3xTF32) are the later step; they wait on
 // the accuracy of the path's large scores (see PERF.md).
 //
@@ -91,16 +98,20 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T, int D>
 struct Cfg {
-  static constexpr int RM = D == 128 ? 4 : 8;   // query rows a thread
+  // query rows a thread: 64 outputs a thread at d >= 64
+  static constexpr int RM = D == 256 ? 2 : D == 128 ? 4 : 8;
   static constexpr int BQ = 16 * RM;            // query rows a block
   static constexpr int DC = D / 8;              // output columns a thread
   static constexpr int LD = D + 4;              // float row stride of Q, K, V
-  static constexpr int MIN_BLOCKS = D == 128 ? 1 : 2;
+  static constexpr int MIN_BLOCKS = D >= 128 ? 1 : 2;
   static constexpr bool BF16 = sizeof(T) == 2;
+  // one bf16 staging tile that K and V take turns in (d = 256), or two
+  static constexpr bool ONE_STAGE = BF16 && D == 256;
   static constexpr int EPC = 16 / sizeof(T);    // elements in 16 bytes
   static constexpr size_t FLOATS = static_cast<size_t>(BQ) * LD
                                  + 2 * kBk * LD + static_cast<size_t>(BQ) * kLdp;
-  static constexpr size_t STAGE = BF16 ? 2 * kBk * D * sizeof(T) : 0;
+  static constexpr size_t STAGE =
+      BF16 ? (ONE_STAGE ? 1 : 2) * kBk * D * sizeof(T) : 0;
   static constexpr size_t SMEM = FLOATS * sizeof(float) + STAGE;
 };
 
@@ -196,7 +207,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Vs = Ks + kBk * LD;
   float* Ps = Vs + kBk * LD;
   T* Kst = reinterpret_cast<T*>(Ps + BQ * kLdp);
-  T* Vst = Kst + kBk * D;
+  T* Vst = C::ONE_STAGE ? Kst : Kst + kBk * D;
 
   const int bh = blockIdx.x;
   const int n_qt = gridDim.y;
@@ -281,7 +292,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();   // every reader of Ks is done
-    if (more) {
+    if (more && !C::ONE_STAGE) {
       issue_tile<T, D>(Ks, Kst, kb, k0 + kBk, Sk);
       cp_async_commit();
     }
@@ -328,13 +339,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < DC; ++jj) acc[i][jj] *= alpha;
     }
-    if (more) {
+    if (more && !C::ONE_STAGE) {
       cp_async_wait<1>();                // V(kt); K(kt+1) may fly on
     } else {
       cp_async_wait<0>();
     }
     widen_tile<T, D>(Vs, Vst);
-    __syncthreads();   // P and V(kt) visible
+    __syncthreads();   // P and V(kt) visible; the staging tile is free
+    if (more && C::ONE_STAGE) {
+      issue_tile<T, D>(Ks, Kst, kb, k0 + kBk, Sk);   // flies during P V
+      cp_async_commit();
+    }
 
     // acc += P V
 #pragma unroll 2
@@ -430,6 +445,7 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
     case 32: return launch<T, 32>(q, k, v, out, BH, Sq, Sk, n_rep, scale, causal, window, geo, stream);
     case 64: return launch<T, 64>(q, k, v, out, BH, Sq, Sk, n_rep, scale, causal, window, geo, stream);
     case 128: return launch<T, 128>(q, k, v, out, BH, Sq, Sk, n_rep, scale, causal, window, geo, stream);
+    case 256: return launch<T, 256>(q, k, v, out, BH, Sq, Sk, n_rep, scale, causal, window, geo, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -438,7 +454,7 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
 
 // q, out: device pointers of (BH, Sq, d); k, v: (BKV, Sk, d), contiguous,
 // k and v 16-byte aligned, BH = BKV * n_rep; dtype 0 = float32, 1 =
-// bfloat16; d in {16, 32, 64, 128}; 1 <= Sq <= Sk; window 0 = none; scale
+// bfloat16; d in {16, 32, 64, 128, 256}; 1 <= Sq <= Sk; window 0 = none; scale
 // is d^-1/2 rounded to float32 by the caller, as the TPU kernel's Python
 // float is; threads, q_tile, k_tile and smem_bytes are the launch shape
 // from the wrapper's launch_geometry, refused unless they are the

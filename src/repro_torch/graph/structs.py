@@ -27,8 +27,12 @@ Vertex ids are relabeled at partition time and block-partitioned:
 resolved through ``graph/partitioner.py`` (``hash``, ``edges``,
 ``edges+refine``, ``split`` and ``vertex-cut``; see that module).
 
-Streaming mutations (``EdgeDelta``/``apply_delta``/``fold_delta``) belong
-to the graph-service slice of the port and are not here yet.
+Streaming mutations (``EdgeDelta``, ``apply_delta``, ``fold_delta``): the
+graph service's edge deltas, folded into a csr partition on the host
+without a new ``partition()`` (the relabeling, ``n_loc``, ``tau`` and
+``vmask`` stay; the padded layout and ``balance="split"`` are rebuilt
+under the pinned ``perm``).  The numpy is the reference's; the folded
+partition's arrays are placed on the partition's device.
 """
 from __future__ import annotations
 
@@ -500,3 +504,321 @@ def partition(g: Graph, M: int, tau: Optional[int] = None,
         phys_log=phys_log, phys_eg_off=phys_eg, phys_all_off=phys_all,
         phys_mir_off=phys_mir, eg_pw=eg_pw, all_pw=all_pw, mir_pw=mir_pw,
         pair_counts=pair_counts, hosts=hosts), device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Streaming mutations: delta-CSR segments folded into the flat layout
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class EdgeDelta:
+    """A streaming mutation batch, in ORIGINAL vertex-id space.
+
+    ``add_*`` are appended as they are (parallel edges allowed, like the
+    base edge list); ``rem_*`` remove every stored edge matching the (src,
+    dst) pair, whatever its weight.  The vertex-id universe is fixed at
+    partition time: deltas may only reference ids < n.
+    """
+    add_src: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int64))
+    add_dst: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int64))
+    add_w: Optional[np.ndarray] = None
+    rem_src: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int64))
+    rem_dst: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int64))
+
+    def symmetrized(self) -> "EdgeDelta":
+        """Both directions of every add and removal (for graphs stored
+        symmetrized).  No dedup: don't add (u, v) and (v, u) both."""
+        w = None if self.add_w is None else np.concatenate([self.add_w] * 2)
+        return EdgeDelta(
+            add_src=np.concatenate([self.add_src, self.add_dst]),
+            add_dst=np.concatenate([self.add_dst, self.add_src]),
+            add_w=w,
+            rem_src=np.concatenate([self.rem_src, self.rem_dst]),
+            rem_dst=np.concatenate([self.rem_dst, self.rem_src]))
+
+
+def apply_delta(g: Graph, delta: EdgeDelta) -> Graph:
+    """Host reference mutation: kept edges in original order, adds
+    appended.  ``fold_delta`` on a partition of ``g`` equals
+    ``partition(apply_delta(g, delta), ..., perm=pg.perm)``."""
+    keep = np.ones(g.m, bool)
+    if len(delta.rem_src):
+        rkey = (np.asarray(delta.rem_src, np.int64) * g.n
+                + np.asarray(delta.rem_dst, np.int64))
+        keep = ~np.isin(g.src.astype(np.int64) * g.n + g.dst, rkey)
+    a_src = np.asarray(delta.add_src, np.int64)
+    a_dst = np.asarray(delta.add_dst, np.int64)
+    src = np.concatenate([g.src[keep], a_src])
+    dst = np.concatenate([g.dst[keep], a_dst])
+    if g.weight is None and delta.add_w is None:
+        return Graph(g.n, src, dst, None)
+    w_old = (g.weight if g.weight is not None
+             else np.ones(g.m, np.float32))
+    a_w = (np.asarray(delta.add_w, np.float32) if delta.add_w is not None
+           else np.ones(len(a_src), np.float32))
+    return Graph(g.n, src, dst,
+                 np.concatenate([w_old[keep], a_w]).astype(np.float32))
+
+
+def _graph_of(pg: PartitionedGraph) -> Graph:
+    """The original-id-space edge list stored in ``pg`` (csr: the exact
+    original within-worker order; padded: owner-grouped order)."""
+    h = pg.host
+    if pg.layout == "csr":
+        s_new = np.asarray(h["all_src"], np.int64)
+        d_new = np.asarray(h["all_dst"], np.int64)
+        w = np.asarray(h["all_w"], np.float32)
+    else:
+        m = h["all_mask"]
+        row = np.nonzero(m)[0]
+        s_new = row * pg.n_loc + h["all_src"][m].astype(np.int64)
+        d_new = h["all_dst"][m].astype(np.int64)
+        w = h["all_w"][m].astype(np.float32)
+    return Graph(pg.n, pg.inv_perm[s_new], pg.inv_perm[d_new], w)
+
+
+def _fold_rebuild(pg: PartitionedGraph, delta: EdgeDelta
+                  ) -> PartitionedGraph:
+    """The fold of the padded layout and of ``balance="split"`` (whose
+    physical shard bounds are a global function of the loads): the mutated
+    edge list re-partitioned under the PINNED perm."""
+    g2 = apply_delta(_graph_of(pg), delta)
+    return partition(g2, pg.M, tau=pg.tau, layout=pg.layout,
+                     balance=pg.balance, split_factor=pg.split_factor,
+                     hosts=pg.hosts, perm=pg.perm, device=pg.device)
+
+
+def fold_delta(pg: PartitionedGraph, delta: EdgeDelta) -> PartitionedGraph:
+    """Fold a streaming edge delta into the flat csr layout WITHOUT
+    re-running ``partition()`` (``repro.graph.structs.fold_delta``, array
+    for array): the relabeling, ``n_loc``, ``tau`` and ``vmask`` stay;
+    removals are mask-compacted in place and adds appended to each owner's
+    segment (where a fresh stable owner sort puts them); Ch_msg is
+    recompacted by the new mirrored mask; the mirror csr merges its kept,
+    already sorted edges with the sorted pool of incoming ones; the
+    Theorem-1 counts are recomputed only for touched sources; and
+    ``pair_counts`` stays a monotone UPPER bound (added pairs count,
+    removals never decrement; a fresh ``partition()`` re-tightens it).
+    The padded layout and ``balance="split"`` take ``_fold_rebuild``.
+    """
+    if pg.layout != "csr" or pg.balance == "split":
+        return _fold_rebuild(pg, delta)
+    h = pg.host
+    M, n_loc = pg.M, pg.n_loc
+    n_ids = M * n_loc
+    perm = pg.perm
+    tau_eff = pg.tau
+
+    a_src = perm[np.asarray(delta.add_src, np.int64)]
+    a_dst = perm[np.asarray(delta.add_dst, np.int64)]
+    a_w = (np.asarray(delta.add_w, np.float32)
+           if delta.add_w is not None
+           else np.ones(len(a_src), np.float32))
+    rkey = None
+    if len(delta.rem_src):
+        rkey = np.unique(perm[np.asarray(delta.rem_src, np.int64)]
+                         * n_ids
+                         + perm[np.asarray(delta.rem_dst, np.int64)])
+        # endpoint tables + hashed-key bitmap prefilter: the exact
+        # (sorted-rkey) probe only runs on edges sharing BOTH endpoints
+        # with some removal
+        t_src = np.zeros(n_ids, bool)
+        t_dst = np.zeros(n_ids, bool)
+        t_src[(rkey // n_ids)] = True
+        t_dst[(rkey % n_ids)] = True
+        _hb = np.uint64(64 - 22)            # 4M-entry bitmap
+        h_mul = np.uint64(0x9E3779B97F4A7C15)
+        h_bit = np.zeros(1 << 22, bool)
+        h_bit[((rkey.astype(np.uint64) * h_mul)
+               >> _hb).astype(np.int64)] = True
+
+    def _removed(s, d):
+        """Indices into (s, d) of edges matching a removal key."""
+        if rkey is None or not len(s):
+            return np.zeros(0, np.int64)
+        c1 = np.flatnonzero(t_src[s])
+        ci = c1[t_dst[d[c1]]]
+        ck = s[ci].astype(np.int64) * n_ids + d[ci]
+        hh = h_bit[((ck.astype(np.uint64) * h_mul)
+                    >> _hb).astype(np.int64)]
+        ci, ck = ci[hh], ck[hh]
+        p = np.searchsorted(rkey, ck)
+        p[p == len(rkey)] = 0           # ck > rkey[-1] there: no match
+        return ci[rkey[p] == ck]
+
+    all_src, all_dst, all_w = h["all_src"], h["all_dst"], h["all_w"]
+    all_off = np.asarray(pg.all_off, np.int64)
+    rem_idx = _removed(all_src, all_dst)
+    keep = np.ones(len(all_src), bool)
+    keep[rem_idx] = False
+
+    deg_old = np.asarray(h["deg"], np.int64).reshape(-1)
+    deg_new = (deg_old
+               - np.bincount(all_src[rem_idx], minlength=n_ids)
+               + np.bincount(a_src, minlength=n_ids))
+
+    # ---- merged full adjacency: kept edges compact in place, adds
+    #      counting-sorted by owner and appended per owner segment ------
+    rem_owner = np.searchsorted(all_off, rem_idx, side="right") - 1
+    a_owner = a_src // n_loc
+    ao = np.argsort(a_owner, kind="stable")
+    a_src, a_dst, a_w, a_owner = a_src[ao], a_dst[ao], a_w[ao], a_owner[ao]
+    kept_cnt = np.diff(all_off) - np.bincount(rem_owner, minlength=M)
+    add_cnt = np.bincount(a_owner, minlength=M)
+    ad_off = np.concatenate([[0], np.cumsum(add_cnt)]).astype(np.int64)
+    new_off = np.concatenate(
+        [[0], np.cumsum(kept_cnt + add_cnt)]).astype(np.int64)
+    e_new = int(new_off[-1])
+    a_src32 = a_src.astype(np.int32)
+    a_dst32 = a_dst.astype(np.int32)
+    no_rem = not len(rem_idx)
+
+    def _merge(vals, add, dtype):
+        # [kept_0, add_0, kept_1, add_1, ...]: exactly where a fresh
+        # stable owner-sort of [kept..., adds...] lands them
+        out = np.empty(e_new, dtype)
+        for w_ in range(M):
+            o, kk = new_off[w_], kept_cnt[w_]
+            sl = slice(all_off[w_], all_off[w_ + 1])
+            out[o:o + kk] = vals[sl] if no_rem else vals[sl][keep[sl]]
+            out[o + kk:new_off[w_ + 1]] = add[ad_off[w_]:ad_off[w_ + 1]]
+        return out
+
+    na_src = _merge(all_src, a_src32, np.int32)
+    na_dst = _merge(all_dst, a_dst32, np.int32)
+    na_w = _merge(all_w, a_w, np.float32)
+
+    # ---- pair_counts: monotone upper bound on the caps -----------------
+    pair_counts = pg.pair_counts.copy()
+    if len(a_src):
+        akey = np.unique(a_owner * np.int64(n_ids) + a_dst)
+        np.add.at(pair_counts,
+                  ((akey // n_ids).astype(np.int64),
+                   ((akey % n_ids) // n_loc).astype(np.int64)), 1)
+
+    common = dict(
+        n=pg.n, M=M, n_loc=n_loc, tau=tau_eff, perm=perm,
+        inv_perm=pg.inv_perm, all_src=na_src, all_dst=na_dst,
+        all_mask=np.ones(e_new, bool), all_w=na_w,
+        deg=deg_new.astype(np.int32).reshape(M, n_loc), vmask=h["vmask"],
+        layout="csr", all_off=new_off, balance=pg.balance,
+        split_factor=pg.split_factor, M_phys=M, phys_log=None,
+        phys_eg_off=None, phys_all_off=None, phys_mir_off=None, eg_pw=None,
+        all_pw=None, mir_pw=None, pair_counts=pair_counts, hosts=pg.hosts)
+
+    if int(deg_old.max()) < tau_eff and int(deg_new.max()) < tau_eff:
+        # no vertex is mirrored before or after the fold: Ch_msg IS the
+        # full adjacency (one set of tensors, as the reference aliases
+        # them) and every mirror field is the empty sentinel pg carries
+        out = from_numpy(dict(
+            common, eg_src=na_src, eg_dst=na_dst, eg_mask=common["all_mask"],
+            eg_w=na_w, eg_off=new_off, mir_eoff=pg.mir_eoff,
+            **{k: h[k] for k in ("mir_ids", "mir_slot_of", "mir_nworkers",
+                                 "mir_esrc", "mir_edst", "mir_emask",
+                                 "mir_ew")}), device=pg.device)
+        for k in ("src", "dst", "mask", "w"):
+            setattr(out, f"eg_{k}", getattr(out, f"all_{k}"))
+            out.host[f"eg_{k}"] = out.host[f"all_{k}"]
+        return out
+
+    mirrored_old = deg_old >= tau_eff
+    mirrored_new = deg_new >= tau_eff
+    flip_up = mirrored_new & ~mirrored_old
+
+    # ---- Ch_msg: recompact from the merged adjacency -------------------
+    lo_e = ~mirrored_new[na_src]
+    eg_off_n = np.concatenate(
+        [[0], np.cumsum(np.bincount((na_src // n_loc)[lo_e],
+                                    minlength=M))]).astype(np.int64)
+
+    # ---- mirror csr: merge kept (already sorted) with the pool ---------
+    mir_ids_old = np.asarray(h["mir_ids"], np.int64)
+    m_esrc_old = np.asarray(h["mir_esrc"], np.int64)
+    m_gsrc_old = (mir_ids_old[m_esrc_old] if len(m_esrc_old)
+                  else np.zeros(0, np.int64))
+    m_gdst_old = np.asarray(h["mir_edst"], np.int64)
+    m_w_old = np.asarray(h["mir_ew"], np.float32)
+    rem_mir = np.zeros(len(m_gsrc_old), bool)
+    rem_mir[_removed(m_gsrc_old, m_gdst_old)] = True
+    flip_dn_src = mirrored_old & ~mirrored_new
+    keep_mir = ~rem_mir & ~flip_dn_src[m_gsrc_old]
+
+    eg_src_old = np.asarray(h["eg_src"], np.int64)
+    eg_dst_old = np.asarray(h["eg_dst"], np.int64)
+    eg_w_old = np.asarray(h["eg_w"], np.float32)
+    # removal membership only matters on the few flipped-up sources
+    fu_idx = np.flatnonzero(flip_up[eg_src_old])
+    fu_keep = np.ones(len(fu_idx), bool)
+    fu_keep[_removed(eg_src_old[fu_idx], eg_dst_old[fu_idx])] = False
+    up_idx = fu_idx[fu_keep]
+    a_hi = mirrored_new[a_src]
+    p_gsrc = np.concatenate([eg_src_old[up_idx], a_src[a_hi]])
+    p_gdst = np.concatenate([eg_dst_old[up_idx], a_dst[a_hi]])
+    p_w = np.concatenate([eg_w_old[up_idx], a_w[a_hi]]).astype(np.float32)
+    # pool sorted by the mirror key (dst worker, src, dst); lexsort is
+    # stable so old-before-add tie order (= fresh partition order) holds
+    porder = np.lexsort((p_gdst, p_gsrc, p_gdst // n_loc))
+    p_gsrc, p_gdst, p_w = p_gsrc[porder], p_gdst[porder], p_w[porder]
+
+    def _mkey(s, d):
+        # composite (dst_worker, src, dst) key; fits int64 while
+        # M * n_ids^2 < 2^63
+        return (d // n_loc) * (n_ids * n_ids) + s * n_ids + d
+
+    kk = _mkey(m_gsrc_old[keep_mir], m_gdst_old[keep_mir])
+    pk = _mkey(p_gsrc, p_gdst)
+    n_k, n_p = len(kk), len(pk)
+    pos_kept = (np.arange(n_k, dtype=np.int64)
+                + np.searchsorted(pk, kk, side="left"))
+    pos_pool = (np.arange(n_p, dtype=np.int64)
+                + np.searchsorted(kk, pk, side="right"))
+    m_gsrc = np.empty(n_k + n_p, np.int64)
+    m_gdst = np.empty(n_k + n_p, np.int64)
+    m_w = np.empty(n_k + n_p, np.float32)
+    m_gsrc[pos_kept], m_gsrc[pos_pool] = m_gsrc_old[keep_mir], p_gsrc
+    m_gdst[pos_kept], m_gdst[pos_pool] = m_gdst_old[keep_mir], p_gdst
+    m_w[pos_kept], m_w[pos_pool] = m_w_old[keep_mir], p_w
+    m_downer = m_gdst // n_loc
+    hb_n = np.searchsorted(m_downer, np.arange(M + 1)).astype(np.int64)
+
+    mir_vertex_ids = np.flatnonzero(mirrored_new)
+    n_mir = max(len(mir_vertex_ids), 1)
+    mir_idx = np.full(n_ids, -1, np.int64)
+    mir_idx[mir_vertex_ids] = np.arange(len(mir_vertex_ids))
+    mir_ids_arr = np.full(n_mir, n_ids, np.int32)
+    mir_ids_arr[:len(mir_vertex_ids)] = mir_vertex_ids
+
+    # ---- Theorem-1 mirror counts: copy untouched, recount touched ------
+    touched = np.zeros(n_ids, bool)
+    touched[m_gsrc_old[rem_mir]] = True
+    touched[p_gsrc] = True
+    nworkers = np.zeros(n_mir, np.int64)
+    keep_ids = np.flatnonzero(mirrored_old & mirrored_new & ~touched)
+    if len(keep_ids):
+        old_slot = np.asarray(h["mir_slot_of"], np.int64).reshape(-1)
+        nworkers[mir_idx[keep_ids]] = np.asarray(
+            h["mir_nworkers"], np.int64)[old_slot[keep_ids]]
+    am = touched[m_gsrc]
+    if am.any():
+        pair = np.unique(m_gsrc[am] * np.int64(M) + m_downer[am])
+        cnt = np.bincount((pair // M).astype(np.int64), minlength=n_ids)
+        aff = np.flatnonzero(touched & mirrored_new)
+        nworkers[mir_idx[aff]] = cnt[aff]
+
+    # the reference's device arrays are 32-bit, so the counts cross as
+    # int32, as in partition()
+    return from_numpy(dict(
+        common,
+        eg_src=na_src[lo_e], eg_dst=na_dst[lo_e],
+        eg_mask=np.ones(int(lo_e.sum()), bool), eg_w=na_w[lo_e],
+        eg_off=eg_off_n, mir_eoff=hb_n,
+        mir_ids=mir_ids_arr,
+        mir_slot_of=mir_idx.astype(np.int32).reshape(M, n_loc),
+        mir_nworkers=nworkers.astype(np.int32),
+        mir_esrc=mir_idx[m_gsrc].astype(np.int32),
+        mir_edst=m_gdst.astype(np.int32),
+        mir_emask=np.ones(n_k + n_p, bool), mir_ew=m_w), device=pg.device)

@@ -28,7 +28,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 SOURCE = _build.CSRC / "flash_attention.cu"
 LIB_NAME = "flash_attention"
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launch geometry; flash_attention.cu refuses a launch shape that is not its
@@ -58,20 +58,30 @@ class Geometry:
 def launch_geometry(d: int, dtype: torch.dtype = torch.float32, BH: int = 1,
                     Sq: int = 1) -> Geometry:
     """The kernel's geometry for head dim ``d`` and ``dtype``: 8 query rows
-    a thread (4 at d = 128), 8 scores of each 64-key tile a thread; shared
-    memory holds Q, one K and one V tile (rows padded to d + 4 floats), the
-    probability tile (rows of 72 floats) and, for bfloat16, the two staging
-    tiles that the 16-byte copies land in."""
+    a thread (4 at d = 128, 2 at d = 256, so that a thread keeps 64
+    outputs), 8 scores of each 64-key tile a thread; shared memory holds Q,
+    one K and one V tile (rows padded to d + 4 floats), the probability
+    tile (rows of 72 floats) and, for bfloat16, the staging tiles that the
+    16-byte copies land in: two (K and V in flight together), or one at
+    d = 256, where two would pass ``SMEM_MAX`` and the K and V copies take
+    turns in it."""
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if dtype not in _DTYPES:
         raise TypeError(f"dtype {dtype} not in {tuple(_DTYPES)}")
-    rows = 4 if d == 128 else 8
+    rows = {128: 4, 256: 2}.get(d, 8)
     q_tile = 16 * rows
     floats = q_tile * (d + 4) + 2 * K_TILE * (d + 4) + q_tile * P_STRIDE
-    stage = 2 * K_TILE * d * 2 if dtype == torch.bfloat16 else 0
+    stage = (staging_tiles(d) * K_TILE * d * 2
+             if dtype == torch.bfloat16 else 0)
     return Geometry(THREADS, rows, q_tile, K_TILE, 4 * floats + stage,
-                    1 if d == 128 else 2, (BH, -(-Sq // q_tile)))
+                    1 if d >= 128 else 2, (BH, -(-Sq // q_tile)))
+
+
+def staging_tiles(d: int) -> int:
+    """bfloat16 staging tiles of the kernel at head dim ``d``: one at
+    d = 256 (shared by the K and V copies), else two."""
+    return 1 if d == 256 else 2
 
 
 def build_library() -> dict:

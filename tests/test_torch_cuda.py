@@ -4,8 +4,10 @@ their plain PyTorch versions, and the main paths at a small size (the
 algorithms, the request-respond ones among them, and GCN training with the
 kernels against the dense backend and the CPU, Hash-Min and S-V on the
 sharded executor over an NCCL group of size 1 (the 1-D mesh, the (1, 1)
-mesh, the pipeline and a split partition), a hybrid model's prefill
-and decode with the kernels against the plain path).
+mesh, the pipeline and a split partition), the resident graph service
+over such a group against the same service on the CPU, a hybrid model's
+and a head-dim-256 Gemma-3 model's prefill and decode with the kernels
+against the plain path).
 
 Every test here carries the ``cuda`` marker and skips without a GPU.  The
 file imports no JAX, so it runs on a machine with a card and PyTorch only:
@@ -441,6 +443,67 @@ def test_sharded_on_one_card_over_nccl(cuda, algo):
     assert b.sharded["host_reads"] >= b.n_supersteps
 
 
+def test_graph_service_on_one_card_over_nccl(cuda):
+    """The resident graph service on the card (an in-process NCCL group of
+    world size 1, n=3000): a mixed batch, a 2% churn fold and the batch
+    again equal the same service on the CPU (a gloo group) answer for
+    answer (SSSP and ego bitwise, PPR within 1e-5 of its max: float sums
+    in another order), with the same statistics; the executor counter
+    stays flat and the card tables keep their storage across the fold."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.api import EngineConfig
+    from repro_torch.core import exec as texec
+    from repro_torch.core.service import GraphClient, GraphService, Query
+    from repro_torch.launch.serve_graph import churn_delta, mixed_batch
+    g = tgen.powerlaw(3000, avg_deg=8, seed=1, weighted=True).symmetrized()
+    batch = mixed_batch(g.n, 24, 0)
+    delta = churn_delta(g, 0.02, 0)
+    out = {}
+    for backend, dev in (("gloo", "cpu"), ("nccl", cuda)):
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1,
+                                timeout=datetime.timedelta(seconds=120))
+        try:
+            svc = GraphService(g, M=8, config=EngineConfig(
+                layout="csr", balance="edges", devices=1),
+                buckets=(4, 16), ppr_iters=10, device=dev)
+            svc.warmup()
+            traces = svc.traces
+            ptrs = {k: t.data_ptr() for k, t in texec._tensors(svc.sg)}
+            client = GraphClient(svc)
+            pre = client.request(batch)
+            pre_stats = svc.last_batch["stats"]
+            svc.mutate(delta)
+            post = client.request([Query("sssp", 17)] + batch)
+            torch.cuda.synchronize()
+            assert svc.traces == traces and svc.epoch == 1
+            assert ptrs == {k: t.data_ptr()
+                            for k, t in texec._tensors(svc.sg)}
+            assert all(t.device.type == torch.device(dev).type
+                       for _, t in texec._tensors(svc.sg))
+            out[backend] = (pre, pre_stats, post, svc.last_batch["stats"])
+        finally:
+            dist.destroy_process_group()
+    (a0, sa0, a1, sa1), (b0, sb0, b1, sb1) = out["gloo"], out["nccl"]
+    for want, got in ((a0, b0), (a1, b1)):
+        for x, y in zip(want, got):
+            assert (x.query, x.epoch, x.cached) == (y.query, y.epoch,
+                                                    y.cached)
+            if x.query.kind == "ppr":
+                assert float(np.abs(y.value - x.value).max()) <= (
+                    1e-5 * float(np.abs(x.value).max()))
+            elif x.query.kind == "sssp":
+                np.testing.assert_array_equal(y.value, x.value)
+            else:
+                assert y.value == x.value
+    for want, got in ((sa0, sb0), (sa1, sb1)):
+        assert sorted(want) == sorted(got)
+        for k in want:
+            np.testing.assert_array_equal(np.asarray(got[k]),
+                                          np.asarray(want[k]))
+
+
 @pytest.mark.parametrize("mode", ["mesh", "pipeline", "split"])
 @pytest.mark.parametrize("algo", ["hashmin", "sv"])
 def test_mesh_pipeline_split_on_one_card_over_nccl(cuda, algo, mode,
@@ -624,6 +687,35 @@ def test_flash_kernel_bf16(cuda):
                                window=64)
     assert got.dtype == torch.bfloat16
     assert float((got.float() - want).abs().max()) < 2e-2
+
+
+@pytest.mark.parametrize("S", [31, 64, 100, 257])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_rep", [1, 2])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 16),
+                                           (False, 0), (False, 100)])
+def test_flash_kernel_at_head_dim_256(cuda, S, dtype, n_rep, causal, window):
+    """d=256 (Gemma-3's heads: 32-query tiles, and in bfloat16 one staging
+    tile that the K and V copies take turns in) against the float64 plain
+    version on the same inputs: float32 within 1e-5 of max|v|, bfloat16
+    within 2e-2, as at the other head dims."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    gen = torch.Generator(cuda).manual_seed(S + n_rep + window)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in [(2 * n_rep, S, 256), (2, S, 256), (2, S, 256)])
+    before = fk.flash_attention_bhsd.launches
+    got = fk.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fk.flash_attention_bhsd.launches == before + 1
+    assert got.dtype == dtype
+    want = flash_attention_ref(q.double(), k.double(), v.double(),
+                               causal=causal, window=window)
+    err = float((got.double() - want).abs().max())
+    if dtype == torch.float32:
+        assert err <= 1e-5 * float(v.abs().max())
+    else:
+        assert err < 2e-2
 
 
 @pytest.mark.parametrize("S", [128, 200, 300])
@@ -847,6 +939,39 @@ def test_lm_kernels_reject_what_they_do_not_take(cuda):
         sk.launch(x, dt, A, big, big, chunk=128)
     with pytest.raises(ValueError, match="chunk"):
         sk.launch(x, dt, A, B, B, chunk=256)
+
+
+def test_gemma3_model_kernels_against_plain(cuda):
+    """A small Gemma-3 (head dim 256, tied embeddings; window, global and
+    window layers; a prompt longer than the window): prefill through the
+    flash kernel (one launch a layer) against the plain path, then four
+    decode steps, each within 1e-4 of max|logit|."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.transformer import ModelContext
+    cfg = dataclasses.replace(get_config("gemma3_4b").reduced(), n_layers=4,
+                              global_every=3, vocab=250, head_dim=256)
+    params = zoo.init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (2, 41)).astype(np.int32)).to(cuda)
+    out, fed = {}, []
+    for mode in ("ref", "auto"):
+        ctx = ModelContext(q_chunk=64, kernels=mode)
+        before = fk.flash_attention_bhsd.launches
+        logits, cache = zoo.prefill(params, cfg, ctx, toks, max_len=45)
+        assert fk.flash_attention_bhsd.launches - before == (
+            4 if mode == "auto" else 0)
+        steps = [logits]
+        for i in range(4):
+            if mode == "ref":
+                fed.append(zoo.greedy(logits))
+            logits, cache = zoo.decode_step(params, cfg, ctx, fed[i], cache)
+            steps.append(logits)
+        out[mode] = torch.stack(steps)[..., :cfg.vocab]
+    scale = float(out["ref"].abs().max())
+    assert float((out["auto"] - out["ref"]).abs().max()) <= 1e-4 * scale
 
 
 def test_hybrid_model_kernels_against_plain(cuda):

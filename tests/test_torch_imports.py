@@ -15,12 +15,13 @@ torch = pytest.importorskip("torch")
 from repro_torch import api as tapi  # noqa: E402
 from repro_torch.graph import generators as tgen  # noqa: E402
 from repro_torch.graph import structs as tstructs  # noqa: E402
-from repro_torch.launch import graph_run, serve_model  # noqa: E402
+from repro_torch.core import service as tservice  # noqa: E402
+from repro_torch.launch import graph_run, serve_graph, serve_model  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + sorted(
-        (ROOT / "tests").glob("_torch_sharded*worker.py")) + sorted(
+        (ROOT / "tests").glob("_torch_*worker.py")) + sorted(
             (ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -124,6 +125,20 @@ def test_serve_model_defaults_to_cuda_and_raises_without_it(no_cuda, capsys):
                       "--prompt-len", "8", "--gen", "2", "--device", "cpu"])
     assert "[serve] hymba_1_5b: batch=2 prompt=8 gen=2" in (
         capsys.readouterr().out)
+
+
+def test_serve_graph_defaults_to_cuda_and_raises_without_it(no_cuda):
+    g = tgen.powerlaw(60, seed=0).symmetrized()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tservice.GraphService(g, M=2)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        serve_graph.main(["--n", "60", "--workers", "2"])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        serve_graph.main(["--n", "60", "--workers", "2", "--devices", "2"])
+    args = serve_graph.build_parser().parse_args([])
+    assert (args.device, args.devices, args.n, args.workers, args.batch,
+            args.buckets, args.churn, args.ppr_iters) == (
+                "cuda", 1, 200_000, 32, 64, [4, 16, 64], 0.01, 20)
 
 
 def _run_chip_smoke(cwd: Path):

@@ -1,8 +1,9 @@
 """The port's model-serving slice against the JAX package, whole: weights
 carried across with ``params_from_reference``, prefill logits and every
 cache leaf, then four greedy decode steps, on reduced hybrid (hymba: a
-window, a global and a window stage), dense (tinyllama) and ssm (mamba2)
-configs, at a prompt that is a chunk multiple (40) and one that is not
+window, a global and a window stage), dense (tinyllama; and gemma3 at head
+dim 256, the flash kernel's largest, with tied embeddings, in the same
+window, global and window stages) and ssm (mamba2) configs, at a prompt that is a chunk multiple (40) and one that is not
 (41).  Also the embedding lookups, the init recipe and the serving CLI.
 
 Tolerances.  A single layer of the port agrees with the reference to
@@ -38,6 +39,8 @@ from repro_torch.models.transformer import ModelContext as TCtx  # noqa: E402
 CONFIGS = {
     "hybrid": ("hymba_1_5b", dict(n_layers=4, global_every=3, vocab=250)),
     "dense": ("tinyllama_1_1b", dict(vocab=250)),
+    "gemma3": ("gemma3_4b", dict(n_layers=4, global_every=3, head_dim=256,
+                                 vocab=250)),
     "ssm": ("mamba2_1_3b", dict(vocab=250)),
 }
 B, GEN = 2, 4
@@ -117,7 +120,7 @@ def _check_cache(tc, jc):
 
 
 @pytest.mark.parametrize("S", [40, 41])
-@pytest.mark.parametrize("kind", ["hybrid", "dense", "ssm"])
+@pytest.mark.parametrize("kind", ["hybrid", "dense", "gemma3", "ssm"])
 @pytest.mark.parametrize("mode", ["auto", "kernel"])
 def test_prefill_and_decode_match_jax(kind, S, mode):
     """On the CPU, "auto" takes the reference's plain choices and "kernel"
@@ -224,7 +227,7 @@ def test_serve_model_runs_on_the_cpu(capsys):
     assert "[serve] sample generations (token ids):" in out
 
 
-@pytest.mark.parametrize("kind", ["hybrid", "dense", "ssm"])
+@pytest.mark.parametrize("kind", ["hybrid", "dense", "gemma3", "ssm"])
 def test_build_cache_matches_jax_layout(kind):
     jcfg, tcfg = _cfgs(kind)
     want = jzoo.build_cache(jcfg, 3, 24, JCtx(mesh=None))

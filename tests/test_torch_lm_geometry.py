@@ -2,7 +2,8 @@
 card's limits.
 
 ``launch_geometry`` of each wrapper is plain Python, so it is checked here
-on the CPU: flash for every head dim in {16, 32, 64, 128} and both types,
+on the CPU: flash for every head dim in {16, 32, 64, 128, 256} and both
+types,
 the SSD passes for every P and N in [1, 128] and every chunk in [1, 128].
 Shared memory stays within the 232,448 bytes a block may opt in to, a
 block within 1024 threads, the grids within their axes' limits, and the
@@ -32,7 +33,9 @@ def test_flash_geometry_within_the_card_limits(d, dtype):
     geo = fk.launch_geometry(d, dtype)
     assert geo.threads == fk.THREADS <= 1024 and geo.threads % 32 == 0
     assert geo.q_tile == 16 * geo.rows and geo.k_tile == fk.K_TILE
-    assert geo.rows == (4 if d == 128 else 8)
+    assert geo.rows == {128: 4, 256: 2}.get(d, 8)
+    # 64 outputs a thread from d = 64 on: rows x d/8
+    assert geo.rows * d // 8 == min(64, 8 * d // 8)
     # each thread's scores: rows x 8 of the 64-key tile
     assert (geo.threads // 8) * geo.rows == geo.q_tile
     assert 8 * 8 == geo.k_tile
@@ -40,7 +43,7 @@ def test_flash_geometry_within_the_card_limits(d, dtype):
     # Q, one K and one V tile and the probability tile, all float32
     assert geo.smem_bytes >= 4 * (geo.q_tile + 2 * geo.k_tile) * d
     assert geo.smem_bytes % 16 == 0
-    assert geo.min_blocks == (1 if d == 128 else 2)
+    assert geo.min_blocks == (1 if d >= 128 else 2)
     if dtype == torch.float32:
         # the float32 path holds the blocks its launch bounds ask for
         assert _fits(geo.smem_bytes, geo.min_blocks)
@@ -54,7 +57,7 @@ def test_flash_grid_within_its_limits(BH, Sq, d):
     bh, tiles = geo.grid
     assert bh == BH and 1 <= bh <= 2 ** 31 - 1
     assert tiles == -(-Sq // geo.q_tile) and tiles * geo.q_tile >= Sq
-    if d != 128:
+    if d < 128:
         assert tiles <= fk.MAX_Q_TILES
 
 
@@ -68,12 +71,31 @@ def test_flash_main_path_geometry():
 
 
 def test_flash_geometry_refuses_what_the_kernel_does_not_take():
-    for d in (0, 8, 48, 96, 256):
+    for d in (0, 8, 48, 96, 512):
         with pytest.raises(ValueError, match="head dim"):
             fk.launch_geometry(d)
     for dtype in (torch.float16, torch.float64):
         with pytest.raises(TypeError):
             fk.launch_geometry(64, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_geometry_at_head_dim_256(dtype):
+    """Gemma-3-4B's prefill: 32 (batch, head) rows of 2048 queries at
+    d=256: 64 query tiles of 32 (2 rows a thread), one block an SM.  The
+    float tiles take 43,904 floats; bfloat16 adds ONE staging tile of 64
+    keys, since a second would pass the 232,448 bytes a block may have."""
+    geo = fk.launch_geometry(256, dtype, 32, 2048)
+    assert geo.grid == (32, 64) and geo.q_tile == 32 and geo.rows == 2
+    floats = 32 * 260 + 2 * 64 * 260 + 32 * 72
+    assert floats == 43904
+    stage = 64 * 256 * 2 if dtype == torch.bfloat16 else 0
+    assert geo.smem_bytes == 4 * floats + stage
+    assert geo.smem_bytes == (208384 if stage else 175616) <= fk.SMEM_MAX
+    assert 4 * floats + 2 * stage > fk.SMEM_MAX or not stage
+    assert fk.staging_tiles(256) == 1 and fk.staging_tiles(128) == 2
+    assert geo.min_blocks == 1
+    assert _fits(geo.smem_bytes, 1) and not _fits(geo.smem_bytes, 2)
 
 
 @pytest.mark.parametrize("p_lo", range(1, sk.MAX_PN + 1, 16))
