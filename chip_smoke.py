@@ -189,9 +189,45 @@ Phases; any failure exits non-zero and prints no result:
    batch ms (host, and device by CUDA events) and supersteps, ms a
    query, ``fold_delta`` against ``partition(apply_delta(...))`` on the
    host, the epoch barrier's seconds, peak device memory; ``[profile]
-   service``: one more batch by op.  Then the same client program on two
-   spawned ranks (gloo on cuda:0 on a one-card machine, NCCL with a card
-   a rank on two) must give world size 1's answers and statistics.
+   service``: one more batch by op.  Then two more programs, each on a
+   new service (bucket 4, PPR 6 iterations): the elastic repartition
+   (``rebalance_threshold`` 1.0, a batch, a 5% churn fold, a batch) and
+   the profile overflow (``profile_slack`` 1.01, a fold that doubles the
+   edge count, a batch); every answer against the oracles, the
+   repartition on the first batch with no executor rebuilt, the overflow
+   freezing a new profile and rebuilding two.  Then the same client
+   program and the two programs on two spawned ranks (gloo on cuda:0 on
+   a one-card machine, NCCL with a card a rank on two) must give world
+   size 1's answers and statistics, repartition counts, executors and
+   epochs.
+Phases 10 and 11 run in processes of their own beside phase 3's host
+set-up (graph build and partition), started once the kernels are built
+and waited for before phase 3's first timed run.
+
+10. ``python -m repro_torch.launch.shard_check --suite tier1``
+   on the card: 40 parity cells (n=180, M=8) over 8 ranks (gloo on cuda:0
+   on a one-card machine, NCCL with a card a rank on eight) and 2 ranks,
+   and the collective gates (an all-to-all over 8 ranks; no all-reduce
+   or all-gather operand of n_pad elements in the four gated programs;
+   groups of 4 and 2 on the (2, 4) mesh, for gSpMM at F=4 and F=1;
+   masked lanes; per-level caps); each gate must reject its control, and
+   rank 0 of the 8-rank world must launch both kernels.  Prints each
+   program's worst operand against n_pad, its all-to-all group sizes and
+   its peak device bytes.
+11. ``python -m repro_torch.launch.dist_smoke --hosts 2 --per-host 2`` at
+   n=PARITY_N, M=8 over the launchers' TCP store (``--port 0``): four
+   ranks (gloo on cuda:0 on a one-card machine) must print parity OK
+   against their one-device Hash-Min and the launcher exit 0; prints the
+   ranks' rendezvous seconds and the wall seconds.
+12. (after phase 4's sharded GCN) the preemption drill: phase 4's GCN
+   killed after epoch ``DRILL_KILL`` of 4, saved to a fresh temporary
+   directory (``train/checkpoint.py``), the state dropped, restored by
+   ``restore_or_init`` and trained on.  Gates: the restored state bitwise
+   equal to the saved; the loss curve within the reference drill's rtol
+   2e-4, atol 1e-5 of phase 4's straight run; each trained leaf within
+   PARAM_RTOL of the straight run's change; the vector launches of phase
+   4's run.  Prints save and restore ms and the bytes on disk, and the
+   params' element-wise distance beside phase 4's replay's.
 
 One JSON line ``{"kernels": [...]}`` with all four kernels (the scalar
 kernel's entry carries ``sharded``: phase 3b's launches, each mode's, the
@@ -199,7 +235,10 @@ replays' times and the static balance figures; the vector kernel's the
 sharded GCN's launches, ms an epoch and peak memory by mode, and phase
 3c's GCN runs; the flash entry's ``launches`` counts both models'
 prefills, ``launches_by_model`` each, and its sums the Hymba prefill's
-timed launches, ``timed`` says so), then the last line
+timed launches, ``timed`` says so; the scalar entry's ``launches`` also
+counts rank 0's launches in phases 10 and 11 and the vector entry's those
+of phase 10's rank 0 and of the drill, each listed under its own key),
+then the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -333,6 +372,17 @@ GCN_LOSS_RTOL, GCN_LOSS_ATOL = 2e-4, 2e-5
 # between a sharded and a one-device run.  The control (one vector
 # combine of the run dropped) must read above the limit.
 PARAM_RTOL = 5e-3
+# Phase 10: shard_check's gates that must hold, and its deadline
+SHARD_CHECK_GATES = ("all_to_all", "routed_memory", "masked_lanes_ok",
+                     "hier_levels", "hier_caps_ok", "gspmm_hier",
+                     "gspmm_hier_f1")
+SHARD_CHECK_TIMEOUT_S = 600
+DIST_SMOKE_TIMEOUT_S = 300
+# Phase 12: the drill kills the GCN after this many of its GCN_EPOCHS;
+# the loss curve is held to the reference drill's tolerance
+# (tests/test_checkpoint_fault.py)
+DRILL_KILL = 2
+DRILL_RTOL, DRILL_ATOL = 2e-4, 1e-5
 
 
 def fail(msg: str) -> None:
@@ -834,7 +884,9 @@ def profile_run(torch, fn, name: str, top: int = 12,
             f"({100 * e.self_device_time_total / kernels_us:5.1f}%)")
 
 
-def main_path(torch, np, mods, args, dev, phases):
+def main_path(torch, np, mods, args, dev, phases, ready=None):
+    """Phase 3; ``ready()`` runs once the host set-up (graph, partition)
+    is done, before any timed device work."""
     api, structs, gen, cost_model, planlib, kernel = mods
     from repro_torch.train.gcn import normalize_adjacency
     g = phases.run("graph", lambda: normalize_adjacency(gen.powerlaw(
@@ -847,6 +899,8 @@ def main_path(torch, np, mods, args, dev, phases):
                      device=dev)
     pg = phases.run("partition", eng.partition, g, M, tau=tau,
                     seed=args.seed)
+    if ready is not None:
+        phases.run("launchers-wait", ready)
 
     def plans():
         out = {}
@@ -3186,6 +3240,116 @@ def service_program(torch, svc, batch, delta, probe):
     return pre, post, out
 
 
+def doubling_delta(np, g, seed):
+    """As many new random edges as ``g`` has, both directions: a fold that
+    outgrows any profile of slack below 2."""
+    from repro_torch.graph import structs
+    rng = np.random.RandomState(seed)
+    a_s = rng.randint(0, g.n, size=g.m)
+    a_d = rng.randint(1, g.n, size=g.m)
+    keep = a_s != a_d
+    return structs.EdgeDelta(
+        add_src=a_s[keep], add_dst=a_d[keep],
+        add_w=rng.rand(int(keep.sum())).astype(np.float32) + 0.01
+    ).symmetrized()
+
+
+def service_scenarios(torch, np, g, sa, dev, devices, oracles=False):
+    """Phase 9's repartition and overflow programs on the phase's graph,
+    each on a new service over the default group of world size
+    ``devices`` (bucket 4, PPR 6 iterations): the elastic repartition
+    (``rebalance_threshold`` 1.0: every served batch repartitions) with a
+    batch, a 5% churn fold and another batch; the profile overflow
+    (``profile_slack`` 1.01) with a fold that doubles the edge count and
+    a batch.  ``oracles`` holds every answer to scipy / float64 on the
+    graph it was served on.  Returns each program's answers, repartition
+    and executor counts, whether the profile was frozen again, the epoch
+    and its seconds."""
+    from repro_torch.api import EngineConfig
+    from repro_torch.core.service import GraphClient, GraphService, Query
+    from repro_torch.graph import structs
+    from repro_torch.launch import serve_graph as sgl
+    cfg = EngineConfig(layout="csr", balance="edges", devices=devices)
+    cases = {
+        "repartition": (dict(rebalance_threshold=1.0),
+                        [Query("sssp", 0), Query("ppr", 7)],
+                        sgl.churn_delta(g, 0.05, sa.seed + 21),
+                        [Query("sssp", 12), Query("ppr", 29),
+                         Query("ego", 4)]),
+        "overflow": (dict(profile_slack=1.01), [],
+                     doubling_delta(np, g, sa.seed + 9),
+                     [Query("sssp", 3), Query("ppr", 8), Query("ego", 3)])}
+    out = {}
+    for name, (kw, first, delta, second) in cases.items():
+        t0 = time.perf_counter()
+        svc = GraphService(g, M=sa.workers, config=cfg, buckets=(4,),
+                           ppr_iters=6, seed=sa.seed, device=dev, **kw)
+        svc.warmup()
+        client = GraphClient(svc)
+        warm, prof0 = svc.traces, svc.profile
+        a = client.request(first)
+        reps = svc.repartitions
+        svc.mutate(delta)
+        b = client.request(second)
+        torch.cuda.synchronize()
+        if oracles:
+            service_oracles(np, g, a, svc.ppr_alpha, 6, f"{name} before")
+            service_oracles(np, svc.snapshot_graph(), b, svc.ppr_alpha, 6,
+                            f"{name} after the fold")
+        out[name] = {"first": answers_of(a), "second": answers_of(b),
+                     "first_repartitions": reps,
+                     "repartitions": svc.repartitions, "warm_traces": warm,
+                     "traces": svc.traces,
+                     "refrozen": svc.profile != prof0, "epoch": svc.epoch,
+                     "seconds": time.perf_counter() - t0}
+        del svc, client
+    return out
+
+
+def scenario_gates(out, tag):
+    """What each scenario must show at any world size: the repartition
+    ran on the first batch and rebuilt nothing; the overflow froze a new
+    profile and rebuilt the bucket's executor and the component program;
+    both end at epoch 1."""
+    rp, ov = out["repartition"], out["overflow"]
+    if not rp["first_repartitions"] >= 1:
+        fail(f"[service] {tag}: the repartition did not trigger")
+    if rp["traces"] != rp["warm_traces"]:
+        fail(f"[service] {tag}: the repartition rebuilt executors "
+             f"({rp['warm_traces']} -> {rp['traces']})")
+    if not ov["refrozen"] or ov["traces"] != ov["warm_traces"] + 2:
+        fail(f"[service] {tag}: the overflow froze a new profile: "
+             f"{ov['refrozen']}, executors {ov['warm_traces']} -> "
+             f"{ov['traces']} (want +2)")
+    if rp["epoch"] != 1 or ov["epoch"] != 1:
+        fail(f"[service] {tag}: epochs {rp['epoch']}, {ov['epoch']} != 1")
+
+
+def same_answers(np, want, got, tag):
+    """``got`` equals ``want`` (answers_of lists): kind, source, epoch
+    and cached flag; SSSP and ego bitwise, PPR within SERVICE_PPR_RTOL of
+    its max.  Returns the worst PPR difference."""
+    if len(want) != len(got):
+        fail(f"[service] {tag}: {len(got)} answers, want {len(want)}")
+    worst = 0.0
+    for (k, s, e, c, v), (k2, s2, e2, c2, v2) in zip(want, got):
+        if (k, s, e, c) != (k2, s2, e2, c2):
+            fail(f"[service] {tag}: answer {(k2, s2, e2, c2)} where world "
+                 f"size 1 gave {(k, s, e, c)}")
+        if k == "ppr":
+            err = float(np.abs(np.asarray(v2) - v).max()) / max(
+                float(np.abs(v).max()), 1e-30)
+            worst = max(worst, err)
+            ok = err <= SERVICE_PPR_RTOL
+        elif k == "sssp":
+            ok = np.array_equal(v2, v)
+        else:
+            ok = v2 == v
+        if not ok:
+            fail(f"[service] {tag}: {k}({s}) differs from world size 1")
+    return worst
+
+
 def service_path(torch, np, args, dev, phases):
     """Phase 9: the resident graph service at serve_graph's defaults
     (powerlaw n=200k, avg_deg 8, weighted, symmetrized; M=32, csr,
@@ -3330,6 +3494,22 @@ def service_path(torch, np, args, dev, phases):
         one = {"pre": answers_of(pre), "post": answers_of(post),
                "pre_stats": lb["stats"], "post_stats": rd["post_batch"]["stats"]}
         del svc
+        for c in counters:
+            c.launches = 0
+        scen = phases.run("service-scenarios", service_scenarios, torch, np,
+                          g, sa, dev, 1, oracles=True)
+        if any(c.launches for c in counters):
+            fail("[service] the scenarios launched a kernel")
+        scenario_gates(scen, "world size 1")
+        one["scenarios"] = scen
+        rp, ov = scen["repartition"], scen["overflow"]
+        log(f"[service] repartition program: {rp['repartitions']} "
+            f"repartitions ({rp['first_repartitions']} on the first batch), "
+            f"executors {rp['warm_traces']} -> {rp['traces']}, "
+            f"{rp['seconds']:.3f} s; overflow program: profile frozen "
+            f"again {ov['refrozen']}, executors {ov['warm_traces']} -> "
+            f"{ov['traces']}, {ov['seconds']:.3f} s; every answer against "
+            "scipy / float64 oracles OK")
     finally:
         meshlib.destroy()
     torch.cuda.empty_cache()
@@ -3341,7 +3521,8 @@ def service_path(torch, np, args, dev, phases):
             "ms_a_query": rd["pre_s"] * 1e3 / n_q, "fold_ms": fold_s * 1e3,
             "full_partition_ms": full_s * 1e3,
             "barrier_s": rd["barrier_s"], "post_ms_host": rd["post_s"] * 1e3,
-            "peak_gib": peak / 2**30, "ranks": spawned}
+            "peak_gib": peak / 2**30, "ranks": spawned,
+            "scenario_s": {k: v["seconds"] for k, v in scen.items()}}
 
 
 def answers_of(results):
@@ -3374,25 +3555,19 @@ def service_many(torch, np, args, one):
         got = pickle.loads(out.read_bytes())
     worst = 0.0
     for key in ("pre", "post"):
-        for (k, s, e, c, v), (k2, s2, e2, c2, v2) in zip(one[key], got[key]):
-            if (k, s, e, c) != (k2, s2, e2, c2):
-                fail(f"[service] D={D}: answer {(k2, s2, e2, c2)} where "
-                     f"world size 1 gave {(k, s, e, c)}")
-            if k == "ppr":
-                err = float(np.abs(np.asarray(v2) - v).max()) / max(
-                    float(np.abs(v).max()), 1e-30)
-                worst = max(worst, err)
-                ok = err <= SERVICE_PPR_RTOL
-            elif k == "sssp":
-                ok = np.array_equal(v2, v)
-            else:
-                ok = v2 == v
-            if not ok:
-                fail(f"[service] D={D} {backend}: {k}({s}) differs from "
-                     "world size 1")
-        if len(one[key]) != len(got[key]):
-            fail(f"[service] D={D}: {len(got[key])} answers, world size 1 "
-                 f"{len(one[key])}")
+        worst = max(worst, same_answers(np, one[key], got[key],
+                                        f"D={D} {backend} {key}"))
+    scen = got["scenarios"]
+    scenario_gates(scen, f"D={D}")
+    for name, want in one["scenarios"].items():
+        for key in ("first", "second"):
+            worst = max(worst, same_answers(np, want[key], scen[name][key],
+                                            f"D={D} {name} {key}"))
+        for key in ("first_repartitions", "repartitions", "warm_traces",
+                    "traces", "refrozen", "epoch"):
+            if scen[name][key] != want[key]:
+                fail(f"[service] D={D} {name}: {key} {scen[name][key]} "
+                     f"where world size 1 gave {want[key]}")
     for key in ("pre_stats", "post_stats"):
         assert_stats_equal(np, f"[service] D={D} {key}", one[key], got[key],
                            between=f"world size 1 and {D}")
@@ -3401,11 +3576,15 @@ def service_many(torch, np, args, one):
            if backend == "gloo" else ", a card a rank")
         + f") == world size 1: every answer, epoch and cached flag, sssp "
         f"and ego bitwise, ppr max rel {worst:.3g} (limit "
-        f"{SERVICE_PPR_RTOL}), every msgs_*/per_worker_* equal; "
+        f"{SERVICE_PPR_RTOL}), every msgs_*/per_worker_* equal; the "
+        "repartition and overflow programs: the same answers, repartition "
+        f"counts ({scen['repartition']['repartitions']}), executors and "
+        "new profile as world size 1; "
         f"{wall:.1f} s of spawned program; rank 0's batch "
         f"{got['pre_s'] * 1e3:.1f} ms on the host clock")
     return {"backend": backend, "D": D, "wall_s": wall,
-            "batch_ms_host": got["pre_s"] * 1e3}
+            "batch_ms_host": got["pre_s"] * 1e3,
+            "scenario_s": {k: v["seconds"] for k, v in scen.items()}}
 
 
 def service_rank(rank, D, backend, init_method, seed, out_path):
@@ -3416,6 +3595,7 @@ def service_rank(rank, D, backend, init_method, seed, out_path):
     sys.path.insert(0, str(ROOT / "src"))
     import datetime
     import pickle
+    import numpy as np
     import torch
     import torch.distributed as dist
     from repro_torch.api import EngineConfig
@@ -3439,14 +3619,262 @@ def service_rank(rank, D, backend, init_method, seed, out_path):
             torch, svc, sgl.mixed_batch(g.n, sa.batch, sa.seed),
             sgl.churn_delta(g, sa.churn, sa.seed),
             [Query("sssp", 17), Query("ppr", 23), Query("ego", 5)])
+        del svc
+        scen = service_scenarios(torch, np, g, sa, dev, D)
         if rank == 0:
             Path(out_path).write_bytes(pickle.dumps({
                 "pre": answers_of(pre), "post": answers_of(post),
                 "pre_stats": rd["pre_batch"]["stats"],
                 "post_stats": rd["post_batch"]["stats"],
-                "pre_s": rd["pre_s"]}))
+                "pre_s": rd["pre_s"], "scenarios": scen}))
     finally:
         meshlib.destroy()
+
+
+# ---------------------------------------------------------------------------
+# phases 10-12: the launchers and the preemption drill
+# ---------------------------------------------------------------------------
+
+def run_launcher(module: str, argv, timeout_s: float):
+    """Run ``python -m module argv`` from the checkout (its own process
+    tree: the launchers spawn their ranks); log its standard output; fail
+    unless it exits 0.  Returns (stdout, seconds)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *argv], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout_s)
+    seconds = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(line)
+    if proc.returncode != 0:
+        fail(f"{module} {' '.join(argv)} exited {proc.returncode}:\n"
+             f"{proc.stderr[-4000:]}")
+    return proc.stdout, seconds
+
+
+def shard_check_path(device_kind="cuda"):
+    """Phase 10: ``shard_check --suite tier1`` on the card: 8
+    ranks for the 1-D and (2, 4) cells and the gates (gloo with every rank
+    on cuda:0 on a one-card machine, NCCL with a card a rank on eight), 2
+    for the devices=2 cells (sv, dense).  Every cell OK, every gate true,
+    every control rejected, and rank 0 of the 8-rank world launched the
+    scalar and the vector kernel.  Prints each gated program's worst
+    all-reduce / all-gather operand against n_pad, its all-to-all group
+    sizes and its peak device bytes."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "report.json"
+        _, seconds = run_launcher(
+            "repro_torch.launch.shard_check",
+            ["--suite", "tier1", "--device", device_kind,
+             "--out", str(out)], SHARD_CHECK_TIMEOUT_S)
+        rep = json.loads(out.read_text())
+    bad = {k: v for k, v in rep["cells"].items() if v}
+    if not rep["ok"] or bad or not rep["cells"]:
+        fail(f"[shard_check] violations: {bad}")
+    gates = {k: (rep[k]["ok"] if isinstance(rep[k], dict) else rep[k])
+             for k in SHARD_CHECK_GATES}
+    if not all(gates.values()):
+        fail(f"[shard_check] gates {gates}")
+    if any(rep["controls"].values()):
+        fail(f"[shard_check] a gate accepted its control: {rep['controls']}")
+    launches = {w: v["launches"] for w, v in rep["worlds"].items()}
+    # world 8 holds the pallas cells and the gSpMM plan program (world
+    # 2's are dense: no kernel)
+    if device_kind == "cuda" and not (launches["8"]["scalar"] > 0
+                                      and launches["8"]["vector"] > 0):
+        fail(f"[shard_check] rank 0's kernel launches {launches}: the "
+             "pallas cells did not go through the kernels")
+    programs = {}
+    for key in ("routed_memory", "hier_levels", "gspmm_hier",
+                "gspmm_hier_f1"):
+        for name, e in rep[key]["programs"].items():
+            tag = f"{key}/{name}"
+            worst = max(e["collective_max_elems"]["all_reduce"],
+                        e["collective_max_elems"]["all_gather"])
+            programs[tag] = {"worst": worst, "n_pad": rep[key]["n_pad"],
+                             "groups": e["all_to_all_group_sizes"],
+                             "peak_bytes": e.get("peak_bytes")}
+            log(f"[shard_check] {tag}: worst all-reduce/all-gather operand "
+                f"{worst} of n_pad {rep[key]['n_pad']}, all-to-all group "
+                f"sizes {e['all_to_all_group_sizes']}, peak device bytes "
+                f"{e.get('peak_bytes', 'not measured')}")
+    log(f"[shard_check] {len(rep['cells'])} cells OK, gates {gates}, "
+        f"controls rejected {sorted(rep['controls'])}; rank 0's launches "
+        f"(scalar, vector) by world {launches}; {seconds:.3f} s")
+    return {"seconds": seconds, "cells": len(rep["cells"]),
+            "worlds": rep["worlds"], "programs": programs,
+            "scalar": sum(v["scalar"] for v in launches.values()),
+            "vector": sum(v["vector"] for v in launches.values())}
+
+
+def dist_smoke_path(device_kind="cuda"):
+    """Phase 11: ``dist_smoke --hosts 2 --per-host 2`` at n=PARITY_N and
+    M=SHARDED_M over the launchers' TCP store on a port the first
+    launcher binds: four ranks (gloo on cuda:0 on a one-card machine)
+    must print parity OK and the launcher exit 0.  Prints each rank's
+    rendezvous seconds and the wall seconds."""
+    import re
+    text, seconds = run_launcher(
+        "repro_torch.launch.dist_smoke",
+        ["--hosts", "2", "--per-host", "2", "--n", str(PARITY_N),
+         "--workers", str(SHARDED_M), "--device", device_kind, "--port",
+         "0", "--timeout", str(DIST_SMOKE_TIMEOUT_S)],
+        DIST_SMOKE_TIMEOUT_S + 60)
+    ok = re.findall(r"^\[dist_smoke\] rank (\d+): hashmin .* (\d+) scalar "
+                    r"kernel launches: parity OK$", text, re.M)
+    if sorted(int(r) for r, _ in ok) != [0, 1, 2, 3]:
+        fail(f"[dist_smoke] parity OK on ranks {sorted(ok)}, want 0-3")
+    rdv = {int(r): float(x) for r, x in re.findall(
+        r"^\[dist_smoke\] rank (\d+): world size 4, .*rendezvous "
+        r"([\d.]+) s$", text, re.M)}
+    wall = float(re.search(r"launcher exit codes: \[0, 0\] .*wall "
+                           r"([\d.]+) s", text).group(1))
+    launches = dict((int(r), int(k)) for r, k in ok)
+    if device_kind == "cuda" and not launches[0]:
+        fail("[dist_smoke] rank 0 launched no scalar kernel")
+    log(f"[dist_smoke] 4 ranks parity OK; rendezvous s by rank {rdv}; "
+        f"launcher wall {wall:.3f} s, command {seconds:.3f} s; rank 0's "
+        f"scalar launches {launches[0]}")
+    return {"seconds": seconds, "wall_s": wall, "rendezvous_s": rdv,
+            "scalar": launches[0]}
+
+
+def clone_tree(tree):
+    """A copy of a tree of dicts of tensors."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def tree_bytes(torch, tree) -> int:
+    from repro_torch.train import checkpoint as ckpt
+    return sum(x.numel() * x.element_size()
+               for _, x in ckpt._leaves_with_paths(tree)
+               if isinstance(x, torch.Tensor))
+
+
+def preemption_drill(torch, np, pg, params0, straight, replay, vec_want):
+    """Phase 12: the GCN of phase 4 (same partition, params0, optimizer
+    and epochs) killed after DRILL_KILL epochs: ``run_steps(start, stop)``
+    restores or inits {params, opt, step} from a fresh temporary
+    directory, trains, and saves at the kill; the state is then dropped
+    and a fresh call restores it and trains to GCN_EPOCHS
+    (``fault.simulate_preemption``).  Gates: the restored state equals
+    the saved one bitwise; the loss curve equals phase 4's straight run
+    within the reference drill's rtol 2e-4, atol 1e-5; every trained leaf
+    finite and within PARAM_RTOL of the straight run's change (the gate
+    of the sharded GCN: two runs on the card differ by the atomic adds'
+    order); the vector kernel launched what phase 4's run launched.
+    Element-wise distances beside those of phase 4's replay (a second
+    straight run) are printed.  Returns the readings."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels.segment_combine import kernel
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.fault import simulate_preemption
+    from repro_torch.train.gcn import gcn_labels, make_gcn_step
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+
+    cfg = OptConfig(lr=GCN["lr"], weight_decay=0.0, clip_norm=GCN_CLIP,
+                    warmup_steps=0, total_steps=GCN_EPOCHS, min_lr_frac=1.0)
+    step_fn = make_gcn_step(cfg, "pallas")(pg)
+    labels, mask = gcn_labels(pg, GCN["n_classes"], 0)
+    tmp = tempfile.mkdtemp(prefix="gcn_drill_")
+    rd = {"saved": None, "final": None}
+
+    def init():
+        return {"params": dict(params0), "opt": init_opt_state(params0),
+                "step": torch.zeros((), dtype=torch.int64)}
+
+    def run_steps(start, stop):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, at = ckpt.restore_or_init(tmp, init)
+        torch.cuda.synchronize()
+        if at != start or int(state["step"]) != start:
+            fail(f"[drill] restart at {start} found step {at}")
+        if start:
+            rd["restore_ms"] = (time.perf_counter() - t0) * 1e3
+            for (p, a), (_, b) in zip(ckpt._leaves_with_paths(rd["saved"]),
+                                      ckpt._leaves_with_paths(state)):
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    fail(f"[drill] restored leaf {p} differs from the saved")
+            rd["saved"] = None
+        params, opt = state["params"], state["opt"]
+        losses = []
+        for _ in range(start, stop):
+            (params, opt), metrics = step_fn(params, opt, labels, mask)
+            losses.append(float(metrics["loss"]))
+        out = {"params": params, "opt": opt, "step": torch.tensor(stop)}
+        if stop < GCN_EPOCHS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = ckpt.save(tmp, stop, out)
+            rd["save_ms"] = (time.perf_counter() - t0) * 1e3
+            rd["disk_bytes"] = sum(f.stat().st_size
+                                   for f in Path(path).iterdir())
+            rd["state_bytes"] = tree_bytes(torch, out)
+            rd["saved"] = clone_tree(out)
+        else:
+            rd["final"] = params
+        return losses
+
+    counter = kernel.segment_combine_blocks
+    counter.launches = counter.launches_vec = 0     # the drill starts
+    try:
+        losses = simulate_preemption(run_steps, GCN_EPOCHS, DRILL_KILL)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    vec, scalar = counter.launches_vec, counter.launches   # ... ends here
+    if vec != vec_want or scalar:
+        fail(f"[drill] {vec} vector and {scalar} scalar launches, phase 4's "
+             f"run {vec_want} vector")
+    want = np.asarray(straight.history)
+    if not np.allclose(losses, want, rtol=DRILL_RTOL, atol=DRILL_ATOL):
+        fail(f"[drill] losses {losses} vs the straight run's {list(want)}")
+
+    def distances(got):
+        """(max |d|, elements outside rtol/atol, worst leaf |d|/|change|)"""
+        mx, outside, rel = 0.0, 0, 0.0
+        for k, v in straight.state.items():
+            d = (got[k] - v).abs()
+            mx = max(mx, float(d.max()))
+            outside += int((d > DRILL_ATOL + DRILL_RTOL * v.abs()).sum())
+            ch = float(torch.linalg.vector_norm(v - params0[k]))
+            rel = max(rel, float(torch.linalg.vector_norm(got[k] - v))
+                      / max(ch, 1e-30))
+        return mx, outside, rel
+    final = rd["final"]
+    for k, v in final.items():
+        if not bool(torch.isfinite(v).all()):
+            fail(f"[drill] non-finite values in the resumed {k}")
+    d_drill, d_replay = distances(final), distances(replay.state)
+    if d_drill[2] > PARAM_RTOL:
+        fail(f"[drill] a leaf's params moved {d_drill[2]:.3g} of its change "
+             f"from the straight run (limit {PARAM_RTOL})")
+    n_el = sum(v.numel() for v in final.values())
+    log(f"[drill] gcn n={pg.n} killed after epoch {DRILL_KILL} of "
+        f"{GCN_EPOCHS}: save {rd['save_ms']:.3f} ms, restore "
+        f"{rd['restore_ms']:.3f} ms (template included), "
+        f"{rd['disk_bytes']:,d} bytes on disk for {rd['state_bytes']:,d} "
+        f"bytes of state; restored state bitwise equal to the saved")
+    log(f"[check] drill vs straight run: losses "
+        f"{' '.join(f'{x:.6f}' for x in losses)} within rtol {DRILL_RTOL} "
+        f"atol {DRILL_ATOL}; params max |d| {d_drill[0]:.3g}, "
+        f"{d_drill[1]} of {n_el} elements outside rtol {DRILL_RTOL} / atol "
+        f"{DRILL_ATOL}, worst leaf {d_drill[2]:.3g} of its change (limit "
+        f"{PARAM_RTOL}); phase 4's replay vs the straight run: max |d| "
+        f"{d_replay[0]:.3g}, {d_replay[1]} elements outside, worst leaf "
+        f"{d_replay[2]:.3g}")
+    return {"save_ms": rd["save_ms"], "restore_ms": rd["restore_ms"],
+            "disk_bytes": rd["disk_bytes"], "vector": vec,
+            "losses": losses, "max_abs": d_drill[0],
+            "outside": d_drill[1], "leaf_rel": d_drill[2],
+            "replay_max_abs": d_replay[0], "replay_outside": d_replay[1],
+            "replay_leaf_rel": d_replay[2]}
 
 
 def main():
@@ -3488,9 +3916,19 @@ def main():
                           kernel, ref_fn, dev, args.seed)
     vec_err = phases.run("vec-kernel-vs-plain", random_vec_cases, torch, np,
                          kernel, ref_fn, dev, args.seed)
+    # phases 10 and 11 run the launchers in processes of their own,
+    # beside phase 3's host-only graph build and partition, and are waited
+    # for before any timed device work
+    from concurrent.futures import ThreadPoolExecutor
+    pool = ThreadPoolExecutor(max_workers=1)
+    launchers_run = pool.submit(lambda: {
+        "shard_check": phases.run("shard-check", shard_check_path),
+        "dist_smoke": phases.run("dist-smoke", dist_smoke_path)})
     mods = (api, structs, gen, cost_model, planlib, kernel)
     g, A, pg, launches, algos, runs, rr_algos = main_path(
-        torch, np, mods, args, dev, phases)
+        torch, np, mods, args, dev, phases, ready=launchers_run.result)
+    launchers = launchers_run.result()
+    pool.shutdown()
     phases.run("sv-2^24", large_ids, torch, np, api, structs, kernel, dev)
     sharded_row = sharded_one(torch, np, mods, pg, runs, algos + rr_algos,
                               ref_fn, dev, phases)
@@ -3510,6 +3948,8 @@ def main():
     sharded_vec = sharded_gcn(torch, np, mods, pg, pgs, params0, gcn_runs,
                               gcn_ms, gcn_added, vec_launches, dev, phases)
     sharded_vec["ranks"] = [r for r in summary_3c if r["algo"] == "gcn"]
+    drill = phases.run("preemption-drill", preemption_drill, torch, np, pg,
+                       params0, gcn_runs[0], gcn_runs[1], vec_launches)
     del pgs, params0, gcn_runs
     torch.cuda.empty_cache()
     phases.run("parity-200k", parity_small, torch, np, args, dev, phases)
@@ -3596,6 +4036,20 @@ def main():
         "per_launch": vec_rows,
         "sharded": sharded_vec,
     })
+    # the launchers' rank 0 and the drill (phases 10-12)
+    entry["launches_main_path"] = launches
+    entry["launches_launchers"] = {
+        "shard_check_rank0": launchers["shard_check"]["scalar"],
+        "dist_smoke_rank0": launchers["dist_smoke"]["scalar"]}
+    entry["launches"] += sum(entry["launches_launchers"].values())
+    vec_entry["launches_drill"] = drill["vector"]
+    vec_entry["launches_shard_check_rank0"] = launchers["shard_check"][
+        "vector"]
+    vec_entry["launches"] += drill["vector"] + launchers["shard_check"][
+        "vector"]
+    vec_entry["drill"] = {k: drill[k] for k in (
+        "save_ms", "restore_ms", "disk_bytes", "max_abs", "outside",
+        "leaf_rel", "replay_max_abs", "replay_outside", "replay_leaf_rel")}
     log(f"[kernel] segment_combine_blocks: {launches} launches in the "
         f"algorithm runs: kernel {entry['ms']:.3f} ms, plain "
         f"{entry['plain_ms']:.3f}, library {entry['library_ms']:.3f}, bound "
@@ -3610,6 +4064,7 @@ def main():
         f"bound {vec_entry['bound_ms']:.3f} ({vec_entry['bound_ms'] / E:.3f})"
         f"; {ratio_text(vec_entry)}")
     log(f"[service] summary {json.dumps(service)}")
+    log(f"[launchers] summary {json.dumps(launchers)}")
     log(json.dumps({"kernels": [entry, vec_entry] + serve_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}),

@@ -2,14 +2,19 @@
 that join a gloo group of world size D and each hold a ``GraphService``
 on the same graph, running the same client program (a mixed batch, a
 fold, another batch, then a batch that ranks other than 0 submit with
-other sources: rank 0's queue must be the one served everywhere).  Each
-rank writes what it answered.  This module imports neither JAX nor the
-JAX package.
+other sources: rank 0's queue must be the one served everywhere), then
+each scenario of the spec on a service of its own (the elastic
+repartition and the profile overflow).  Each rank writes what it
+answered.  This module imports neither JAX nor the JAX package.
 
 A spec (pickled by the test) holds the graph (``n``, ``src``, ``dst``,
 ``w``), the service's keyword arguments, the query batches as (kind,
-source) pairs and the delta's arrays.
+source) pairs and the delta's arrays; ``scenarios`` maps a name to the
+same keys for one more program: a graph, the service's keyword
+arguments, a first batch (``first``), a delta and a second batch
+(``second``).
 """
+import dataclasses
 import datetime
 import pickle
 
@@ -35,6 +40,31 @@ def batch_record(svc) -> dict:
     lb = dict(svc.last_batch)
     return {"last_batch": lb, "last_pump": dict(svc.last_pump),
             "traces": svc.traces, "epoch": svc.epoch}
+
+
+def scenario(sc: dict, D: int) -> dict:
+    """One scenario's program on a new service: warm, the first batch, a
+    fold of the delta, the second batch.  Returns the answers, the
+    repartition and executor counts, the profiles and the final
+    partition."""
+    g = structs.Graph(sc["n"], sc["src"], sc["dst"], sc["w"])
+    svc = GraphService(g, config=EngineConfig(
+        layout="csr", balance="edges", devices=D), device="cpu",
+        **sc["service"])
+    svc.warmup()
+    client = GraphClient(svc)
+    out = {"warm_traces": svc.traces,
+           "profile0": dataclasses.asdict(svc.profile)}
+    out["first"] = answers(client.request(
+        [Query(k, s) for k, s in sc["first"]]))
+    out["first_repartitions"] = svc.repartitions
+    svc.mutate(structs.EdgeDelta(**sc["delta"]))
+    out["second"] = answers(client.request(
+        [Query(k, s) for k, s in sc["second"]]))
+    out.update(repartitions=svc.repartitions, traces=svc.traces,
+               profile=dataclasses.asdict(svc.profile),
+               batch=batch_record(svc), pg=structs.to_numpy(svc.pg))
+    return out
 
 
 def rank_main(rank: int, D: int, store: str, spec_path: str,
@@ -71,6 +101,9 @@ def rank_main(rank: int, D: int, store: str, spec_path: str,
         out["rank0_queue"] = answers([svc.take_result(t) for t in tickets])
         out["rank"], out["world"] = dist.get_rank(), dist.get_world_size()
         out["labels"] = np.asarray(svc._labels_now()[1])
+        del svc, client
+        out["scenarios"] = {name: scenario(sc, D) for name, sc in
+                            sorted(spec.get("scenarios", {}).items())}
         with open(f"{out_path}.{rank}", "wb") as f:
             pickle.dump(out, f)
     finally:

@@ -24,6 +24,11 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         (ROOT / "tests").glob("_torch_*worker.py")) + sorted(
             (ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
+# the launchers and fault tolerance: each a module of its own that must
+# stay free of JAX, also when imported alone
+STANDALONE = ("repro_torch.launch.shard_check",
+              "repro_torch.launch.dist_smoke",
+              "repro_torch.train.checkpoint", "repro_torch.train.fault")
 
 
 def _imported_roots(path: Path):
@@ -59,6 +64,27 @@ def test_importing_the_port_loads_no_jax():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    timeout=120)
+
+
+@pytest.mark.parametrize("module", STANDALONE)
+def test_launchers_and_fault_tolerance_import_no_jax(module):
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    assert path in PORT_FILES
+    code = (f"import sys, {module}\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
+
+
+def test_launchers_refuse_cuda_without_a_card(no_cuda):
+    from repro_torch.launch import dist_smoke, shard_check
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        shard_check.main(["--suite", "tier1", "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dist_smoke.main(["--device", "cuda"])
 
 
 @pytest.fixture
