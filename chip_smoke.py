@@ -200,9 +200,14 @@ Phases; any failure exits non-zero and prints no result:
    a one-card machine, NCCL with a card a rank on two) must give world
    size 1's answers and statistics, repartition counts, executors and
    epochs.
-Phases 10 and 11 run in processes of their own beside phase 3's host
-set-up (graph build and partition), started once the kernels are built
-and waited for before phase 3's first timed run.
+Phases 10, 11 and 14 run in processes of their own beside phase 3's
+host set-up (graph build and partition), started once the kernels are
+built and waited for before phase 3's first timed run; phase 13 runs
+after phase 8.  Two more spawns whose card work is not timed run beside
+host-only phases of the main thread, each waited for at the end of its
+window: phase 3c's ranks beside phase 3's scipy oracles (through the
+dense-parity check), phase 9's spawned ranks beside phase 3b's split
+partition (its comparison with world size 1 comes in phase 9).
 
 10. ``python -m repro_torch.launch.shard_check --suite tier1``
    on the card: 40 parity cells (n=180, M=8) over 8 ranks (gloo on cuda:0
@@ -228,15 +233,52 @@ and waited for before phase 3's first timed run.
    PARAM_RTOL of the straight run's change; the vector launches of phase
    4's run.  Prints save and restore ms and the bytes on disk, and the
    params' element-wise distance beside phase 4's replay's.
+13. serve OLMoE-1B-7B at full width (16 layers, d_model 2048, 16/16 heads
+   of dim 128, 64 experts top-8 of d_ff 1024, capacity factor 1.25, vocab
+   50,304; 7.0B float32 parameters from ``torch.Generator(seed)``): the
+   same B=4 prompts of 2048 tokens, prefill and 63 decode steps, timed.
+   Gates: 16 flash launches (d=128) in the prefill, none in decode;
+   finite logits, pad at -2^30; on layers 0-3, (b) in two halves on each
+   layer's input: the attention update, kernel against plain (phase 7's
+   tolerance), and the MoE half against a float64 recomputation on the
+   same routing (each kept pair's gated expert output, gathered by
+   expert; the keep mask held to each expert's first cap pairs) within
+   ``MOE_RTOL``; and (c) with teacher forcing: the K/V that prefill and
+   decode write against the no-cache forward's within ``KV_RTOL``, the
+   attention update at positions 2047..2110 against the forward's, each
+   decode step's MoE half against float64 (a decode step's capacity, T=4,
+   is not the forward's, so whole-layer updates are not compared); the
+   kernel on layer 0's recorded inputs against the float64 plain version,
+   timed beside the plain version and SDPA (``[kernel] flash_attention
+   olmoe_1b_7b`` rows).  ``[serve] olmoe_1b_7b`` lines: prefill ms and
+   prompt tokens/s beside the products' bound, decode ms a step beside
+   the bytes a step must read, peak memory; ``[profile] olmoe_1b_7b``:
+   the busy share of a prefill and a decode step; ``[moe]`` lines per
+   layer of the prefill and summed over decode: tokens per expert (max,
+   mean), the share of (token, slot) pairs dropped, the aux loss, the
+   combined buffer's E*cap rows against the T*k token messages.
+14. ``moe_ffn_ep`` on 2 spawned ranks (gloo on cuda:0 on a one-card
+   machine, NCCL with a card a rank on two) over one full-width OLMoE MoE
+   layer (E=64, D=2048, F=1024) at 8192 tokens, ``n_mirrored_experts`` 0
+   and 2 (copies tied to experts 0-1).  Gates: each rank's output against
+   its slice computed on one device under the rank's own cap and mirror
+   mask (unmirrored: ``moe_ffn_ref`` on the slice) within ``EP_RTOL``; the
+   mirrored run's occupied send-buffer rows fewer than the unmirrored
+   run's by exactly the pairs that run kept for experts 0-1.  ``[moe-ep]``
+   lines: occupied rows against E*cap with and without mirroring, the
+   bytes an all_to_all moves (static: the same mirrored), and
+   ``moe_mirror_threshold`` at these shapes with the card's float32 ratio
+   beside the hottest expert's load.
 
 One JSON line ``{"kernels": [...]}`` with all four kernels (the scalar
 kernel's entry carries ``sharded``: phase 3b's launches, each mode's, the
 replays' times and the static balance figures; the vector kernel's the
 sharded GCN's launches, ms an epoch and peak memory by mode, and phase
-3c's GCN runs; the flash entry's ``launches`` counts both models'
-prefills, ``launches_by_model`` each, and its sums the Hymba prefill's
-timed launches, ``timed`` says so; the scalar entry's ``launches`` also
-counts rank 0's launches in phases 10 and 11 and the vector entry's those
+3c's GCN runs; the flash entry's ``launches`` counts the three models'
+prefills (Hymba, Gemma, OLMoE), ``launches_by_model`` each, and its sums
+the Hymba prefill's timed launches, ``timed`` says so; the scalar
+entry's ``launches`` also counts rank 0's launches in phases 10 and 11
+and the vector entry's those
 of phase 10's rank 0 and of the drill, each listed under its own key),
 then the last line
 ``{"ok": true, "device": {...}}``.
@@ -281,6 +323,28 @@ GEMMA_ARCH = "gemma3_4b"
 # (every sixth layer is global)
 GEMMA_CHECK_LAYERS = 6
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 64
+OLMOE_ARCH = "olmoe_1b_7b"
+# OLMoE's layers checked in the forms (b) and (c) of phase 13
+OLMOE_CHECK_LAYERS = 4
+# The MoE half of a layer against its float64 recomputation on the same
+# routing: float32 products over D=2048 and F=1024 and a sum of k=8 gated
+# terms sit near 1e-6 of max|y|; an index or slot fault moves a whole
+# token's row, O(1) of it.
+MOE_RTOL = 1e-4
+# The K/V a decode step writes against the no-cache forward's (the same
+# projections of the same rows, products of another shape): ~1e-6 of max.
+KV_RTOL = 1e-5
+# Phase 14: one full-width OLMoE MoE layer on MOE_EP_RANKS spawned ranks
+# over MOE_EP_TOKENS tokens (B*S of the serve phases), n_mirrored_experts
+# 0 and 2 (copies tied to experts 0-1); each rank's output within EP_RTOL
+# of max|y| of the same slice computed on one device with the rank's cap
+# and mirror mask (the experts' products over another row count, and
+# index_add_'s order of the k gated terms)
+MOE_EP_RANKS = 2
+MOE_EP_TOKENS = 8192
+MOE_EP_MIRRORED = (0, 2)
+EP_RTOL = 1e-5
+MOE_JOIN_S = 600
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:27"
 SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
@@ -884,9 +948,11 @@ def profile_run(torch, fn, name: str, top: int = 12,
             f"({100 * e.self_device_time_total / kernels_us:5.1f}%)")
 
 
-def main_path(torch, np, mods, args, dev, phases, ready=None):
+def main_path(torch, np, mods, args, dev, phases, ready=None, beside=None):
     """Phase 3; ``ready()`` runs once the host set-up (graph, partition)
-    is done, before any timed device work."""
+    is done, before any timed device work; ``beside()`` starts work whose
+    card use is not timed before the host-only oracles and returns the
+    call that waits for it, made before the profiles."""
     api, structs, gen, cost_model, planlib, kernel = mods
     from repro_torch.train.gcn import normalize_adjacency
     g = phases.run("graph", lambda: normalize_adjacency(gen.powerlaw(
@@ -968,7 +1034,8 @@ def main_path(torch, np, mods, args, dev, phases, ready=None):
     if bc_ss != 3:
         fail("no mirrored vertices at this size: Ch_mir did not run")
 
-    # oracles independent of the port
+    # oracles independent of the port (host only)
+    wait_beside = beside() if beside is not None else None
     A = phases.run("adjacency", adjacency, np, g)
     cc, dist_o, pr_o = phases.run("oracles", oracles, np, g, A, 0, 30)
     labels = structs.canonical_labels(pg, runs["hashmin"][0].state)
@@ -1016,6 +1083,8 @@ def main_path(torch, np, mods, args, dev, phases, ready=None):
             if not ok:
                 fail(f"{algo}: the pallas and dense backends disagree")
     phases.run("dense-parity", dense_checks)
+    if wait_beside is not None:
+        phases.run("beside-oracles-wait", wait_beside)
     log("[check] pallas == dense on the card: Hash-Min and S-V labels, SSSP "
         "distances, MSF labels, edge count and total weight, and the "
         "broadcast attributes bitwise, PageRank rtol=1e-5; every "
@@ -1299,7 +1368,8 @@ def drop_shards(pg):
         del pg.plan_cache[key]
 
 
-def sharded_modes(torch, np, mods, g, pg, runs, algos, ref_fn, dev, phases):
+def sharded_modes(torch, np, mods, g, pg, runs, algos, ref_fn, dev, phases,
+                  beside=None):
     """Phase 3b, continued: the (1, 1) mesh (the hierarchical exchanges
     through subgroups of one rank), the pipeline (``PIPELINE_CHUNKS``
     chunks a join, forced) and a ``balance="split"`` partition of the
@@ -1316,11 +1386,14 @@ def sharded_modes(torch, np, mods, g, pg, runs, algos, ref_fn, dev, phases):
     from repro_torch.core import exec as exec_mod
     api, kernel = mods[0], mods[5]
     kinds = ("eg", "mir", "all")
+    wait_beside = beside() if beside is not None else None
     t0 = time.perf_counter()
     eng_s = api.Engine(backend="pallas", layout="csr", balance="split",
                        split_factor=SPLIT_FACTOR, device=dev)
     pgs = phases.run("split-partition", eng_s.partition, g, pg.M, tau=pg.tau,
                      seed=0)
+    if wait_beside is not None:
+        phases.run("beside-split-wait", wait_beside)
     log(f"[sharded] split partition (split_factor {SPLIT_FACTOR}) of the "
         f"n={g.n} graph: {time.perf_counter() - t0:.3f} s on the host, "
         f"M={pgs.M} -> M_phys={pgs.M_phys} physical shards")
@@ -3135,6 +3208,598 @@ def gemma_path(torch, np, args, dev, phases):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: serve OLMoE-1B-7B at full width (the moe stage kind)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def moe_calls(tf):
+    """Within, every MoE layer the transformer runs appends [h, x2d, y] to
+    the yielded list: h the residual stream after attention (the MoE
+    half's input), x2d the normed, flattened tokens the MoE FFN routes and
+    y its output (``tf._moe_update`` and ``tf._moe_call`` wrapped)."""
+    seen, update, call = [], tf._moe_update, tf._moe_call
+
+    def rec_update(h, w, cfg, ctx):
+        seen.append([h])
+        return update(h, w, cfg, ctx)
+
+    def rec_call(x2d, w, cfg, ctx):
+        y, aux = call(x2d, w, cfg, ctx)
+        seen[-1] += [x2d, y]
+        return y, aux
+    tf._moe_update, tf._moe_call = rec_update, rec_call
+    try:
+        yield seen
+    finally:
+        tf._moe_update, tf._moe_call = update, call
+
+
+def moe_half_err(torch, moe, w, x2, y, mcfg):
+    """The MoE half of one call against float64 on the same routing: the
+    port's router and ``_slots`` give idx and keep (as inside the call),
+    keep is held to the reference's own derivation (the exclusive cumsum
+    down a (T*k, E) one-hot: each expert keeps its first cap pairs in
+    flat token-major order), and every kept pair's gated
+    expert output is recomputed in float64, expert by expert, from the
+    tokens gathered directly (no ``_pack`` / ``_unpack``).  Fails on a
+    keep mismatch; returns |y - y64| / max|y64|."""
+    T, D = x2.shape
+    E, k = mcfg.n_experts, mcfg.top_k
+    cap = max(1, int(mcfg.capacity_factor * T * k / E))
+    gates, idx, _ = moe.router_probs(x2, w["router"], k)
+    none = torch.zeros(E, dtype=torch.bool, device=x2.device)
+    flat_e, _, _, keep = moe._slots(idx, E, cap, none)
+    onehot = torch.nn.functional.one_hot(flat_e, E)
+    rank = (torch.cumsum(onehot, dim=0) - onehot).gather(
+        1, flat_e[:, None])[:, 0]
+    if not torch.equal(keep, rank < cap):
+        fail(f"MoE keep mask at T={T}, cap={cap}: "
+             f"{int((keep != (rank < cap)).sum())} pairs differ from each "
+             "expert's first cap pairs")
+    tok = torch.div(torch.arange(T * k, device=x2.device), k,
+                    rounding_mode="floor")
+    g = gates.reshape(-1).double()
+    y64 = torch.zeros(T, D, dtype=torch.float64, device=x2.device)
+    kept = keep.nonzero()[:, 0]
+    ke = flat_e[kept]
+    for e in torch.unique(ke).tolist():
+        sel = kept[ke == e]
+        o = moe._expert_mlp(x2[tok[sel]].double(), w["w_gate"][e].double(),
+                            w["w_up"][e].double(), w["w_down"][e].double())
+        y64.index_add_(0, tok[sel], o * g[sel, None])
+    return rel_max(torch, y.double(), y64)
+
+
+def moe_kernels_vs_plain(torch, cfg, zoo, tf, moe, params, prompts, layers):
+    """Check (b) for a moe stage, in two halves on each layer's input (the
+    kernel run's h_l): the attention update with the kernel against the
+    plain path's, within LAYER_RTOL of its max; the MoE half of the kernel
+    run against its float64 recomputation (``moe_half_err``), within
+    MOE_RTOL.  Returns (attention errors, MoE errors)."""
+    B, S = prompts.shape
+    pos = torch.arange(S, dtype=torch.int32,
+                       device=prompts.device).expand(B, S)
+    auto = tf.ModelContext(q_chunk=max(S, 64))
+    ref = tf.ModelContext(q_chunk=max(S, 64), kernels="ref")
+    h = zoo._embed_in(params, cfg, prompts, auto)
+    attn, moe_errs = [], []
+    for stage, sp in layers:
+        with moe_calls(tf) as k_calls:
+            h_k = tf.apply_stage_seq(h, sp, stage, cfg, auto, pos)[0]
+        with moe_calls(tf) as r_calls:
+            tf.apply_stage_seq(h, sp, stage, cfg, ref, pos)
+        (ha_k, x2, y), = k_calls
+        (ha_r, _, _), = r_calls
+        attn.append(rel_max(torch, ha_k - h, ha_r - h))
+        moe_errs.append(moe_half_err(torch, moe, tf._layer(sp["layers"], 0)[
+            "moe"], x2, y, cfg.moe))
+        h = h_k
+        del k_calls, r_calls, ha_k, ha_r, x2, y
+    return attn, moe_errs
+
+
+def moe_decode_vs_forward(torch, cfg, zoo, tf, moe, params, seq, n_prompt,
+                          layers):
+    """Check (c) for a moe stage, layer by layer with teacher forcing (the
+    no-cache forward ("auto") over ``seq`` gives each layer's input H_l).
+    A decode step routes B tokens and the forward B*S, so their capacities
+    and drops differ and whole-layer updates are not compared; instead,
+    for each layer: the prefill path runs H_l over the prompt and builds
+    the cache, the decode path runs positions n_prompt .. S-2 one token at
+    a time; the K/V ring buffers they wrote must equal the forward's
+    rotated K/V at positions 0 .. S-2 within KV_RTOL of the max; the
+    attention update at positions n_prompt-1 .. S-2 must equal the
+    forward's within LAYER_RTOL; each decode step's MoE half is held to
+    float64 as in (b) (T=B, cap 1).  Returns (attention, K/V and MoE
+    errors a layer, positions checked)."""
+    B, S = seq.shape
+    steps = S - n_prompt - 1
+    lo, hi = n_prompt - 1, S - 1
+    pos = torch.arange(S, dtype=torch.int32, device=seq.device).expand(B, S)
+    ctx = tf.ModelContext(q_chunk=max(S, 64))
+    h = zoo._embed_in(params, cfg, seq, ctx)
+    attn, kv, moe_errs = [], [], []
+    for stage, sp in layers:
+        w = tf._layer(sp["layers"], 0)["moe"]
+        with moe_calls(tf) as f_calls:
+            h_next, fcache, _ = tf.apply_stage_seq(
+                h, sp, stage, cfg, ctx, pos, want_cache=True, cache_len=S)
+        with moe_calls(tf) as p_calls:
+            _, cache, _ = tf.apply_stage_seq(
+                h[:, :n_prompt], sp, stage, cfg, ctx, pos[:, :n_prompt],
+                want_cache=True, cache_len=S)
+        cache["k_pos"] = tf.stage_kpos(B, n_prompt, S, seq.device)
+        p = torch.full((B,), n_prompt, dtype=torch.int32, device=seq.device)
+        with moe_calls(tf) as d_calls:
+            for i in range(steps):
+                t = n_prompt + i
+                _, cache = tf.apply_stage_decode(h[:, t:t + 1], sp, stage,
+                                                 cfg, ctx, p + i, cache)
+        worst = 0.0
+        for _, x2, y in d_calls:
+            worst = max(worst, moe_half_err(torch, moe, w, x2, y, cfg.moe))
+        moe_errs.append(worst)
+        dec = torch.cat([p_calls[0][0][:, -1:]] + [c[0] for c in d_calls],
+                        dim=1)
+        base = h[:, lo:hi]
+        attn.append(rel_max(torch, dec - base, f_calls[0][0][:, lo:hi] - base))
+        kv.append(max(rel_max(torch, cache[n][0][:, :hi], fcache[n][0][:, :hi])
+                      for n in ("k", "v")))
+        h = h_next
+        del f_calls, p_calls, d_calls, cache, fcache, dec, base
+    return attn, kv, moe_errs, hi - lo
+
+
+def moe_lines(torch, cfg, recs, n_steps):
+    """The [moe] lines: per layer of the prefill, and per layer summed over
+    the decode steps, the tokens routed to each expert (max and mean: the
+    paper's load balance), the share of (token, slot) pairs dropped, the
+    aux loss, and the combined buffer's rows E*cap beside the token
+    messages T*k.  ``recs``: moe.record of one prefill and ``n_steps``
+    decode steps."""
+    L, E = cfg.n_layers, cfg.moe.n_experts
+    if len(recs) != L * (1 + n_steps):
+        fail(f"{len(recs)} recorded MoE calls, expected {L} a pass x "
+             f"{1 + n_steps} passes")
+    load = torch.stack([r["load"] for r in recs]).cpu().reshape(
+        1 + n_steps, L, E)
+    kept = torch.stack([r["kept"] for r in recs]).cpu().reshape(
+        1 + n_steps, L, E)
+    aux = torch.stack([r["aux"] for r in recs]).cpu().reshape(1 + n_steps, L)
+    rows, pairs = recs[0]["rows"], recs[0]["pairs"]
+    out = {"prefill": [], "decode": []}
+    for li in range(L):
+        ld = load[0, li].double()
+        drop = 1.0 - float(kept[0, li].sum()) / pairs
+        out["prefill"].append({"max": int(ld.max()), "mean": float(ld.mean()),
+                               "dropped": drop, "aux": float(aux[0, li])})
+        log(f"[moe] {cfg.name} prefill layer {li}: tokens per expert max "
+            f"{int(ld.max())}, mean {float(ld.mean()):.1f} (max/mean "
+            f"{float(ld.max() / ld.mean()):.3f}), dropped {100 * drop:.2f}% "
+            f"of {pairs} (token, slot) pairs, aux {float(aux[0, li]):.5f}; "
+            f"combined buffer {rows} rows (E*cap, cap {recs[0]['cap']}) for "
+            f"{pairs} token messages (T*k)")
+    d_rows = sum(r["rows"] for r in recs[L:]) // L
+    d_pairs = sum(r["pairs"] for r in recs[L:]) // L
+    for li in range(L):
+        ld = load[1:, li].sum(0).double()
+        drop = 1.0 - float(kept[1:, li].sum()) / d_pairs
+        out["decode"].append({"max": int(ld.max()), "mean": float(ld.mean()),
+                              "dropped": drop,
+                              "aux": float(aux[1:, li].mean())})
+        log(f"[moe] {cfg.name} decode layer {li}, summed over {n_steps} "
+            f"steps: tokens per expert max {int(ld.max())}, mean "
+            f"{float(ld.mean()):.2f}, dropped {100 * drop:.2f}% of {d_pairs}"
+            f" pairs (cap {recs[L]['cap']} a step), aux mean "
+            f"{float(aux[1:, li].mean()):.5f}; buffer rows {d_rows} for "
+            f"{d_pairs} token messages")
+    return out
+
+
+def decode_bytes(zoo, cfg, params, B, ctx_len):
+    """Bytes one decode step must read: every weight it uses (each layer's
+    leaves but the mirrored experts', which one device never reads, the
+    final norm and the output embedding; B rows of the input embedding)
+    and the K/V ring buffers of ``ctx_len`` slots, which its attention
+    reads whole."""
+    n = sum(t.numel() for path, t in zoo._leaves(params["stages"])
+            if not str(path[-1]).endswith("_m"))
+    n += params["final_norm"].numel() + params["out_embed"].numel()
+    n += B * cfg.d_model
+    n += 2 * cfg.n_layers * B * ctx_len * cfg.n_kv_heads * cfg.hd
+    return 4 * n
+
+
+def prefill_ops(cfg, B, S):
+    """Operations of one prefill: the q/k/v/o products, attention (causal
+    pairs), the router, the experts over the whole combined buffer (E*cap
+    rows: the static design computes empty slots too) and the last
+    position's logits."""
+    T, D, H, K, hd = B * S, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    E, k, F = cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_ff_expert
+    cap = max(1, int(cfg.moe.capacity_factor * T * k / E))
+    layer = (4 * T * D * H * hd + 4 * T * D * K * hd
+             + 4 * hd * (S * (S + 1) // 2) * B * H
+             + 2 * T * D * E + 6 * E * cap * D * F)
+    return cfg.n_layers * layer + 2 * B * D * cfg.padded_vocab(1)
+
+
+def olmoe_path(torch, np, args, dev, phases):
+    """Phase 13: OLMoE-1B-7B at full width (16 layers, d_model 2048, 16/16
+    heads of dim 128, 64 experts top-8 of d_ff 1024, capacity 1.25, vocab
+    50,304; float32, random weights from torch.Generator(seed) on the
+    card) serves B=4 random prompts of 2048 tokens: prefill, then 63
+    greedy decode steps, through model_zoo.prefill / decode_step.  Checks:
+    16 flash launches (d=128) in the prefill, none in decode; finite
+    logits, the padded vocabulary at -2^30; (b) and (c) in their moe forms
+    on the first OLMOE_CHECK_LAYERS layers; the kernel on layer 0's
+    recorded inputs against the float64 plain version, timed beside the
+    plain version and SDPA.  Returns {"launches", "rows", "prefill_ms",
+    "prefill_bound_ms", "decode_ms", "decode_bound_ms", "busy_ms",
+    "peak_gib", "moe"}."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config(OLMOE_ARCH)
+    mc = cfg.moe
+    torch.cuda.reset_peak_memory_stats()
+    params = phases.run("olmoe-init", lambda: zoo.init_params(
+        cfg, torch.Generator(dev).manual_seed(args.seed), dev))
+    torch.cuda.synchronize()
+    n_par = zoo.n_params(params)
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, hd {cfg.hd}, "
+        f"{mc.n_experts} experts top-{mc.top_k} of d_ff {mc.d_ff_expert}, "
+        f"capacity factor {mc.capacity_factor}, {mc.n_mirrored_experts} "
+        f"mirrored, vocab {cfg.vocab} (padded {cfg.padded_vocab(1)}); "
+        f"{n_par:,} parameters float32 ({4 * n_par / 1e9:.2f} GB; "
+        f"param_counts()['total'] {cfg.param_counts()['total']:,} without "
+        "the mirrored leaf the layout keeps)")
+    B, S, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    rng = np.random.RandomState(args.seed)
+    prompts = torch.from_numpy(
+        rng.randint(0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
+    ctx = tf.ModelContext(q_chunk=max(S, 64))
+    n_attn = cfg.n_layers
+
+    def serve():
+        with torch.no_grad():
+            logits, cache = zoo.prefill(params, cfg, ctx, prompts,
+                                        max_len=S + G)
+            step_logits, toks = [logits], [zoo.greedy(logits)]
+            for _ in range(G - 1):
+                logits, cache = zoo.decode_step(params, cfg, ctx, toks[-1],
+                                                cache)
+                step_logits.append(logits)
+                toks.append(zoo.greedy(logits))
+        return step_logits, torch.cat(toks, dim=1), cache
+
+    # the untimed warm run also records the routing of every MoE call
+    moe.record = []
+    try:
+        phases.run("olmoe-warm", serve)
+        torch.cuda.synchronize()
+        recs = moe.record
+    finally:
+        moe.record = None
+    fk.flash_attention_bhsd.launches = 0             # the path starts here
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(G + 1)]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ev[0].record()
+        logits, cache = zoo.prefill(params, cfg, ctx, prompts, max_len=S + G)
+        ev[1].record()
+        pre_launches = fk.flash_attention_bhsd.launches
+        step_logits, toks = [logits], [zoo.greedy(logits)]
+        for i in range(G - 1):
+            logits, cache = zoo.decode_step(params, cfg, ctx, toks[-1], cache)
+            ev[i + 2].record()
+            step_logits.append(logits)
+            toks.append(zoo.greedy(logits))
+        gen_toks = torch.cat(toks, dim=1)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = fk.flash_attention_bhsd.launches       # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    decode_ms = [ev[i + 1].elapsed_time(ev[i + 2]) for i in range(G - 1)]
+    step_bytes = decode_bytes(zoo, cfg, params, B, S + G)
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    expert_ms = (4 * cfg.n_layers * 3 * mc.n_experts * cfg.d_model
+                 * mc.d_ff_expert / HBM_BYTES_PER_S * 1e3)
+    pre_bound_ms = prefill_ops(cfg, B, S) / FP32_OPS_PER_S * 1e3
+    log(f"[serve] {cfg.name}: batch={B} prompt={S} gen={G}: prefill "
+        f"{prefill_ms:.3f} ms device ({B * S / prefill_ms * 1e3:.0f} prompt "
+        f"tokens/s; its products' bound {pre_bound_ms:.3f} ms at "
+        f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s float32), decode "
+        f"{float(np.mean(decode_ms)):.3f} ms a step (median "
+        f"{float(np.median(decode_ms)):.3f}, {G - 1} steps) beside its bound "
+        f"{bound_ms:.3f} ms ({step_bytes / 1e9:.3f} GB a step at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; the experts' weights alone "
+        f"{expert_ms:.3f} ms), {host_s:.3f} s host for the request "
+        f"({B * G / host_s:.1f} generated tokens/s); peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"[serve] {cfg.name} launches in the counted run: prefill "
+        f"{pre_launches} flash (d={cfg.hd}), decode "
+        f"{launches - pre_launches} flash")
+    if pre_launches != n_attn or launches != pre_launches:
+        fail(f"{cfg.name}: {pre_launches} flash launches in the prefill, "
+             f"{launches} in all, expected {n_attn} and none in decode: the "
+             "path did not go through the kernel")
+    for i, lg in enumerate(step_logits):
+        if not bool(torch.isfinite(lg).all()):
+            fail(f"{cfg.name}: non-finite logits at step {i}")
+    pad = step_logits[0][:, cfg.vocab:]
+    if pad.numel() and not bool((pad == -2.0 ** 30).all()):
+        fail(f"{cfg.name}: the padded vocabulary's logits are not -2^30")
+    log(f"[serve] {cfg.name} sample generations (token ids): "
+        f"{gen_toks[0, :16].tolist()}")
+    routing = moe_lines(torch, cfg, recs, G - 1)
+    del recs
+    prof = phases.run("olmoe-profile-prefill", profile_kernels, torch,
+                      lambda: zoo.prefill(params, cfg, ctx, prompts,
+                                          max_len=S + G),
+                      f"{cfg.name} prefill")
+    busy = sum(us for _, us in prof.values())
+    phases.run("olmoe-profile-decode", profile_kernels, torch,
+               lambda: zoo.decode_step(params, cfg, ctx, toks[-1], cache),
+               f"{cfg.name} decode step")
+    del step_logits, cache
+
+    # the kernel at the path's shapes: layer 0's launch
+    seen = phases.run("olmoe-record", record_launches, {"flash": fk},
+                      lambda: zoo.prefill(params, cfg, ctx, prompts,
+                                          max_len=S + G))["flash"]
+    if len(seen) != n_attn:
+        fail(f"{cfg.name}: {len(seen)} recorded launches, expected {n_attn}")
+    rows = phases.run("olmoe-flash-timing", flash_rows, torch, seen[:1], fk,
+                      flash_attention_ref, PLAIN_FACTOR)
+    del seen
+    r = rows[0]
+    r.update(launch=f"{cfg.name} layer0", model=cfg.name)
+    if r["d"] != 128 or r["window"]:
+        fail(f"{cfg.name}: a flash launch at d={r['d']}, window "
+             f"{r['window']}")
+    log(f"[check] {cfg.name} (a) the kernel on layer 0's prefill inputs "
+        f"against the float64 plain version: |err|/max|v| "
+        f"{r['rel_err']:.3g} (plain {r['plain_rel_err']:.3g})")
+    flash_kinds(rows, f" {cfg.name}")
+    log(f"[kernel] flash_attention {r['launch']} (window {r['window']}, "
+        f"BH={r['BH']}, S={r['S']}, d={r['d']}, n_rep={r['n_rep']}): kernel "
+        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, SDPA "
+        f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms; |err| "
+        f"from float64: kernel {r['max_abs_err']:.3g}, plain "
+        f"{r['plain_err']:.3g}, SDPA {r['library_err']:.3g}")
+
+    # (b) and (c) in their moe forms
+    checked = one_layer_stages(params, cfg)[:OLMOE_CHECK_LAYERS]
+    with torch.no_grad():
+        attn_b, moe_b = phases.run(
+            "olmoe-kernels-vs-plain", moe_kernels_vs_plain, torch, cfg, zoo,
+            tf, moe, params, prompts, checked)
+        seq = torch.cat([prompts, gen_toks], dim=1)
+        attn_c, kv_c, moe_c, n_pos = phases.run(
+            "olmoe-decode-vs-forward", moe_decode_vs_forward, torch, cfg, zoo,
+            tf, moe, params, seq, S, checked)
+    log(f"[check] {cfg.name} (b) layers 0..{OLMOE_CHECK_LAYERS - 1}, each on "
+        f"the kernel run's input: attention update, kernel vs plain, "
+        + ", ".join(f"{e:.2g}" for e in attn_b) + f" (limit {LAYER_RTOL}); "
+        "MoE half vs its float64 recomputation on the same idx and keep "
+        + ", ".join(f"{e:.2g}" for e in moe_b) + f" (limit {MOE_RTOL})")
+    log(f"[check] {cfg.name} (c) prefill + decode vs the no-cache forward "
+        f"over {S + G} tokens, teacher-forced at {n_pos} positions: K/V ring "
+        "buffers " + ", ".join(f"{e:.2g}" for e in kv_c)
+        + f" (limit {KV_RTOL}); attention update "
+        + ", ".join(f"{e:.2g}" for e in attn_c) + f" (limit {LAYER_RTOL}); "
+        f"each decode step's MoE half (T={B}) vs float64 "
+        + ", ".join(f"{e:.2g}" for e in moe_c) + f" (limit {MOE_RTOL}); "
+        "whole-layer updates are not compared: a decode step's capacity "
+        "(T=B) is not the forward's (T=B*S)")
+    for name, errs, lim in (("(b) attention", attn_b, LAYER_RTOL),
+                            ("(b) MoE half", moe_b, MOE_RTOL),
+                            ("(c) K/V", kv_c, KV_RTOL),
+                            ("(c) attention", attn_c, LAYER_RTOL),
+                            ("(c) decode MoE half", moe_c, MOE_RTOL)):
+        for li, e in enumerate(errs):
+            if not e <= lim:
+                fail(f"{cfg.name} layer {li}: {name} differs by {e:.3g} of "
+                     f"its max (limit {lim})")
+    del params, checked, seq
+    torch.cuda.empty_cache()
+    return {"launches": launches, "rows": rows, "prefill_ms": prefill_ms,
+            "prefill_bound_ms": pre_bound_ms,
+            "decode_ms": float(np.mean(decode_ms)),
+            "decode_bound_ms": bound_ms, "busy_ms": busy / 1e3,
+            "peak_gib": peak / 2**30, "moe": routing}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: moe_ffn_ep on spawned ranks
+# ---------------------------------------------------------------------------
+
+def moe_spawns(count: int):
+    """Phase 14's spawn: (backend, world size): NCCL with a card a rank
+    where the machine has MOE_EP_RANKS cards, else gloo with every rank on
+    cuda:0 (gloo stages each collective through the host)."""
+    return ("nccl" if count >= MOE_EP_RANKS else "gloo"), MOE_EP_RANKS
+
+
+def moe_layer(torch, mcfg, d_model, seed, dev):
+    """One MoE layer's weights at full width (the init recipe: normal /
+    sqrt(shape[-2])), the mirrored copies tied to experts 0-1, and
+    MOE_EP_TOKENS unit-variance tokens, from torch.Generator(seed) on
+    ``dev``."""
+    import math
+    g = torch.Generator(dev).manual_seed(seed)
+    D, E, F = d_model, mcfg.n_experts, mcfg.d_ff_expert
+
+    def normal(shape):
+        return torch.randn(shape, generator=g, device=dev) / math.sqrt(
+            shape[-2])
+    w = {"router": normal((D, E)), "w_gate": normal((E, D, F)),
+         "w_up": normal((E, D, F)), "w_down": normal((E, F, D))}
+    for n in ("w_gate", "w_up", "w_down"):
+        w[n + "_m"] = w[n][:2]
+    return w, torch.randn((MOE_EP_TOKENS, D), generator=g, device=dev)
+
+
+def moe_rank_reference(torch, moe, xs, w, mcfg):
+    """One device's computation of a rank's token slice under the rank's
+    semantics: its cap (from its T_loc), the same mirror mask, the
+    combined buffer through all E experts, and the mirrored experts
+    dense-gated (the port's _pack, _expert_mlp and _unpack)."""
+    T, D = xs.shape
+    E, k, n_m = mcfg.n_experts, mcfg.top_k, mcfg.n_mirrored_experts
+    cap = max(1, int(mcfg.capacity_factor * T * k / E))
+    gates, idx, _ = moe.router_probs(xs, w["router"], k)
+    mirrored = torch.arange(E, device=xs.device) < n_m
+    buf, bg, bt = moe._pack(xs, idx, gates, E, cap, mirrored)
+    out = moe._unpack(moe._expert_mlp(buf, w["w_gate"], w["w_up"],
+                                      w["w_down"]), bg, bt, T, D)
+    for j in range(n_m):
+        g = ((idx == j) * gates).sum(-1)
+        out = out + moe._expert_mlp(xs, w["w_gate_m"][j], w["w_up_m"][j],
+                                    w["w_down_m"][j]) * g[:, None]
+    return out
+
+
+def moe_rank(rank, D, backend, init_method, seed, out_path):
+    """One rank of phase 14: joins the group, builds the layer from
+    ``seed``, runs moe_ffn_ep on its token slice with n_mirrored_experts
+    0 and 2, then the same slice on its device alone (and, unmirrored,
+    moe_ffn_ref); writes its errors and routing counts."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import dataclasses
+    import datetime
+    import pickle
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import moe
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method=init_method, world_size=D, rank=rank,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    try:
+        cfg = get_config(OLMOE_ARCH)
+        w, x = moe_layer(torch, cfg.moe, cfg.d_model, seed, dev)
+        ctx = moe.ep_context(1, D)
+        T_loc = x.shape[0] // D
+        xs = x[rank * T_loc:(rank + 1) * T_loc]
+        out = {"rank": rank, "T_loc": T_loc}
+        with torch.no_grad():
+            for n_m in MOE_EP_MIRRORED:
+                mcfg = dataclasses.replace(cfg.moe, n_mirrored_experts=n_m)
+                moe.moe_ffn_ep(xs, w, mcfg, ctx)        # warm
+                torch.cuda.synchronize()
+                moe.record = []
+                try:
+                    t0 = time.perf_counter()
+                    y, aux = moe.moe_ffn_ep(xs, w, mcfg, ctx)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    rec, = moe.record
+                finally:
+                    moe.record = None
+                want = moe_rank_reference(torch, moe, xs, w, mcfg)
+                res = {"err": rel_max(torch, y, want), "aux": float(aux),
+                       "wall_s": wall, "finite": bool(torch.isfinite(y).all()),
+                       **{k: (v.cpu().tolist() if torch.is_tensor(v) else v)
+                          for k, v in rec.items()}}
+                if n_m == 0:
+                    res["err_ref"] = rel_max(
+                        torch, y, moe.moe_ffn_ref(xs, w, mcfg)[0])
+                out[n_m] = res
+        Path(f"{out_path}.{rank}").write_bytes(pickle.dumps(out))
+    finally:
+        meshlib.destroy()
+
+
+def moe_ep_path(seed):
+    """Phase 14: moe_ffn_ep over MOE_EP_RANKS spawned ranks on one
+    full-width OLMoE MoE layer (E=64, D=2048, F=1024) at MOE_EP_TOKENS
+    tokens.  Gates: every rank's output within EP_RTOL of its slice on one
+    device under the rank's own cap and mirror mask (unmirrored: of
+    moe_ffn_ref on the slice), finite, every rank's aux the same; the
+    mirrored run's occupied send-buffer rows fewer than the unmirrored
+    run's by exactly the pairs that run kept for experts 0-1.  Prints the
+    occupied rows against the buffer's E*cap, the bytes each all_to_all
+    moves (the buffer's static shape: the same with mirroring) and
+    moe_mirror_threshold at these shapes with the card's ratio."""
+    import pickle
+    import tempfile
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.cost_model import moe_mirror_threshold
+    from repro_torch.launch.graph_run import rendezvous, spawn_ranks
+    backend, D = moe_spawns(torch.cuda.device_count())
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn_ranks(moe_rank, (D, backend, rendezvous(tmp), seed,
+                               str(Path(tmp) / "rank")), D, MOE_JOIN_S)
+        wall = time.perf_counter() - t0
+        outs = [pickle.loads((Path(tmp) / f"rank.{r}").read_bytes())
+                for r in range(D)]
+    cfg = get_config(OLMOE_ARCH)
+    Dm, F = cfg.d_model, cfg.moe.d_ff_expert
+    fpb = FP32_OPS_PER_S / HBM_BYTES_PER_S
+    summary = {"backend": backend, "D": D, "wall_s": wall, "ranks": []}
+    for o in outs:
+        plain, mirr = o[0], o[2]
+        for n_m in MOE_EP_MIRRORED:
+            res = o[n_m]
+            if not (res["finite"] and res["err"] <= EP_RTOL
+                    and res.get("err_ref", 0.0) <= EP_RTOL):
+                fail(f"[moe-ep] rank {o['rank']} n_m={n_m}: |y - one "
+                     f"device| {res['err']:.3g} (moe_ffn_ref "
+                     f"{res.get('err_ref', 0.0):.3g}) of max, finite "
+                     f"{res['finite']} (limit {EP_RTOL})")
+            if res["aux"] != outs[0][n_m]["aux"]:
+                fail(f"[moe-ep] n_m={n_m}: rank {o['rank']}'s aux "
+                     f"{res['aux']} differs from rank 0's")
+        gone = sum(plain["kept"][:2])
+        if mirr["occupied"] != plain["occupied"] - gone:
+            fail(f"[moe-ep] rank {o['rank']}: {mirr['occupied']} occupied "
+                 f"rows mirrored, {plain['occupied']} unmirrored, whose "
+                 f"experts 0-1 kept {gone} pairs")
+        wire = plain["rows"] * Dm * 4
+        thr = moe_mirror_threshold(o["T_loc"], D, Dm, F, flops_per_byte=fpb)
+        thr_ref = moe_mirror_threshold(o["T_loc"], D, Dm, F)
+        hot = max(plain["load"])
+        log(f"[moe-ep] rank {o['rank']} ({backend}, {D} ranks, T_loc "
+            f"{o['T_loc']}, cap {plain['cap']}): send buffer {plain['rows']} "
+            f"rows (E*cap), occupied {plain['occupied']} unmirrored, "
+            f"{mirr['occupied']} with experts 0-1 mirrored ({gone} pairs "
+            f"served locally); each all_to_all moves {wire / 2**20:.1f} MiB "
+            "a rank either way (the buffer's static shape: the same "
+            f"mirrored); |y - one device| {plain['err']:.3g} / "
+            f"{mirr['err']:.3g} (moe_ffn_ref {plain['err_ref']:.3g}); "
+            f"hottest expert {hot} pairs against moe_mirror_threshold "
+            f"{thr:.1f} at flops_per_byte {fpb:.1f} (the card's float32 "
+            f"ratio; {thr_ref:.1f} at the reference's default 240); step "
+            f"{plain['wall_s'] * 1e3:.1f} / {mirr['wall_s'] * 1e3:.1f} ms "
+            "host clock"
+            + (" (gloo stages through the host)" if backend == "gloo" else ""))
+        summary["ranks"].append({
+            "rank": o["rank"], "rows": plain["rows"],
+            "occupied": plain["occupied"],
+            "occupied_mirrored": mirr["occupied"],
+            "err": max(plain["err"], mirr["err"]), "threshold": thr,
+            "hottest": hot})
+    log(f"[check] moe_ffn_ep on {D} spawned ranks ({backend}) == one device "
+        f"under each rank's cap and mirror mask (limit {EP_RTOL}); mirroring "
+        "experts 0-1 removes exactly their kept pairs from every send "
+        f"buffer; {wall:.1f} s of spawned program")
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the resident graph service
 # ---------------------------------------------------------------------------
 
@@ -3350,7 +4015,7 @@ def same_answers(np, want, got, tag):
     return worst
 
 
-def service_path(torch, np, args, dev, phases):
+def service_path(torch, np, args, dev, phases, spawned_ranks):
     """Phase 9: the resident graph service at serve_graph's defaults
     (powerlaw n=200k, avg_deg 8, weighted, symmetrized; M=32, csr,
     balance edges, buckets 4/16/64, PPR 20 iterations) on an in-process
@@ -3361,8 +4026,9 @@ def service_path(torch, np, args, dev, phases):
     mutated graph, the executor counter flat across the batch and the
     fold, the tables' storage kept, epoch 1 with no answer straddling the
     fold, no kernel launched (the service runs backend "dense"); then
-    the same program on SERVICE_RANKS spawned ranks must give world size
-    1's answers and statistics."""
+    the same program on SERVICE_RANKS spawned ranks (``spawned_ranks``,
+    ``service_ranks_run``'s result, run earlier beside a host-only phase)
+    must give world size 1's answers and statistics."""
     import datetime
     import torch.distributed as dist
     from repro_torch.api import Engine, EngineConfig
@@ -3513,8 +4179,7 @@ def service_path(torch, np, args, dev, phases):
     finally:
         meshlib.destroy()
     torch.cuda.empty_cache()
-    spawned = phases.run("service-ranks", service_many, torch, np, args,
-                         one)
+    spawned = service_many(np, one, spawned_ranks)
     return {"boot_s": boot_s, "warm_s": warm_s, "traces": traces,
             "batch_ms_host": rd["pre_s"] * 1e3, "batch_ms_device":
             rd["pre_ms"], "supersteps": lp["n_supersteps"],
@@ -3538,10 +4203,10 @@ def service_spawns(count: int):
     return ("nccl" if count >= SERVICE_RANKS else "gloo"), SERVICE_RANKS
 
 
-def service_many(torch, np, args, one):
-    """The service's client program on SERVICE_RANKS spawned ranks: rank
-    0's answers and statistics must equal world size 1's (SSSP and ego
-    bitwise, PPR within SERVICE_PPR_RTOL of its max)."""
+def service_ranks_run(torch, args):
+    """The service's client program on SERVICE_RANKS spawned ranks (each
+    builds the graph from ``args.seed``): (backend, D, wall seconds, rank
+    0's answers and statistics)."""
     import pickle
     import tempfile
     from repro_torch.launch.graph_run import rendezvous, spawn_ranks
@@ -3552,7 +4217,14 @@ def service_many(torch, np, args, one):
         spawn_ranks(service_rank, (D, backend, rendezvous(tmp), args.seed,
                                    str(out)), D, SHARDED_JOIN_S)
         wall = time.perf_counter() - t0
-        got = pickle.loads(out.read_bytes())
+        return backend, D, wall, pickle.loads(out.read_bytes())
+
+
+def service_many(np, one, spawned):
+    """Rank 0's answers and statistics of ``service_ranks_run`` must equal
+    world size 1's (SSSP and ego bitwise, PPR within SERVICE_PPR_RTOL of
+    its max)."""
+    backend, D, wall, got = spawned
     worst = 0.0
     for key in ("pre", "post"):
         worst = max(worst, same_answers(np, one[key], got[key],
@@ -3916,24 +4588,38 @@ def main():
                           kernel, ref_fn, dev, args.seed)
     vec_err = phases.run("vec-kernel-vs-plain", random_vec_cases, torch, np,
                          kernel, ref_fn, dev, args.seed)
-    # phases 10 and 11 run the launchers in processes of their own,
-    # beside phase 3's host-only graph build and partition, and are waited
-    # for before any timed device work
+    # phases 10, 11 and 14 run the launchers and the expert-parallel
+    # ranks in processes of their own, beside phase 3's host-only graph
+    # build and partition, and are waited for before any timed device work
     from concurrent.futures import ThreadPoolExecutor
     pool = ThreadPoolExecutor(max_workers=1)
     launchers_run = pool.submit(lambda: {
         "shard_check": phases.run("shard-check", shard_check_path),
-        "dist_smoke": phases.run("dist-smoke", dist_smoke_path)})
+        "dist_smoke": phases.run("dist-smoke", dist_smoke_path),
+        "moe_ep": phases.run("moe-ep", moe_ep_path, args.seed)})
+    # phase 3c's ranks and phase 9's spawned ranks (card work that is not
+    # timed) run beside the host-only oracles of phase 3 and the split
+    # partition of phase 3b, each waited for at the end of its window
+    side = ThreadPoolExecutor(max_workers=1)
+    beside_runs = {}
+
+    def beside(name, fn, *a):
+        def start():
+            beside_runs[name] = side.submit(phases.run, name, fn, *a)
+            return beside_runs[name].result
+        return start
     mods = (api, structs, gen, cost_model, planlib, kernel)
     g, A, pg, launches, algos, runs, rr_algos = main_path(
-        torch, np, mods, args, dev, phases, ready=launchers_run.result)
+        torch, np, mods, args, dev, phases, ready=launchers_run.result,
+        beside=beside("sharded-D", sharded_many, torch, args))
     launchers = launchers_run.result()
     pool.shutdown()
     phases.run("sv-2^24", large_ids, torch, np, api, structs, kernel, dev)
     sharded_row = sharded_one(torch, np, mods, pg, runs, algos + rr_algos,
                               ref_fn, dev, phases)
     mode_launches, replays, pgs = sharded_modes(
-        torch, np, mods, g, pg, runs, algos + rr_algos, ref_fn, dev, phases)
+        torch, np, mods, g, pg, runs, algos + rr_algos, ref_fn, dev, phases,
+        beside=beside("service-ranks", service_ranks_run, torch, args))
     del runs
     from repro_torch.core import exec as exec_mod
     balance = phases.run("balance", balance_lines, np, exec_mod, pg, pgs,
@@ -3941,7 +4627,7 @@ def main():
     torch.cuda.empty_cache()
     sharded_row.update(modes=mode_launches, replay_split=replays["split"],
                        replay_pipeline=replays["pipeline"], balance=balance)
-    summary_3c = phases.run("sharded-D", sharded_many, torch, args)
+    summary_3c = beside_runs["sharded-D"].result()
     (vec_launches, gcn_peak, inputs, params0, gcn_runs, gcn_ms,
      gcn_added) = gcn_path(torch, np, args, dev, phases, g, A, pg)
     del g, A
@@ -3975,22 +4661,31 @@ def main():
     torch.cuda.empty_cache()
     serve_entries = serve_path(torch, np, args, dev, phases)
     gemma = gemma_path(torch, np, args, dev, phases)
-    service = service_path(torch, np, args, dev, phases)
+    olmoe = olmoe_path(torch, np, args, dev, phases)
+    service = service_path(torch, np, args, dev, phases,
+                           beside_runs["service-ranks"].result())
+    side.shutdown()
     flash = serve_entries[0]
     for r in flash["per_launch"]:
         r["model"] = LM_ARCH
     flash["launches_by_model"] = {LM_ARCH: flash["launches"],
-                                  GEMMA_ARCH: gemma["launches"]}
-    flash["launches"] += gemma["launches"]
-    flash["per_launch"] += gemma["rows"]
-    flash["max_abs_err"] = max([flash["max_abs_err"]]
-                               + [r["max_abs_err"] for r in gemma["rows"]])
+                                  GEMMA_ARCH: gemma["launches"],
+                                  OLMOE_ARCH: olmoe["launches"]}
+    flash["launches"] += gemma["launches"] + olmoe["launches"]
+    flash["per_launch"] += gemma["rows"] + olmoe["rows"]
+    flash["max_abs_err"] = max(
+        [flash["max_abs_err"]]
+        + [r["max_abs_err"] for r in gemma["rows"] + olmoe["rows"]])
     flash["timed"] = (f"ms, plain_ms, bound_ms and library_ms sum the "
                       f"{LM_ARCH} prefill's {flash['launches_by_model'][LM_ARCH]}"
                       f" launches; {GEMMA_ARCH}: its first window and first "
-                      "global layer's launches (per_launch rows)")
+                      f"global layer's launches, {OLMOE_ARCH}: its layer 0's "
+                      "launch (per_launch rows)")
     flash[GEMMA_ARCH] = {k: gemma[k] for k in ("prefill_ms", "decode_ms",
                                                "busy_ms", "peak_gib")}
+    flash[OLMOE_ARCH] = {k: olmoe[k] for k in (
+        "prefill_ms", "prefill_bound_ms", "decode_ms", "decode_bound_ms",
+        "busy_ms", "peak_gib")}
     import resource
     host_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
     log(f"[device] peak device memory of the GCN path "
@@ -4065,6 +4760,7 @@ def main():
         f"; {ratio_text(vec_entry)}")
     log(f"[service] summary {json.dumps(service)}")
     log(f"[launchers] summary {json.dumps(launchers)}")
+    log(f"[moe] summary {json.dumps(olmoe['moe'])}")
     log(json.dumps({"kernels": [entry, vec_entry] + serve_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}),

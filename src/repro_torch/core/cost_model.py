@@ -18,7 +18,8 @@ partitions a run of physical shards over devices minimizing the bottleneck.
 ``straggler_report`` quantifies the imbalance that remains (Figs. 1/2).
 
 A numpy copy of ``repro.core.cost_model`` (the port imports nothing of the
-JAX package), without the MoE expert-mirroring threshold.
+JAX package), with the MoE expert-mirroring threshold
+(``moe_mirror_threshold``, the Theorem-2 analog of ``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -422,3 +423,37 @@ def _gini(x: np.ndarray) -> float:
     n = len(xs)
     cum = np.cumsum(xs)
     return float((n + 1 - 2 * (cum / cum[-1]).sum()) / n)
+
+
+# ---------------------------------------------------------------------------
+# Theorem-2 analog for MoE expert mirroring
+# ---------------------------------------------------------------------------
+
+def moe_mirror_threshold(tokens_per_rank: int, ep_size: int, d_model: int,
+                         d_ff: int, steps_between_rebalance: int = 1,
+                         flops_per_byte: float = 240.0) -> float:
+    """Expert-mirroring break-even load (tokens a step routed to the
+    expert).
+
+    Mirroring an expert costs (a) broadcasting its weights (3*d_model*d_ff
+    values every ``steps_between_rebalance`` steps, times ep_size ranks)
+    and (b) the dense-gated overcompute: every rank runs the mirrored
+    expert over ALL its local tokens, 6*d_model*d_ff flops each, turned
+    into byte-equivalents by ``flops_per_byte``.  It saves moving the
+    expert's remote tokens (d_model values, dispatch + combine).
+
+    Break-even: load * 2 * d_model * (1 - 1/ep_size)
+                >= 3*d_model*d_ff*ep_size/steps
+                   + tokens_per_rank * 6*d_model*d_ff / flops_per_byte.
+
+    ``flops_per_byte=240.0`` is the reference's default, kept so that the
+    two packages agree for the same arguments; it describes no particular
+    card.  An H100's float32 ratio is 67e12 / 3.35e12 = 20 operations a
+    byte of device memory.  For aux-loss-balanced routers the load,
+    about tokens_per_rank*k/E, stays far below this threshold: mirroring
+    pays only under real skew, the paper's Theorem-2 regime.
+    """
+    save_per_token = 2.0 * d_model * (1.0 - 1.0 / ep_size)
+    bcast = 3.0 * d_model * d_ff * ep_size / max(steps_between_rebalance, 1)
+    overcompute = tokens_per_rank * 6.0 * d_model * d_ff / flops_per_byte
+    return (bcast + overcompute) / save_per_token

@@ -21,11 +21,11 @@ launchers, so no port is picked and then raced.  The store lives until
 every launcher has reported its ranks done.  ``--init-method`` (a
 ``file://`` or ``tcp://`` URL) replaces the store.
 
-Devices: ``--device cpu`` runs gloo on the CPU.  ``--device cuda`` (the
-default when a card is present) runs NCCL with a card a rank when the
-machine has a card for every rank of the world, else gloo with rank t of
-a host on the host's card t (modulo its cards).  A launcher asked for
-cuda that finds no card raises.
+Devices: ``--device cuda`` (the default) runs NCCL with a card a rank
+when the machine has a card for every rank of the world, else gloo with
+rank t of a host on the host's card t (modulo its cards).  A launcher
+asked for cuda that finds no card raises: there is no fallback to the
+CPU, which ``--device cpu`` (gloo) asks for.
 
     PYTHONPATH=src python -m repro_torch.launch.dist_smoke \\
         --hosts 2 --per-host 2 --device cpu
@@ -209,8 +209,9 @@ def build_parser():
                          "the launchers' store")
     ap.add_argument("--n", type=int, default=400)
     ap.add_argument("--workers", type=int, default=8)
-    ap.add_argument("--device", choices=("cpu", "cuda"), default=None,
-                    help="cuda (default when a card is present) or cpu")
+    ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
+                    help="cuda (the default; raises when no card is "
+                         "visible) or cpu")
     ap.add_argument("--timeout", type=int, default=600)
     ap.add_argument("--rank", type=int, default=None,
                     help=argparse.SUPPRESS)  # internal: launcher re-exec
@@ -221,8 +222,6 @@ def build_parser():
 def main(argv=None) -> None:
     import torch
     args = build_parser().parse_args(argv)
-    if args.device is None:
-        args.device = "cuda" if torch.cuda.is_available() else "cpu"
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is visible")
     if args.rank is not None:

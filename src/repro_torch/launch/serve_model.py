@@ -5,8 +5,11 @@ KV/SSM caches, on one device (``--device``, the GPU by default).
         --arch hymba_1_5b --reduced --batch 4 --prompt-len 32 --gen 32
 
 The same flags and ``[serve]`` lines as ``repro.launch.serve_model``.  The
-stage kinds ``dense``, ``ssm`` and ``hybrid`` run (tinyllama, mamba2,
-hymba); MoE and encoder-decoder architectures come with a later slice.
+stage kinds ``dense``, ``ssm``, ``hybrid`` and ``moe`` run (tinyllama,
+mamba2, hymba, gemma3, olmoe, llama4 scout); encoder-decoder
+architectures come with a later slice.  OLMoE-1B-7B serves at full width
+on one 80 GB card (``--arch olmoe_1b_7b --no-reduced``, 28 GB of float32
+weights); ``--reduced --device cpu`` serves its smoke config on the CPU.
 The weights are random, drawn from ``torch.Generator(device)`` seeded with
 ``seed``; the prompts are drawn with numpy as the reference draws them.
 """

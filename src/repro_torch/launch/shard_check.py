@@ -49,12 +49,12 @@ world size.  The cells are grouped by world size (8 serves ``8`` and
 world is one spawn of ranks (``graph_run.spawn_ranks``) meeting through
 a file store; every rank runs every cell of its world, rank 0 also runs
 the single-device side, prints and writes its report.  ``--device
-cuda`` (the default when a card is present) gives NCCL with a card a
-rank where there are enough cards, else gloo with every rank on cuda:0;
-``--device cpu`` gives gloo on the CPU.  On the card each gated program's
-report also holds its peak device bytes (``max_memory_allocated`` after
-``reset_peak_memory_stats``, tables built beforehand); on the CPU they
-are omitted.
+cuda`` (the default) gives NCCL with a card a rank where there are
+enough cards, else gloo with every rank on cuda:0, and raises when no
+card is visible; only ``--device cpu`` gives gloo on the CPU.  On the
+card each gated program's report also holds its peak device bytes
+(``max_memory_allocated`` after ``reset_peak_memory_stats``, tables
+built beforehand); on the CPU they are omitted.
 
     PYTHONPATH=src python -m repro_torch.launch.shard_check --suite tier1 \\
         --device cpu --out shard-parity.json
@@ -959,9 +959,9 @@ def build_parser():
     ap.add_argument("--skip-hlo-check", action="store_true",
                     help="skip the dense all-to-all collective gate of the "
                          "explicit matrix")
-    ap.add_argument("--device", choices=("cpu", "cuda"), default=None,
-                    help="the ranks' devices: cuda (default when a card is "
-                         "present) or cpu (gloo)")
+    ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
+                    help="the ranks' devices: cuda (the default; raises "
+                         "when no card is visible) or cpu (gloo)")
     ap.add_argument("--out", default="")
     return ap
 
@@ -972,7 +972,7 @@ def main(argv=None) -> None:
 
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
-    kind = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    kind = args.device
     if kind == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is visible")
     report = {"cells": {}, "crossness": {}, "reference": {}, "worlds": {}}

@@ -2,7 +2,7 @@
 initialisation, the weights carried across from the JAX package, the full
 forward, and the serving entry points (cache build, prefill, decode) --
 the port of ``repro.models.model_zoo`` for the stage kinds ``dense``,
-``ssm`` and ``hybrid``.
+``ssm``, ``hybrid`` and ``moe``.
 
 Parameters are a nested dict of tensors in the JAX package's layout, every
 per-stage weight stacked on a leading layer axis:
@@ -65,6 +65,16 @@ def _mlp_shapes(cfg: ArchConfig, L: int) -> Dict[str, tuple]:
     return {"w_gate": (L, D, F), "w_up": (L, D, F), "w_down": (L, F, D)}
 
 
+def _moe_shapes(cfg: ArchConfig, L: int) -> Dict[str, tuple]:
+    D, E, F = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff_expert
+    m = max(cfg.moe.n_mirrored_experts, 1)  # the reference keeps a leaf
+    return {"router": (L, D, E),
+            "w_gate": (L, E, D, F), "w_up": (L, E, D, F),
+            "w_down": (L, E, F, D),
+            "w_gate_m": (L, m, D, F), "w_up_m": (L, m, D, F),
+            "w_down_m": (L, m, F, D)}
+
+
 def stage_param_shapes(cfg: ArchConfig, stage: StageSpec) -> Dict[str, Any]:
     L, D = stage.n_layers, cfg.d_model
     out: Dict[str, Any] = {"norm1": (L, D)}
@@ -75,7 +85,10 @@ def stage_param_shapes(cfg: ArchConfig, stage: StageSpec) -> Dict[str, Any]:
     out["attn"] = _attn_shapes(cfg, L)
     if stage.kind == "hybrid":
         out["ssm"] = _ssm_shapes(cfg, L)
-    out["mlp"] = _mlp_shapes(cfg, L)
+    if stage.kind == "moe":
+        out["moe"] = _moe_shapes(cfg, L)
+    else:
+        out["mlp"] = _mlp_shapes(cfg, L)
     return out
 
 
@@ -118,7 +131,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device="cuda",
     """Random initialisation by the JAX package's recipe: zero norms
     (RMSNorm scales by 1 + gamma), ``A_log = log(1..h)``, ``D_skip = 1``,
     ``dt_bias = log(expm1(0.01))``, every other leaf ``normal /
-    sqrt(fan_in)``, and ``out_embed`` tied to ``embed`` when the config
+    sqrt(fan_in)`` with the reference's fan_in ``shape[-2]`` (D for the
+    router and the experts' gate and up weights, F for their down
+    weights), and ``out_embed`` tied to ``embed`` when the config
     ties them.  The normals are drawn from ``generator`` (on its own
     device, leaf by leaf in the reference's flatten order), so they differ
     from ``jax.random``'s for the same seed: to compare with the reference,
@@ -245,7 +260,7 @@ def build_cache(cfg: ArchConfig, B: int, seq_len: int, ctx: ModelContext,
         L = stage.n_layers
         c: Dict[str, Any] = {}
         clen = _stage_cache_len(stage, seq_len)
-        if stage.kind in ("dense", "hybrid"):
+        if stage.kind in ("dense", "hybrid", "moe"):
             c["k"] = mk((L, B, clen, K, hd), dtype)
             c["v"] = mk((L, B, clen, K, hd), dtype)
             c["k_pos"] = mk((B, clen), torch.int32)

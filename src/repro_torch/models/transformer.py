@@ -1,6 +1,6 @@
 """Stage-structured transformer backbone -- the port of
-``repro.models.transformer`` for the stage kinds ``dense``, ``ssm`` and
-``hybrid`` on one device.
+``repro.models.transformer`` for the stage kinds ``dense``, ``ssm``,
+``hybrid`` and ``moe``.
 
 A model is a list of **stages**; each stage is a stack of homogeneous
 layers whose parameters are stacked on a leading axis, exactly as the JAX
@@ -14,23 +14,33 @@ Modes:
   prefill -- the same forward, also emits the KV/SSM caches
   decode  -- one token against the caches (ring-buffer windows, SSM state)
 
-The stage kinds ``moe``, ``enc`` and ``dec_cross`` come with a later slice
-of the port and raise ``NotImplementedError``.
+A ``moe`` stage runs on one device (``moe_ffn_ref``) or, with
+``ModelContext.moe``, expert-parallel over ``torch.distributed``: every
+rank runs the whole model on all the tokens, and each MoE layer hands
+each rank its slice of the tokens (padded to a multiple of the ranks),
+runs ``moe_ffn_ep`` and gathers the slices back, as the reference's
+``shard_map`` does.  The stage's aux loss is the sum of its layers'.
+
+The stage kinds ``enc`` and ``dec_cross`` come with a later slice of the
+port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import (KERNEL_MODES, NEG_INF, AttnSpec,
                                        apply_rope, attn_block, rms_norm,
                                        swiglu)
+from repro_torch.models.moe import MoEContext, moe_ffn_ep, moe_ffn_ref
 from repro_torch.models.ssm import mamba_block
 
-SUPPORTED_KINDS = ("dense", "ssm", "hybrid")
+SUPPORTED_KINDS = ("dense", "ssm", "hybrid", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,22 +80,58 @@ def check_supported(cfg: ArchConfig) -> None:
     for stage in build_stages(cfg):
         if stage.kind not in SUPPORTED_KINDS:
             raise NotImplementedError(
-                f"{cfg.name}: stage kind {stage.kind!r} (MoE, encoder, "
+                f"{cfg.name}: stage kind {stage.kind!r} (encoder, "
                 "cross-attention) comes with a later slice of the port; "
                 f"this one runs {SUPPORTED_KINDS}")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelContext:
-    """Implementation knobs on one device: the plain path's query-chunking
-    threshold (the reference's) and the kernel mode."""
+    """Implementation knobs: the plain path's query-chunking threshold (the
+    reference's), the kernel mode, and the MoE layers' expert parallelism
+    (``moe``; None: one device)."""
     q_chunk: int = 1024
     kernels: str = "auto"          # "auto" | "kernel" | "ref" (layers.py)
+    moe: Optional[MoEContext] = None
 
     def __post_init__(self):
         if self.kernels not in KERNEL_MODES:
             raise ValueError(f"unknown kernel mode {self.kernels!r}; use "
                              f"one of {KERNEL_MODES}")
+
+    @property
+    def n_devices(self) -> int:
+        """The ranks that shard the MoE layers' tokens (1 on one device)."""
+        return 1 if self.moe is None else dist.get_world_size()
+
+
+def _moe_call(x2d, w, cfg: ArchConfig, ctx: ModelContext):
+    """The MoE FFN over (T, D) tokens, T a multiple of ``n_devices``: on one
+    device ``moe_ffn_ref``; under expert parallelism this rank's slice
+    through ``moe_ffn_ep``, the slices then gathered on every rank."""
+    if ctx.moe is None:
+        return moe_ffn_ref(x2d, w, cfg.moe)
+    n = ctx.n_devices
+    T_loc = x2d.shape[0] // n
+    r = dist.get_rank()
+    y, aux = moe_ffn_ep(x2d[r * T_loc:(r + 1) * T_loc], w, cfg.moe, ctx.moe)
+    parts = [torch.empty_like(y) for _ in range(n)]
+    dist.all_gather(parts, y.contiguous())
+    return torch.cat(parts), aux
+
+
+def _moe_update(h, w, cfg: ArchConfig, ctx: ModelContext):
+    """h + the MoE FFN of rms_norm(h, norm2), over the tokens flattened to
+    (T, D) and padded with zero rows to a multiple of ``n_devices``.
+    Returns (h, aux)."""
+    xm = rms_norm(h, w["norm2"], cfg.norm_eps)
+    x2 = xm.reshape(-1, xm.shape[-1])
+    T = x2.shape[0]
+    pad = -T % ctx.n_devices
+    if pad:
+        x2 = F.pad(x2, (0, 0, 0, pad))
+    y, aux = _moe_call(x2, w["moe"], cfg, ctx)
+    return h + y[:T].reshape(h.shape), aux
 
 
 def _attn_spec(cfg: ArchConfig, window: int, ctx: ModelContext) -> AttnSpec:
@@ -123,6 +169,7 @@ def apply_stage_seq(h, sp, stage: StageSpec, cfg: ArchConfig,
     check_supported(cfg)
     spec = _attn_spec(cfg, stage.window, ctx)
     per_layer = []
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(stage.n_layers):
         w = _layer(sp["layers"], i)
         cache = {}
@@ -144,7 +191,12 @@ def apply_stage_seq(h, sp, stage: StageSpec, cfg: ArchConfig,
                 h = h + a + m
             else:
                 h = h + a
-            h = h + swiglu(rms_norm(h, w["norm2"], cfg.norm_eps), w["mlp"])
+            if stage.kind == "moe":
+                h, aux = _moe_update(h, w, cfg, ctx)
+                aux_total = aux_total + aux
+            else:
+                h = h + swiglu(rms_norm(h, w["norm2"], cfg.norm_eps),
+                               w["mlp"])
             if want_cache:
                 kc, vc = _tail_cache(kf, vf, cache_len)
                 cache = {"k": kc, "v": vc}
@@ -152,7 +204,7 @@ def apply_stage_seq(h, sp, stage: StageSpec, cfg: ArchConfig,
                     cache.update(conv=cst, state=sst)
         per_layer.append(cache)
     caches = _stack(per_layer) if want_cache else {}
-    return h, caches, torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, caches, aux_total
 
 
 def _tail_cache(k, v, cache_len: int):
@@ -246,7 +298,10 @@ def apply_stage_decode(h, sp, stage: StageSpec, cfg: ArchConfig,
             h = h + a + m
         else:
             h = h + a
-        h = h + swiglu(rms_norm(h, w["norm2"], cfg.norm_eps), w["mlp"])
+        if stage.kind == "moe":
+            h, _ = _moe_update(h, w, cfg, ctx)
+        else:
+            h = h + swiglu(rms_norm(h, w["norm2"], cfg.norm_eps), w["mlp"])
         nc = {}
         if stage.kind == "hybrid":
             nc.update(conv=cst, state=sst)

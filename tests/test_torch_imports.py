@@ -24,11 +24,12 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         (ROOT / "tests").glob("_torch_*worker.py")) + sorted(
             (ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
-# the launchers and fault tolerance: each a module of its own that must
-# stay free of JAX, also when imported alone
+# the launchers, fault tolerance and the MoE layer: each a module of its
+# own that must stay free of JAX, also when imported alone
 STANDALONE = ("repro_torch.launch.shard_check",
               "repro_torch.launch.dist_smoke",
-              "repro_torch.train.checkpoint", "repro_torch.train.fault")
+              "repro_torch.train.checkpoint", "repro_torch.train.fault",
+              "repro_torch.models.moe")
 
 
 def _imported_roots(path: Path):
@@ -85,6 +86,20 @@ def test_launchers_refuse_cuda_without_a_card(no_cuda):
         shard_check.main(["--suite", "tier1", "--device", "cuda"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dist_smoke.main(["--device", "cuda"])
+
+
+@pytest.mark.skipif(torch.cuda.is_available(),
+                    reason="the default device is usable where CUDA is")
+@pytest.mark.parametrize("module", ["shard_check", "dist_smoke"])
+def test_launchers_default_to_cuda_and_raise_without_a_card(module):
+    """No ``--device``: the launcher asks for the card and raises on a
+    machine without one, never running on the CPU unasked."""
+    from repro_torch.launch import dist_smoke, shard_check
+    launcher = {"shard_check": shard_check, "dist_smoke": dist_smoke}[module]
+    assert launcher.build_parser().parse_args([]).device == "cuda"
+    argv = ["--suite", "tier1"] if module == "shard_check" else []
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher.main(argv)
 
 
 @pytest.fixture
