@@ -9,16 +9,23 @@ Phases; any failure exits non-zero and prints no result:
    (nvidia-smi) and builds the three kernel sources from ``src/``
    (segment_combine, flash_attention, ssd_scan: one nvcc each, started
    together), printing each ``-Xptxas -v`` report.
-2. kernels vs plain: random cases (sum/min/max x int32/float32 x several
-   (eb, nb), eb=0 and eb=2048 with nb=1024 among them, for the vector
-   kernel x F in {1, 3, 32, 64, 130}; -1 padding, indices nb and beyond, a
-   row with every lane on one slot and an all-padding row, values at the
-   int32 bounds and +-inf) against the plain PyTorch version on the same
-   inputs.  Integers and min/max must be bitwise equal; a
-   float32 sum may differ by the summation order, at most 2*eb*2^-24 times
-   the slot's sum of |values| (twice the textbook bound on a recursive sum
-   of eb terms).  F=1 through the vector kernel must equal the scalar
-   kernel bitwise.
+2. kernels vs plain: random cases (sum/min/max x int32/float32/float16/
+   bfloat16 x several (eb, nb), eb=0 and eb=2048 with nb=1024 among them,
+   for the vector kernel x F in {1, 3, 32, 64, 130}, and 256 for the half
+   types (8 values a load); -1 padding, indices nb and beyond, a row with
+   every lane on one slot and an all-padding row, values at the int32
+   bounds and +-inf, and 30% +-0.0 and +-inf (+-1.5 in sums) in the half
+   types, float16 also at its +-65504 sentinels) against the plain
+   PyTorch version on the same inputs.  Integers and min/max must be
+   equal value for value (the sign of a zero aside); a float32 sum may
+   differ by the summation order, at most 2*eb*2^-24 times the slot's sum
+   of |values| (twice the textbook bound on a recursive sum of eb terms),
+   a half sum by that plus one ulp of the half type (both sum in float32
+   and round once).  F=1 through the vector kernel must equal the scalar
+   kernel bit for bit.  Then ``plan._combine_rows`` on a float16 payload:
+   the kernel's +-65504 sentinels come back as +-inf, bitwise; and both
+   kernels timed on float32, float16 and bfloat16 values at the Ch_msg
+   plan's shape (``half_timing``; the entries' ``payload_types``).
 3. the algorithms at full size: a weighted, symmetrized
    ``powerlaw(n, avg_deg=8)`` graph (n=4M: 62.5M directed edges, the scale
    of LiveJournal) with the GCN's normalized weights (``normalize_adjacency``,
@@ -116,7 +123,9 @@ Phases; any failure exits non-zero and prints no result:
    leaf's gradient, and its change after one epoch of clip + AdamW) is
    held against a float64 scipy/numpy step that takes the card's relu
    (every flip must lie within round-off of 0): gradients within 1e-4 of
-   their norm, the change within 1e-3.  A
+   their norm, the change within 1e-3.  Those float64 oracles run on the
+   card's results, saved to a temporary directory, in a spawned process of
+   their own beside phases 12 to 15, and are waited for after phase 15.  A
    replay of the run records every join's input for phase 6; one join with
    and without the message accounting is timed; device ms an epoch, a
    profile of one epoch and the peak device memory are printed.
@@ -138,8 +147,11 @@ Phases; any failure exits non-zero and prints no result:
    ``torch.Generator(seed)`` on the card; TF32 off).  First the two new
    kernels against their plain versions in float64 on random cases (flash:
    causal on/off x window 0/16/100/1024 x n_rep 1/5 x d 16/64/128/256 x S
-   64/100/129/2048/2112, within 1e-5 of max|v|, and bfloat16 within 2e-2,
-   at d=256 over the same grid against the float64 plain version;
+   64/100/129/2048/2112, and unmasked with (Sq, Sk) in (1, 1500), (384,
+   1500), (1600, 1500), (37, 100) x the same d and n_rep, within 1e-5 of
+   max|v| (Sq > Sk refused under a causal mask or a window), and bfloat16
+   within 2e-2, at d=256 over the same grid against the float64 plain
+   version;
    SSD: S a chunk multiple and ragged, chunk 128 and 64 x (P, N) (64,
    16)/(64, 128) x groups 1/2, y and final state within 1e-4 of their
    max).  Then B=4 random
@@ -200,6 +212,27 @@ Phases; any failure exits non-zero and prints no result:
    a one-card machine, NCCL with a card a rank on two) must give world
    size 1's answers and statistics, repartition counts, executors and
    epochs.
+15. serve Whisper-medium at full width and depth (24 encoder and 24
+   decoder layers, d_model 1024, 16 heads of dim 64, d_ff 4096, 1500
+   frames, vocab 51,865 padded to 51,968; 1.0B float32 parameters from
+   ``torch.Generator(seed)``): B=4 requests of 1500 frame embeddings
+   (numpy normals after the prompts, the reference's stub front end) and
+   384 prompt tokens, prefill and 63 greedy decode steps (448 positions,
+   Whisper's text context).  Gates: (a) the encoder's unmasked 1500 x
+   1500, the decoder's causal 384, the prefill's cross 384 x 1500 and a
+   decode step's cross 1 x 1500 launch on layer 0's recorded inputs
+   against the float64 plain version (phase 7's rule), timed beside the
+   plain version and SDPA; (b) encoder and decoder layers 0-3, kernels
+   against the plain path on the same input; (c) prefill + decode
+   against the no-cache forward on decoder layers 0-3, teacher-forced;
+   (d) exactly 72 flash launches a prefill and 24 a decode step (the cross
+   K/V recomputed from the encoder's output at every step, as the
+   reference does); (e) finite logits, the 103 padded entries at -2^30.
+   ``[serve] whisper_medium`` lines: prefill ms beside the products'
+   bound, decode ms a step beside its bound, tokens/s, peak memory;
+   ``[profile] whisper_medium``: the busy share of a prefill and a decode
+   step; ``[kernel] flash_attention whisper_medium ...`` a line a launch
+   shape.
 Phases 10, 11 and 14 run in processes of their own beside phase 3's
 host set-up (graph build and partition), started once the kernels are
 built and waited for before phase 3's first timed run; phase 13 runs
@@ -274,8 +307,9 @@ One JSON line ``{"kernels": [...]}`` with all four kernels (the scalar
 kernel's entry carries ``sharded``: phase 3b's launches, each mode's, the
 replays' times and the static balance figures; the vector kernel's the
 sharded GCN's launches, ms an epoch and peak memory by mode, and phase
-3c's GCN runs; the flash entry's ``launches`` counts the three models'
-prefills (Hymba, Gemma, OLMoE), ``launches_by_model`` each, and its sums
+3c's GCN runs; the flash entry's ``launches`` counts the four models'
+counted runs (the prefills of Hymba, Gemma and OLMoE; Whisper's prefill
+and decode steps), ``launches_by_model`` each, and its sums
 the Hymba prefill's timed launches, ``timed`` says so; the scalar
 entry's ``launches`` also counts rank 0's launches in phases 10 and 11
 and the vector entry's those
@@ -326,6 +360,9 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 64
 OLMOE_ARCH = "olmoe_1b_7b"
 # OLMoE's layers checked in the forms (b) and (c) of phase 13
 OLMOE_CHECK_LAYERS = 4
+WHISPER_ARCH = "whisper_medium"
+WHISPER_PROMPT = 384         # + 64 generated: 448, Whisper's text context
+WHISPER_CHECK_LAYERS = 4     # encoder and decoder layers of (b) and (c)
 # The MoE half of a layer against its float64 recomputation on the same
 # routing: float32 products over D=2048 and F=1024 and a sum of k=8 gated
 # terms sit near 1e-6 of max|y|; an index or slot fault moves a whole
@@ -356,6 +393,9 @@ FLASH_F32_TOL = 1e-5
 FLASH_BF16_TOL = 2e-2      # bfloat16 output rounding, as the JAX tests
 LIB_TOL = 1e-4             # SDPA (another float32 order) vs float64
 FLASH_CASE_S = (64, 100, 129, 2048, 2112)   # the random cases' lengths
+# unmasked (Sq, Sk): a decode step's, a prompt's and a longer prompt's
+# cross-attention against Whisper's 1500 frames, and a ragged small pair
+FLASH_RECT = ((1, 1500), (384, 1500), (1600, 1500), (37, 100))
 # the chunked scan takes exp of differences of float32 cumulative sums
 # (|cum| up to ~100 in a chunk: ~1e-5 relative), the oracle is the float64
 # recurrence
@@ -509,18 +549,37 @@ def build_kernels():
 # phase 2 / 4: kernel against its plain version, timings
 # ---------------------------------------------------------------------------
 
+HALF_MANTISSA = {"torch.float16": 10, "torch.bfloat16": 7}
+
+
+def half_ulp(torch, x, dtype):
+    """The spacing of ``dtype`` (float16 or bfloat16) at magnitude ``x``
+    (float64): 2^(floor(log2 x) - mantissa bits), the subnormals' below
+    the least normal."""
+    fi = torch.finfo(dtype)
+    e = torch.floor(torch.log2(x.clamp(min=fi.tiny)))
+    return torch.exp2(e - HALF_MANTISSA[str(dtype)])
+
+
 def compare(torch, got, want, vals, idx, op, nb, ref_fn):
     """Max |got - want| (0 where both are equal, infinities included);
-    fails unless ints and min/max are bitwise equal and a float32 sum is
-    within the summation-order bound."""
+    fails unless ints and min/max are equal value for value (+0 and -0
+    are one value) and a float sum is within the summation-order bound:
+    2*eb*2^-24 of the slot's sum of |values| for float32 (both sides sum
+    in float32, in other orders), and for a half type that plus one ulp
+    of the half type at the larger of the two results (both sides sum in
+    float32, then round once)."""
     g = got.double()
     w = want.double()
     same = (g == w)
     err = float((g - w).abs().masked_fill(same, 0).max()) if g.numel() else 0.
-    if op == "sum" and vals.dtype == torch.float32:
-        abs_sum = ref_fn(vals.abs(), idx, "sum", nb).double()
+    if op == "sum" and vals.dtype.is_floating_point:
+        abs_sum = ref_fn(vals.float().abs(), idx, "sum", nb).double()
         eb = vals.shape[1]
         bound = 2.0 * eb * 2.0 ** -24 * abs_sum
+        if vals.dtype != torch.float32:
+            bound = bound + half_ulp(torch, torch.maximum(g.abs(), w.abs()),
+                                     vals.dtype)
         bad = ~same & ((g - w).abs() > bound)
     else:
         bad = ~same
@@ -544,67 +603,169 @@ def random_idx(np, rng, R, eb, nb):
     return idx
 
 
+def random_values(torch, np, rng, dtype, op, shape, dev):
+    """Random payload values of ``shape`` as a tensor of ``dtype`` on
+    ``dev``: int32 over its whole range with its bounds and -1 first;
+    float32 normals with +-inf first under min/max; a half type's normals
+    with 30% of them +-0.0 and +-inf (under min/max; +-1.5 in a sum, which
+    keeps infinities out as the reference's own test does), float16 also
+    at +-65504, its sentinels (drawn on the device from a generator seeded
+    from ``rng``)."""
+    if dtype.itemsize == 2:
+        gen = torch.Generator(dev).manual_seed(int(rng.randint(2 ** 31)))
+        v = torch.randn(shape, generator=gen, device=dev)
+        special = torch.tensor([0.0, -0.0, 1.5, -1.5] if op == "sum"
+                               else [0.0, -0.0, np.inf, -np.inf], device=dev)
+        use = torch.rand(shape, generator=gen, device=dev) < 0.3
+        pick = torch.randint(0, 4, shape, generator=gen, device=dev)
+        v = torch.where(use, special[pick], v)
+        if op != "sum" and dtype == torch.float16 and v.numel() >= 2:
+            v.view(-1)[-2:] = torch.tensor([65504.0, -65504.0], device=dev)
+        return v.to(dtype)
+    if dtype == torch.int32:
+        info = np.iinfo(np.int32)
+        v = rng.randint(info.min, info.max, shape,
+                        dtype=np.int64).astype(np.int32)
+        v.reshape(-1)[:3] = [info.min, info.max, -1][:v.size]
+        return torch.from_numpy(v).to(dev)
+    v = rng.randn(*shape).astype(np.float32)
+    if op != "sum":
+        v.reshape(-1)[:2] = [np.inf, -np.inf][:v.size]
+    return torch.from_numpy(v).to(dev)
+
+
+PAYLOAD_DTYPES = ("int32", "float32", "float16", "bfloat16")
+
+
 def random_cases(torch, np, kernel, ref_fn, dev, seed):
     rng = np.random.RandomState(seed)
-    info = np.iinfo(np.int32)
     max_err = 0.0
     n_cases = 0
     for op in ("sum", "min", "max"):
-        for dtype in (torch.int32, torch.float32):
+        for dtype in (getattr(torch, d) for d in PAYLOAD_DTYPES):
             for eb, nb in [(8, 32), (64, 128), (512, 32), (512, 128),
                            (37, 100), (1, 1), (0, 16), (2048, 1024)]:
                 R = int(rng.randint(1, 4000))
                 idx = random_idx(np, rng, R, eb, nb)
-                if dtype == torch.int32:
-                    v = rng.randint(info.min, info.max, (R, eb),
-                                    dtype=np.int64).astype(np.int32)
-                    v.reshape(-1)[:3] = [info.min, info.max, -1][:v.size]
-                else:
-                    v = rng.randn(R, eb).astype(np.float32)
-                    if op != "sum":
-                        v.reshape(-1)[:2] = [np.inf, -np.inf][:v.size]
-                vt = torch.from_numpy(v).to(dev)
+                vt = random_values(torch, np, rng, dtype, op, (R, eb), dev)
                 it = torch.from_numpy(idx).to(dev)
                 got = kernel.segment_combine_blocks(vt, it, op, nb)
                 torch.cuda.synchronize()
+                if got.dtype != dtype:
+                    fail(f"the scalar kernel returned {got.dtype} for "
+                         f"{dtype} values")
                 want = ref_fn(vt, it, op, nb)
                 max_err = max(max_err, compare(torch, got, want, vt, it, op,
                                                nb, ref_fn))
                 n_cases += 1
-    log(f"[kernel] {n_cases} random cases (skewed, all-padding and "
-        f"out-of-range rows) match the plain version (max |err| "
-        f"{max_err:.3g})")
+    log(f"[kernel] {n_cases} random cases ({', '.join(PAYLOAD_DTYPES)}; "
+        "skewed, all-padding and out-of-range rows; +-0 and +-inf in the "
+        f"half types) match the plain version (max |err| {max_err:.3g})")
     return max_err
+
+
+def half_timing(torch, kernel, ref_fn, dev):
+    """Both kernels on float32, float16 and bfloat16 values of one shape,
+    min and sum: the scalar kernel at the main path's Ch_msg plan shape
+    (1,387,616 rows x eb=64 into nb=128), the vector kernel at 50,000 of
+    those rows and F=32.  One launch each between two CUDA events after a
+    warm-up, beside its bytes' bound (values and indices read once, the
+    blocks written once), each output held to the plain version
+    (``compare``).  No path of either package sends a half payload to the
+    kernel yet, so these are no main-path launches."""
+    R, eb, nb = 1_387_616, 64, 128
+    gen = torch.Generator(dev).manual_seed(11)
+    idx = torch.randint(-1, nb, (R, eb), generator=gen, device=dev,
+                        dtype=torch.int32)
+    out = {}
+    for F, rows in ((None, R), (32, 50_000)):
+        it = idx[:rows]
+        shape = (rows, eb) if F is None else (rows, eb, F)
+        base = torch.randn(shape, generator=gen, device=dev)
+        for dt in (torch.float32, torch.float16, torch.bfloat16):
+            v = base.to(dt)
+            s, f = v.element_size(), F or 1
+            bound = (rows * eb * (s * f + 4) + rows * nb * s * f) \
+                / HBM_BYTES_PER_S * 1e3
+            for op in ("min", "sum"):
+                def call():
+                    return kernel.segment_combine_blocks(v, it, op, nb)
+                call()                                           # warm-up
+                got, ms = event_ms(torch, call)
+                compare(torch, got, ref_fn(v, it, op, nb), v, it, op, nb,
+                        ref_fn)
+                key = (f"{'scalar' if F is None else 'vector'} {op} "
+                       f"{str(dt).replace('torch.', '')}")
+                out[key] = {"ms": ms, "bound_ms": bound}
+            del v
+        del base
+    log("[kernel] segment_combine by payload type, one launch (ms, bound ms):"
+        " " + "; ".join(f"{k} {v['ms']:.3f} ({v['bound_ms']:.3f})"
+                        for k, v in out.items())
+        + f" (scalar: {R} x {eb} rows into nb={nb}; vector: 50000 of them "
+        "at F=32)")
+    return out
+
+
+def half_remap_case(torch, np, planlib, kernel, dev):
+    """``plan._combine_rows`` on a float16 payload on the card: through the
+    scalar kernel, the slots no edge reaches come back as the channel
+    identities +-inf (not the kernel's +-65504 sentinels), the others as
+    numpy's float16 reduction, bitwise."""
+    from repro_torch.kernels.segment_combine.ops import (pack_edges,
+                                                         pack_values)
+    rng = np.random.RandomState(5)
+    N, E, nb = 200, 600, 64
+    dst = rng.randint(0, N // 2, E)
+    vals = rng.randn(E).astype(np.float16)
+    order, idxl = pack_edges(dst, N, nb=nb, eb_align=128)
+    for op, red, ident in (("min", np.minimum, np.inf),
+                           ("max", np.maximum, -np.inf)):
+        pv = pack_values(vals, order, idxl, op)
+        before = kernel.segment_combine_blocks.launches
+        out = planlib._combine_rows(torch.from_numpy(pv).to(dev),
+                                    torch.from_numpy(idxl).to(dev), op, nb)
+        torch.cuda.synchronize()
+        if kernel.segment_combine_blocks.launches != before + 1:
+            fail("plan._combine_rows on float16 did not launch the kernel")
+        got = out.cpu().numpy().reshape(-1)[:N]
+        want = np.full(N, ident, np.float16)
+        red.at(want, dst, vals)
+        if got.dtype != np.float16 or not np.array_equal(
+                got.view(np.int16), want.view(np.int16)):
+            fail(f"plan._combine_rows float16 {op}: the remapped blocks "
+                 "differ from numpy's reduction")
+    log("[kernel] plan._combine_rows on a float16 payload (min, max): the "
+        "kernel's +-65504 sentinels come back as +-inf where no edge "
+        "lands, every slot bitwise equal to numpy's float16 reduction")
 
 
 def random_vec_cases(torch, np, kernel, ref_fn, dev, seed):
     """The vector kernel against the plain version, and F=1 against the
     scalar kernel."""
     rng = np.random.RandomState(seed + 1)
-    info = np.iinfo(np.int32)
     max_err = 0.0
     n_cases = 0
     for op in ("sum", "min", "max"):
-        for dtype in (torch.int32, torch.float32):
+        for dtype in (getattr(torch, d) for d in PAYLOAD_DTYPES):
+            # F = 256 takes 8 half values (16 bytes) a load
+            widths = (1, 3, 32, 64, 130) + ((256,) if dtype.itemsize == 2
+                                            else ())
             for eb, nb in [(8, 32), (64, 128), (512, 128), (37, 100),
                            (64, 1024), (0, 8), (2048, 1024)]:
-                for F in (1, 3, 32, 64, 130):
+                for F in widths:
                     R = int(rng.randint(1, max(2, 2 ** 22 // (max(eb, 1)
                                                                * F))))
                     R = min(R, 2000)
                     idx = random_idx(np, rng, R, eb, nb)
-                    if dtype == torch.int32:
-                        v = rng.randint(info.min, info.max, (R, eb, F),
-                                        dtype=np.int64).astype(np.int32)
-                        v.reshape(-1)[:3] = [info.min, info.max, -1][:v.size]
-                    else:
-                        v = rng.randn(R, eb, F).astype(np.float32)
-                        if op != "sum":
-                            v.reshape(-1)[:2] = [np.inf, -np.inf][:v.size]
-                    vt = torch.from_numpy(v).to(dev)
+                    vt = random_values(torch, np, rng, dtype, op,
+                                       (R, eb, F), dev)
                     it = torch.from_numpy(idx).to(dev)
                     got = kernel.segment_combine_blocks(vt, it, op, nb)
                     torch.cuda.synchronize()
+                    if got.dtype != dtype:
+                        fail(f"the vector kernel returned {got.dtype} for "
+                             f"{dtype} values")
                     want = ref_fn(vt, it, op, nb)
                     max_err = max(max_err, compare(torch, got, want, vt, it,
                                                    op, nb, ref_fn))
@@ -612,13 +773,17 @@ def random_vec_cases(torch, np, kernel, ref_fn, dev, seed):
                         scalar = kernel.launch(vt[:, :, 0].contiguous(), it,
                                                op, nb)
                         torch.cuda.synchronize()
-                        if not torch.equal(scalar, got[:, :, 0]):
+                        bits = {2: torch.int16, 4: torch.int32}[
+                            dtype.itemsize]
+                        if not torch.equal(scalar.view(bits),
+                                           got[:, :, 0].view(bits)):
                             fail(f"vector kernel at F=1 != scalar kernel "
                                  f"({op}, {dtype}, eb={eb}, nb={nb})")
                     n_cases += 1
-    log(f"[kernel] {n_cases} random vector cases (skewed, all-padding and "
-        f"out-of-range rows) match the plain version (max |err| "
-        f"{max_err:.3g}); F=1 equals the scalar kernel bitwise")
+    log(f"[kernel] {n_cases} random vector cases ({', '.join(PAYLOAD_DTYPES)}"
+        "; skewed, all-padding and out-of-range rows; +-0 and +-inf in the "
+        f"half types) match the plain version (max |err| {max_err:.3g}); "
+        "F=1 equals the scalar kernel bit for bit")
     return max_err
 
 
@@ -2125,36 +2290,121 @@ def gcn_path(torch, np, args, dev, phases, g, A, pg):
                           generator=torch.Generator(dev).manual_seed(1))
         (grad,) = torch.autograd.grad(torch.sum(out * cot), [x])
         torch.cuda.synchronize()
-        host = [t.detach().reshape(pg.n_pad, -1).cpu().numpy()[pg.perm]
-                .astype(np.float64) for t in (x, out, cot, grad)]
-        return host
-    x, out, cot, grad = phases.run("gcn-join", join_and_grad)
-
-    def check():
-        # products summed into each row: its in-edges (A^T X), out-edges (A G)
-        deg_in = np.bincount(g.dst, minlength=g.n).astype(np.float64)
-        deg_out = np.bincount(g.src, minlength=g.n).astype(np.float64)
-        At = A.T.tocsr()
-        z1 = At @ x
-        mag = At @ np.abs(x)
-        e1 = within_sum_bound(np, "u_mul_e_sum(emb) vs scipy A^T X", out,
-                              z1, mag, deg_in)
-        # the summation-order bound of the float32 join, per entry
-        z1_err = (deg_in[:, None] + 3.0) * U32 * mag
-        e2 = within_sum_bound(np, "join gradient vs scipy A G", grad,
-                              A @ cot, A @ np.abs(cot), deg_out)
-        return e1, e2, At, z1, z1_err
-    e1, e2, At, z1, z1_err = phases.run("gcn-oracles", check)
-    log(f"[check] gcn: u_mul_e_sum(emb) vs scipy A_hat^T X max "
-        f"|err|/(|A|^T|X|) {e1:.3g}; gradient vs scipy A_hat G {e2:.3g} "
-        "(bound (deg+3)*2^-24 per row)")
-    phases.run("gcn-step-oracle", check_step, torch, np, eng, pg, params0,
-               A, At, z1, z1_err, res.history[0])
-    del At, z1, z1_err, x, out, cot, grad
+        return {k: t.detach().reshape(pg.n_pad, -1).cpu().numpy()[pg.perm]
+                for k, t in (("x", x), ("out", out), ("cot", cot),
+                             ("grad", grad))}
+    host = phases.run("gcn-join", join_and_grad)
+    host.update(phases.run("gcn-step-on-card", step_on_card, torch, np, eng,
+                           pg, params0))
+    # the float64 scipy oracles of the join, its gradient and the step run
+    # in a process of their own, beside the later device phases
+    oracles = phases.run("gcn-oracles-start", start_gcn_oracles, np, g, A,
+                         host, res.history[0])
+    del host
     phases.run("profile-gcn", profile_run, torch,
                lambda: eng.run("gcn", pg, epochs=1, params=res.state, **GCN),
                "gcn", unit="epochs")
-    return vec, peak, inputs, params0, (res, again), dev_ms, peak - held
+    return (vec, peak, inputs, params0, (res, again), dev_ms, peak - held,
+            oracles)
+
+
+def gcn_join_oracles(np, A, deg_in, deg_out, x, out, cot, grad):
+    """The first layer's join and its gradient against scipy in float64:
+    products summed into each row, its in-edges (A^T X) and out-edges
+    (A G).  Returns (errors, At, z1 = A^T x, z1's float32 error bound)."""
+    At = A.T.tocsr()
+    z1 = At @ x
+    mag = At @ np.abs(x)
+    e1 = within_sum_bound(np, "u_mul_e_sum(emb) vs scipy A^T X", out, z1,
+                          mag, deg_in)
+    # the summation-order bound of the float32 join, per entry
+    z1_err = (deg_in[:, None] + 3.0) * U32 * mag
+    e2 = within_sum_bound(np, "join gradient vs scipy A G", grad, A @ cot,
+                          A @ np.abs(cot), deg_out)
+    log(f"[check] gcn: u_mul_e_sum(emb) vs scipy A_hat^T X max "
+        f"|err|/(|A|^T|X|) {e1:.3g}; gradient vs scipy A_hat G {e2:.3g} "
+        "(bound (deg+3)*2^-24 per row)")
+    return At, z1, z1_err
+
+
+GCN_ORACLE_TIMEOUT_S = 900
+GCN_ORACLE_ARRAYS = ("indptr", "indices", "data", "deg_in", "deg_out", "x",
+                     "out", "cot", "grad", "labels", "relu_on", "W1", "b1",
+                     "W2", "b2", "g_emb", "g_W1", "g_b1", "g_W2", "g_b2",
+                     "s_emb", "s_W1", "s_b1", "s_W2", "s_b2")
+
+
+class GcnOracles:
+    """The GCN's float64 oracles running in a spawned process
+    (``gcn_oracle_worker``) on arrays saved in a fresh temporary
+    directory; ``finish`` waits for it, prints its lines and fails the
+    phase if it failed."""
+
+    def __init__(self, tmp, proc):
+        self.tmp, self.proc = tmp, proc
+
+    def finish(self):
+        t0 = time.perf_counter()
+        self.proc.join(GCN_ORACLE_TIMEOUT_S)
+        wait = time.perf_counter() - t0
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join()
+        lines = (Path(self.tmp.name) / "log.txt").read_text().splitlines()
+        code = self.proc.exitcode
+        self.tmp.cleanup()
+        for line in lines:
+            log(line)
+        log(f"[gcn] the float64 oracles' process ended with code {code} "
+            f"(waited {wait:.3f} s for it)")
+        if code != 0:
+            fail(f"the GCN's float64 oracles failed (exit code {code}): "
+                 + (lines[-1] if lines else "no output"))
+
+
+def start_gcn_oracles(np, g, A, host, first_loss):
+    """Save what the oracles need (the adjacency, the degrees, the card's
+    join and gradient, the params, the card's relu, gradients and stepped
+    params, all in the original vertex order) and start
+    ``gcn_oracle_worker`` on them in a spawned process."""
+    import multiprocessing
+    import tempfile
+    tmp = tempfile.TemporaryDirectory(prefix="gcn-oracles-")
+    d = Path(tmp.name)
+    arrays = dict(host, indptr=A.indptr, indices=A.indices, data=A.data,
+                  deg_in=np.bincount(g.dst, minlength=g.n),
+                  deg_out=np.bincount(g.src, minlength=g.n))
+    for k in GCN_ORACLE_ARRAYS:
+        np.save(d / f"{k}.npy", arrays[k])
+    (d / "meta.json").write_text(json.dumps(
+        {"n": int(g.n), "first_loss": float(first_loss)}))
+    proc = multiprocessing.get_context("spawn").Process(
+        target=gcn_oracle_worker, args=(str(d),), daemon=True)
+    proc.start()
+    return GcnOracles(tmp, proc)
+
+
+def gcn_oracle_worker(path):
+    """The GCN oracles' process: the join and gradient against scipy
+    (``gcn_join_oracles``), then the step (``step_against_oracle``); its
+    lines go to ``log.txt`` beside the arrays."""
+    d = Path(path)
+    sys.stdout = sys.stderr = open(d / "log.txt", "w", buffering=1)
+    import numpy as np
+    import scipy.sparse as sp
+    meta = json.loads((d / "meta.json").read_text())
+    a = {k: np.load(d / f"{k}.npy") for k in GCN_ORACLE_ARRAYS}
+    n = meta["n"]
+    A = sp.csr_matrix((a["data"], a["indices"], a["indptr"]), shape=(n, n))
+    f64 = {k: a[k].astype(np.float64) for k in ("x", "out", "cot", "grad")}
+    At, z1, z1_err = gcn_join_oracles(
+        np, A, a["deg_in"].astype(np.float64),
+        a["deg_out"].astype(np.float64), f64["x"], f64["out"], f64["cot"],
+        f64["grad"])
+    del f64["out"], f64["cot"], f64["grad"]
+    p0 = {"emb": f64["x"]}
+    p0.update({k: a[k].astype(np.float64) for k in ("W1", "b1", "W2", "b2")})
+    step_against_oracle(np, A, At, z1, z1_err, p0, a, meta["first_loss"])
 
 
 def stats_cost(torch, np, gspmm, pg, dev, reps: int = 3):
@@ -2236,15 +2486,15 @@ def gcn_step_oracle(np, A, At, z1, z1_err, p, labels, relu_on):
             int(in_band.sum()))
 
 
-def check_step(torch, np, eng, pg, params0, A, At, z1, z1_err,
-               first_loss):
-    """The assembled training step on the card against
-    :func:`gcn_step_oracle`.  Each leaf's gradient of the mean loss
-    (autograd through both joins, relu and the ``@ W`` products; the
-    forward is ``gcn_forward``'s, written out to read the relu) must be
-    within GRAD_RTOL of the float64 norm, and its change after one
-    ``Engine.run("gcn", epochs=1)`` (clip and AdamW) within STEP_RTOL,
-    plus the float32 rounding of the stepped values."""
+def step_on_card(torch, np, eng, pg, params0):
+    """The assembled training step on the card, the half of the step check
+    that needs it: each leaf's gradient of the mean loss (autograd through
+    both joins, relu and the ``@ W`` products; the forward is
+    ``gcn_forward``'s, written out to read the relu, and held to it within
+    LOSS_RTOL here), the relu's side of every pre-activation, and the
+    params after one ``Engine.run("gcn", epochs=1)`` (clip and AdamW).
+    Returns them on the host in the original vertex order, for
+    ``step_against_oracle``."""
     from repro_torch.core import gspmm
     from repro_torch.models.embedding import softmax_xent
     from repro_torch.train.gcn import gcn_forward, gcn_labels
@@ -2267,17 +2517,30 @@ def check_step(torch, np, eng, pg, params0, A, At, z1, z1_err,
         fail(f"gcn: the written-out forward differs from gcn_forward by "
              f"{dev_rel:.3g}")
     stepped = eng.run("gcn", pg, epochs=1, params=params0, **GCN).state
-    p0 = {k: host(v).astype(np.float64) for k, v in params0.items()}
-    lab = host(labels).reshape(-1)[pg.perm]
+    out = {k: host(v) for k, v in params0.items() if k != "emb"}
+    out["labels"] = host(labels).reshape(-1)[pg.perm]
+    out["relu_on"] = host(p1 > 0)
+    for k in p:
+        out[f"g_{k}"] = host(grads[k])
+        out[f"s_{k}"] = host(stepped[k])
+    return out
+
+
+def step_against_oracle(np, A, At, z1, z1_err, p0, card, first_loss):
+    """The card's step (``step_on_card``'s arrays in ``card``) against
+    :func:`gcn_step_oracle` from the params ``p0`` (float64): each leaf's
+    gradient within GRAD_RTOL of the float64 norm, its change after one
+    epoch within STEP_RTOL plus the float32 rounding of the stepped
+    values, and the first loss within LOSS_RTOL."""
     (loss64, g64, step64, gnorm, n_flip, n_band) = gcn_step_oracle(
-        np, A, At, z1, z1_err, p0, lab, host(p1 > 0))
+        np, A, At, z1, z1_err, p0, card["labels"], card["relu_on"])
     if abs(first_loss - loss64) > LOSS_RTOL * loss64:
         fail(f"gcn: first loss {first_loss} vs float64 {loss64}")
     norm = np.linalg.norm
     errs = {}
-    for k in p:
-        eg = norm(host(grads[k]) - g64[k]) / norm(g64[k])
-        s1 = host(stepped[k]).astype(np.float64)
+    for k in p0:
+        eg = norm(card[f"g_{k}"] - g64[k]) / norm(g64[k])
+        s1 = card[f"s_{k}"].astype(np.float64)
         diff = norm((s1 - p0[k]) - step64[k])
         es = diff / norm(step64[k])
         if not (eg <= GRAD_RTOL and diff <= STEP_RTOL * norm(step64[k])
@@ -2393,6 +2656,37 @@ def flash_random_cases(torch, np, dev, seed):
     log(f"[kernel] flash_attention: {n} random float32 cases within "
         f"{FLASH_F32_TOL} x max|v| of the float64 plain version (max |err| "
         f"{worst:.3g}; the float32 plain version's own {worst_plain:.3g})")
+    rect, n_rect = 0.0, 0
+    for Sq, Sk in FLASH_RECT:
+        for d in (16, 64, 128, 256):
+            for n_rep in (1, 5):
+                q = torch.randn((2 * n_rep, Sq, d), generator=gen, device=dev)
+                k = torch.randn((2, Sk, d), generator=gen, device=dev)
+                v = torch.randn((2, Sk, d), generator=gen, device=dev)
+                got = fk.launch(q, k, v, causal=False, window=0)
+                want = flash_attention_ref(q.double(), k.double(), v.double(),
+                                           causal=False, window=0)
+                torch.cuda.synchronize()
+                err = float((got.double() - want).abs().max())
+                lim = FLASH_F32_TOL * float(v.abs().max())
+                if got.shape != q.shape or not err <= lim:
+                    fail(f"flash kernel unmasked vs float64 plain: shape "
+                         f"{tuple(got.shape)}, |err| {err:.3g} > {lim:.3g} "
+                         f"(Sq={Sq}, Sk={Sk}, d={d}, n_rep={n_rep})")
+                rect, n_rect = max(rect, err), n_rect + 1
+                worst = max(worst, err)
+                if Sq > Sk:
+                    for causal, window in ((True, 0), (False, 16)):
+                        try:
+                            fk.launch(q, k, v, causal=causal, window=window)
+                        except ValueError:
+                            continue
+                        fail(f"the flash kernel took Sq={Sq} > Sk={Sk} under "
+                             f"causal={causal}, window={window}")
+    log(f"[kernel] flash_attention: {n_rect} unmasked rectangular float32 "
+        f"cases (Sq, Sk) in {FLASH_RECT} x d 16/64/128/256 x n_rep 1/5 "
+        f"within {FLASH_F32_TOL} x max|v| of the float64 plain version (max "
+        f"|err| {rect:.3g}); Sq > Sk refused under a causal mask or a window")
     bf_worst = 0.0
     for S, window in ((2048, 0), (2048, 1024), (2112, 16)):
         q = torch.randn((10, S, 64), generator=gen, device=dev)
@@ -2529,18 +2823,22 @@ def record_launches(mods, fn):
     return seen
 
 
-def flash_rows(torch, launches, fk, flash_ref, lib_factor=None):
+def flash_rows(torch, launches, fk, flash_ref, lib_factor=None,
+               unmasked=False):
     """Time the flash kernel on each recorded launch of the counted prefill
-    (kernel, plain version, and SDPA on kv repeated, with the window as a
-    boolean mask), hold the kernel and SDPA against the float64 plain
+    (kernel, plain version, and SDPA on kv repeated: the window as a
+    boolean mask, ``is_causal`` for a global causal layer, no mask for an
+    unmasked one), hold the kernel and SDPA against the float64 plain
     version; one row per launch.  SDPA is held within LIB_TOL of max|v|,
     or, with ``lib_factor``, within the larger of that and ``lib_factor``
-    times the float32 plain version's own error (the kernel's rule)."""
+    times the float32 plain version's own error (the kernel's rule).
+    Unmasked launches (an encoder, cross-attention: Sq may differ from Sk)
+    fail the phase unless ``unmasked``."""
     F = torch.nn.functional
     rows = []
     for idx, ((q, k, v), kw) in enumerate(launches):
         BH, S, d = q.shape
-        BKV = k.shape[0]
+        BKV, Sk = k.shape[0], k.shape[1]
         rep = BH // BKV
         window = kw["window"]
         kr = torch.repeat_interleave(k, rep, dim=0)[None]
@@ -2551,17 +2849,21 @@ def flash_rows(torch, launches, fk, flash_ref, lib_factor=None):
             mask = (dq >= 0) & (dq < window)
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q[None], kr, vr, attn_mask=mask)
-        else:
+        elif kw["causal"]:
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q[None], kr, vr, is_causal=True)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q[None], kr, vr)
         fns = {"ms": lambda: fk.launch(q, k, v, **kw),
                "plain_ms": lambda: flash_ref(q, k, v, **kw),
                "library_ms": lib}
         if idx == 0:                                   # warm-up, not timed
             for fn in fns.values():
                 fn()
-        row = {"launch": f"layer{idx}", "window": window, "BH": BH,
-               "S": S, "d": d, "n_rep": rep}
+        row = {"launch": f"layer{idx}", "window": window,
+               "causal": bool(kw["causal"]), "BH": BH, "S": S, "Sk": Sk,
+               "d": d, "n_rep": rep}
         outs = {}
         for key, fn in fns.items():
             outs[key], row[key] = event_ms(torch, fn)
@@ -2586,11 +2888,11 @@ def flash_rows(torch, launches, fk, flash_ref, lib_factor=None):
                  f"{idx}): |err| {lib_err:.3g} > {lib_lim:.3g} (the float32 "
                  f"plain version's {row['plain_err']:.3g}, max|v| "
                  f"{vmax:.3g})")
-        if not kw["causal"]:
+        if not kw["causal"] and not unmasked:
             fail(f"a non-causal flash launch on the serving path (layer {idx})")
-        pairs = flash_pairs(S, window)
+        pairs = flash_pairs(S, window) if kw["causal"] else S * Sk
         row["ops"] = 4 * d * pairs * BH
-        row["bytes"] = 4 * (2 * BH * S * d + 2 * BKV * S * d)
+        row["bytes"] = 4 * (2 * BH * S * d + 2 * BKV * Sk * d)
         row["bound_ms"] = max(row["ops"] / FP32_OPS_PER_S,
                               row["bytes"] / HBM_BYTES_PER_S) * 1e3
         rows.append(row)
@@ -2713,23 +3015,31 @@ def rel_max(torch, got, want):
                                                   1e-30)
 
 
-def per_layer_kernels_vs_plain(torch, cfg, zoo, tf, params, prompts, layers):
+def per_layer_kernels_vs_plain(torch, cfg, zoo, tf, params, prompts, layers,
+                               h=None, enc_out=None, tag=""):
     """Check (b): each layer's update h_{l+1} - h_l with the kernels
     ("auto") against the same layer's plain path ("ref") on the same input
-    (the kernels' run's h_l), within LAYER_RTOL of its max.  Returns the
-    worst relative error and the kernels' final hidden state."""
-    B, S = prompts.shape
-    pos = torch.arange(S, dtype=torch.int32, device=prompts.device).expand(B, S)
-    auto = tf.ModelContext(q_chunk=max(S, 64))
-    ref = tf.ModelContext(q_chunk=max(S, 64), kernels="ref")
-    h = zoo._embed_in(params, cfg, prompts, auto)
+    (the kernels' run's h_l), within LAYER_RTOL of its max.  The first
+    input is the prompts' embeddings, or ``h`` (an encoder's frames);
+    ``enc_out`` is handed to the layers (a decoder's cross-attention).
+    Returns the worst relative error and the kernels' final hidden
+    state."""
+    q_chunk = max(prompts.shape[1], 64)
+    auto = tf.ModelContext(q_chunk=q_chunk)
+    ref = tf.ModelContext(q_chunk=q_chunk, kernels="ref")
+    if h is None:
+        h = zoo._embed_in(params, cfg, prompts, auto)
+    B, S = h.shape[:2]
+    pos = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
     errs = []
     for stage, sp in layers:
-        h_k = tf.apply_stage_seq(h, sp, stage, cfg, auto, pos)[0]
-        h_r = tf.apply_stage_seq(h, sp, stage, cfg, ref, pos)[0]
+        h_k = tf.apply_stage_seq(h, sp, stage, cfg, auto, pos,
+                                 enc_out=enc_out)[0]
+        h_r = tf.apply_stage_seq(h, sp, stage, cfg, ref, pos,
+                                 enc_out=enc_out)[0]
         errs.append(rel_max(torch, h_k - h, h_r - h))
         h = h_k
-    log("[check] (b) per layer: " + ", ".join(f"{e:.2g}" for e in errs))
+    log(f"[check] (b){tag} per layer: " + ", ".join(f"{e:.2g}" for e in errs))
     for li, ((stage, _), err) in enumerate(zip(layers, errs)):
         if not err <= LAYER_RTOL:
             fail(f"layer {li} ({stage.kind}, window {stage.window}): the "
@@ -2739,7 +3049,7 @@ def per_layer_kernels_vs_plain(torch, cfg, zoo, tf, params, prompts, layers):
 
 
 def per_layer_decode_vs_forward(torch, cfg, zoo, tf, params, seq, n_prompt,
-                                layers):
+                                layers, enc_out=None):
     """Check (c), layer by layer with teacher forcing: the no-cache forward
     ("auto": both kernels, at the ragged length of ``seq``) gives each
     layer's input H_l at every position.  For each layer, the prefill path
@@ -2748,7 +3058,8 @@ def per_layer_decode_vs_forward(torch, cfg, zoo, tf, params, seq, n_prompt,
     n_prompt-1 (the prefill's last) .. S-2 the layer's update must match
     the forward's within LAYER_RTOL of its max, and the last layer's
     outputs through the final norm and the logits must match the
-    forward's logits within LOGIT_RTOL.  Returns (worst layer error, logit
+    forward's logits within LOGIT_RTOL.  ``enc_out`` is handed to every
+    layer (a decoder's cross-attention).  Returns (worst layer error, logit
     error, positions checked)."""
     B, S = seq.shape
     steps = S - n_prompt - 1             # decode at n_prompt .. S-2
@@ -2758,11 +3069,12 @@ def per_layer_decode_vs_forward(torch, cfg, zoo, tf, params, seq, n_prompt,
     h = zoo._embed_in(params, cfg, seq, ctx)
     errs = []
     for stage, sp in layers:
-        h_next = tf.apply_stage_seq(h, sp, stage, cfg, ctx, pos)[0]
+        h_next = tf.apply_stage_seq(h, sp, stage, cfg, ctx, pos,
+                                    enc_out=enc_out)[0]
         clen = zoo._stage_cache_len(stage, S)
         h_pre, cache, _ = tf.apply_stage_seq(
             h[:, :n_prompt], sp, stage, cfg, ctx, pos[:, :n_prompt],
-            want_cache=True, cache_len=clen)
+            enc_out=enc_out, want_cache=True, cache_len=clen)
         if stage.kind != "ssm":
             cache["k_pos"] = tf.stage_kpos(B, n_prompt, clen, seq.device)
         p = torch.full((B,), n_prompt, dtype=torch.int32, device=seq.device)
@@ -2770,7 +3082,8 @@ def per_layer_decode_vs_forward(torch, cfg, zoo, tf, params, seq, n_prompt,
         for i in range(steps):
             t = n_prompt + i
             o, cache = tf.apply_stage_decode(h[:, t:t + 1], sp, stage, cfg,
-                                             ctx, p + i, cache)
+                                             ctx, p + i, cache,
+                                             enc_out=enc_out)
             outs.append(o)
         dec = torch.cat(outs, dim=1)
         base = h[:, lo:hi]
@@ -3615,6 +3928,265 @@ def olmoe_path(torch, np, args, dev, phases):
             "decode_ms": float(np.mean(decode_ms)),
             "decode_bound_ms": bound_ms, "busy_ms": busy / 1e3,
             "peak_gib": peak / 2**30, "moe": routing}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: Whisper-medium, the encoder and cross-attention
+# ---------------------------------------------------------------------------
+
+def whisper_prefill_ops(cfg, B, S):
+    """Operations of one Whisper prefill: the encoder over B*enc_seq frames
+    (q/k/v/o products, unmasked attention, the MLP), the decoder over B*S
+    tokens (self-attention with causal pairs, the cross q/o products, the
+    cross k/v products over the frames, unmasked cross-attention, the MLP)
+    and the last position's logits."""
+    D, H, K, hd, F = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, \
+        cfg.d_ff
+    Se = cfg.enc_seq
+    Te, Td = B * Se, B * S
+
+    def proj(T):
+        return 4 * T * D * H * hd + 4 * T * D * K * hd
+    enc = proj(Te) + 6 * Te * D * F + 4 * hd * Se * Se * B * H
+    dec = (proj(Td) + 6 * Td * D * F + 4 * hd * (S * (S + 1) // 2) * B * H
+           + 4 * Td * D * H * hd + 4 * Te * D * K * hd
+           + 4 * hd * S * Se * B * H)
+    return (cfg.n_enc_layers * enc + cfg.n_layers * dec
+            + 2 * B * D * cfg.padded_vocab(1))
+
+
+def whisper_decode_cost(zoo, cfg, params, B, ctx_len):
+    """(operations, bytes) of one Whisper decode step: every decoder
+    weight, the final norm, the output embedding, B rows of the input
+    embedding, the K/V ring buffers of ``ctx_len`` slots and the encoder's
+    output read once; the cross K/V recomputed from the encoder's output
+    in every layer (as the reference does), the other products at B
+    tokens, attention over the caches and the frames, the logits."""
+    D, H, K, hd, F = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, \
+        cfg.d_ff
+    Se, L = cfg.enc_seq, cfg.n_layers
+    layer = (8 * B * D * H * hd + 4 * B * D * K * hd + 6 * B * D * F
+             + 4 * B * Se * D * K * hd + 4 * hd * (ctx_len + Se) * B * H)
+    ops = L * layer + 2 * B * D * cfg.padded_vocab(1)
+    n = sum(t.numel() for _, t in zoo._leaves(params["stages"]))
+    n += params["final_norm"].numel() + params["out_embed"].numel()
+    n += B * D + 2 * L * B * ctx_len * K * hd + B * Se * D
+    return ops, 4 * n
+
+
+def whisper_path(torch, np, args, dev, phases):
+    """Phase 15: Whisper-medium at full width and depth (24 encoder and 24
+    decoder layers, d_model 1024, 16 heads of dim 64, d_ff 4096, 1500
+    frames, vocab 51,865 padded to 51,968; float32, random weights from
+    torch.Generator(seed) on the card) serves B=4 requests: 1500 frame
+    embeddings (numpy normals, the reference's stub front end) and a
+    prompt of WHISPER_PROMPT tokens each, prefill, then 63 greedy decode
+    steps (448 positions: Whisper's decoder context), through
+    model_zoo.prefill / decode_step.  Checks: (a) each of the four launch
+    shapes (the encoder's unmasked 1500 x 1500, the decoder's causal
+    self-attention, the prefill's cross-attention 384 x 1500 and a decode
+    step's 1 x 1500) on layer 0's recorded inputs against the float64
+    plain version, timed beside the plain version and SDPA; (b) encoder
+    and decoder layers 0-3, kernels against the plain path on the same
+    input; (c) prefill + decode against the no-cache forward on decoder
+    layers 0-3, teacher-forced; (d) 72 flash launches a prefill (24
+    encoder, 24 self, 24 cross) and 24 a decode step (cross; decode
+    self-attention is the plain cached path); (e) finite logits, the 103
+    padded vocabulary entries at -2^30.  Returns {"launches", "rows",
+    "prefill_ms", "prefill_bound_ms", "decode_ms", "decode_bound_ms",
+    "busy_ms", "decode_busy_ms", "peak_gib"}."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.transformer import StageSpec
+
+    cfg = get_config(WHISPER_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params = phases.run("whisper-init", lambda: zoo.init_params(
+        cfg, torch.Generator(dev).manual_seed(args.seed), dev))
+    torch.cuda.synchronize()
+    n_par = zoo.n_params(params)
+    V, Vp, Se = cfg.vocab, cfg.padded_vocab(1), cfg.enc_seq
+    log(f"[serve] {cfg.name}: {cfg.n_enc_layers} encoder + {cfg.n_layers} "
+        f"decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads / "
+        f"{cfg.n_kv_heads} kv of dim {cfg.hd}, d_ff {cfg.d_ff}, {Se} frames, "
+        f"vocab {V} (padded {Vp}: {Vp - V} pad logits a row); {n_par:,} "
+        f"parameters float32 ({4 * n_par / 1e9:.2f} GB)")
+    B, S, G = SERVE_BATCH, WHISPER_PROMPT, SERVE_GEN
+    rng = np.random.RandomState(args.seed)
+    prompts = torch.from_numpy(
+        rng.randint(0, V, (B, S)).astype(np.int32)).to(dev)
+    frames = torch.from_numpy(
+        rng.randn(B, Se, cfg.d_model).astype(np.float32)).to(dev)
+    ctx = tf.ModelContext(q_chunk=max(S, 64))
+    n_pre = cfg.n_enc_layers + 2 * cfg.n_layers
+    n_step = cfg.n_layers
+
+    def prefill():
+        return zoo.prefill(params, cfg, ctx, prompts, enc_embeds=frames,
+                           max_len=S + G)
+
+    def serve():
+        with torch.no_grad():
+            logits, cache = prefill()
+            toks = [zoo.greedy(logits)]
+            for _ in range(G - 1):
+                logits, cache = zoo.decode_step(params, cfg, ctx, toks[-1],
+                                                cache)
+                toks.append(zoo.greedy(logits))
+        return toks
+
+    phases.run("whisper-warm", serve)
+    torch.cuda.synchronize()
+    counter = fk.flash_attention_bhsd
+    counter.launches = 0                             # the path starts here
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(G + 1)]
+    per_step = []
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ev[0].record()
+        logits, cache = prefill()
+        ev[1].record()
+        pre_launches = counter.launches
+        step_logits, toks = [logits], [zoo.greedy(logits)]
+        for i in range(G - 1):
+            before = counter.launches
+            logits, cache = zoo.decode_step(params, cfg, ctx, toks[-1], cache)
+            ev[i + 2].record()
+            per_step.append(counter.launches - before)
+            step_logits.append(logits)
+            toks.append(zoo.greedy(logits))
+        gen_toks = torch.cat(toks, dim=1)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = counter.launches                      # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    decode_ms = [ev[i + 1].elapsed_time(ev[i + 2]) for i in range(G - 1)]
+    pre_bound_ms = whisper_prefill_ops(cfg, B, S) / FP32_OPS_PER_S * 1e3
+    d_ops, d_bytes = whisper_decode_cost(zoo, cfg, params, B, S + G)
+    d_bound_ms = max(d_ops / FP32_OPS_PER_S, d_bytes / HBM_BYTES_PER_S) * 1e3
+    log(f"[serve] {cfg.name}: batch={B} frames={Se} prompt={S} gen={G}: "
+        f"prefill {prefill_ms:.3f} ms device ({B * S / prefill_ms * 1e3:.0f} "
+        f"prompt tokens/s, {B * Se / prefill_ms * 1e3:.0f} frames/s; its "
+        f"products' bound {pre_bound_ms:.3f} ms, "
+        f"{whisper_prefill_ops(cfg, B, S) / 1e12:.3f} TFLOP at "
+        f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s float32), decode "
+        f"{float(np.mean(decode_ms)):.3f} ms a step (median "
+        f"{float(np.median(decode_ms)):.3f}, {G - 1} steps) beside its bound "
+        f"{d_bound_ms:.3f} ms ({d_ops / 1e12:.3f} TFLOP, the cross K/V "
+        f"recomputed in every layer; {d_bytes / 1e9:.3f} GB read, "
+        f"{d_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {host_s:.3f} s host for the "
+        f"request ({B * G / host_s:.1f} generated tokens/s); peak device "
+        f"memory {peak / 2**30:.2f} GiB")
+    log(f"[serve] {cfg.name} launches in the counted run: prefill "
+        f"{pre_launches} flash (d={cfg.hd}), decode {launches - pre_launches}"
+        f" flash over {G - 1} steps ({min(per_step)}-{max(per_step)} a step)")
+    if pre_launches != n_pre or any(n != n_step for n in per_step):
+        fail(f"{cfg.name}: {pre_launches} flash launches in the prefill and "
+             f"{sorted(set(per_step))} a decode step, expected {n_pre} and "
+             f"{n_step}: the path did not go through the kernel")
+    for i, lg in enumerate(step_logits):
+        if not bool(torch.isfinite(lg).all()):
+            fail(f"{cfg.name}: non-finite logits at step {i}")
+        if not bool((lg[:, V:] == -2.0 ** 30).all()):
+            fail(f"{cfg.name}: the padded vocabulary's logits are not -2^30 "
+                 f"at step {i}")
+    log(f"[serve] {cfg.name} sample generations (token ids): "
+        f"{gen_toks[0, :16].tolist()}")
+    prof = phases.run("whisper-profile-prefill", profile_kernels, torch,
+                      prefill, f"{cfg.name} prefill")
+    busy = sum(us for _, us in prof.values())
+    prof_d = phases.run("whisper-profile-decode", profile_kernels, torch,
+                        lambda: zoo.decode_step(params, cfg, ctx, toks[-1],
+                                                cache),
+                        f"{cfg.name} decode step")
+    d_busy = sum(us for _, us in prof_d.values())
+    del step_logits, cache
+
+    # (a) the four launch shapes on layer 0's inputs
+    def prefill_and_step():
+        with torch.no_grad():
+            lg, c = prefill()
+            zoo.decode_step(params, cfg, ctx, zoo.greedy(lg), c)
+    seen = phases.run("whisper-record", record_launches, {"flash": fk},
+                      prefill_and_step)["flash"]
+    if len(seen) != n_pre + n_step:
+        fail(f"{cfg.name}: {len(seen)} recorded launches, expected "
+             f"{n_pre + n_step}")
+    ne = cfg.n_enc_layers
+    picked = [("encoder layer0", seen[0]), ("decoder self layer0", seen[ne]),
+              ("cross layer0", seen[ne + 1]),
+              ("decode cross layer0", seen[n_pre])]
+    del seen
+    rows = phases.run("whisper-flash-timing", flash_rows, torch,
+                      [launch for _, launch in picked], fk,
+                      flash_attention_ref, PLAIN_FACTOR, unmasked=True)
+    want = [(Se, Se, False), (S, S, True), (S, Se, False), (1, Se, False)]
+    for (name, _), r, (sq, sk, causal) in zip(picked, rows, want):
+        r.update(launch=f"{cfg.name} {name}", model=cfg.name)
+        if (r["S"], r["Sk"], r["causal"], r["window"], r["d"]) != (
+                sq, sk, causal, 0, cfg.hd):
+            fail(f"{cfg.name} {name}: a launch of Sq={r['S']}, Sk={r['Sk']}, "
+                 f"causal {r['causal']}, window {r['window']}, d={r['d']}; "
+                 f"expected Sq={sq}, Sk={sk}, causal {causal}")
+        log(f"[kernel] flash_attention {r['launch']} (BH={r['BH']}, Sq="
+            f"{r['S']}, Sk={r['Sk']}, "
+            f"{'causal' if r['causal'] else 'unmasked'}, d={r['d']}): kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, SDPA {r['library_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ms ({r['ops'] / 1e9:.2f} GFLOP, "
+            f"{r['bytes'] / 1e6:.1f} MB); bound/kernel "
+            f"{r['bound_ms'] / r['ms']:.3f}; |err| from float64: kernel "
+            f"{r['max_abs_err']:.3g}, plain {r['plain_err']:.3g}, SDPA "
+            f"{r['library_err']:.3g}")
+    log(f"[check] {cfg.name} (a) the four launch shapes on layer 0's inputs "
+        "against the float64 plain version: |err|/max|v| "
+        + ", ".join(f"{r['rel_err']:.3g} (plain {r['plain_rel_err']:.3g})"
+                    for r in rows)
+        + f"; limits: the larger of {FLASH_F32_TOL} and {PLAIN_FACTOR} x the "
+        "plain version's")
+
+    # (b) encoder and decoder layers 0-3, kernels vs plain
+    enc_sp = params["enc"]["stages"][0]["layers"]
+    enc_layers = [(StageSpec("enc", 1), {"layers": _slice_tree(enc_sp, i)})
+                  for i in range(WHISPER_CHECK_LAYERS)]
+    dec_layers = one_layer_stages(params, cfg)[:WHISPER_CHECK_LAYERS]
+    with torch.no_grad():
+        enc_out = zoo._run_encoder(params, cfg, ctx, frames)
+        worst_e, _ = phases.run(
+            "whisper-encoder-vs-plain", per_layer_kernels_vs_plain, torch,
+            cfg, zoo, tf, params, prompts, enc_layers, h=frames,
+            tag=f" {cfg.name} encoder")
+        worst_d, _ = phases.run(
+            "whisper-decoder-vs-plain", per_layer_kernels_vs_plain, torch,
+            cfg, zoo, tf, params, prompts, dec_layers, enc_out=enc_out,
+            tag=f" {cfg.name} decoder")
+        seq = torch.cat([prompts, gen_toks], dim=1)
+        worst_c, logit_c, n_pos = phases.run(
+            "whisper-decode-vs-forward", per_layer_decode_vs_forward, torch,
+            cfg, zoo, tf, params, seq, S, dec_layers, enc_out=enc_out)
+    log(f"[check] {cfg.name} (b) layers 0..{WHISPER_CHECK_LAYERS - 1}, "
+        f"kernels vs plain on the same input: encoder {worst_e:.3g}, decoder "
+        f"(self- and cross-attention) {worst_d:.3g} of the update's max "
+        f"(limit {LAYER_RTOL})")
+    log(f"[check] {cfg.name} (c) prefill + decode vs the no-cache forward "
+        f"over {S + G} tokens on decoder layers 0..{WHISPER_CHECK_LAYERS - 1}"
+        f", teacher-forced at {n_pos} positions: max |update error| "
+        f"{worst_c:.3g} (limit {LAYER_RTOL}); logits through layer "
+        f"{WHISPER_CHECK_LAYERS - 1} {logit_c:.3g} of max (limit "
+        f"{LOGIT_RTOL})")
+    del params, enc_out, seq, frames
+    torch.cuda.empty_cache()
+    return {"launches": launches, "launches_prefill": pre_launches,
+            "launches_decode": launches - pre_launches, "rows": rows,
+            "prefill_ms": prefill_ms, "prefill_bound_ms": pre_bound_ms,
+            "decode_ms": float(np.mean(decode_ms)),
+            "decode_bound_ms": d_bound_ms, "busy_ms": busy / 1e3,
+            "decode_busy_ms": d_busy / 1e3, "host_s": host_s,
+            "tokens_per_s": B * G / host_s, "peak_gib": peak / 2**30}
 
 
 # ---------------------------------------------------------------------------
@@ -4586,8 +5158,15 @@ def main():
     phases.run("build", build_kernels)
     rand_err = phases.run("kernel-vs-plain", random_cases, torch, np,
                           kernel, ref_fn, dev, args.seed)
+    phases.run("half-remap", half_remap_case, torch, np, planlib, kernel,
+               dev)
+    half_times = phases.run("half-timing", half_timing, torch, kernel,
+                            ref_fn, dev)
     vec_err = phases.run("vec-kernel-vs-plain", random_vec_cases, torch, np,
                          kernel, ref_fn, dev, args.seed)
+    # the comparisons' float64 buffers leave the allocator's cache: the
+    # spawned ranks below share the card
+    torch.cuda.empty_cache()
     # phases 10, 11 and 14 run the launchers and the expert-parallel
     # ranks in processes of their own, beside phase 3's host-only graph
     # build and partition, and are waited for before any timed device work
@@ -4629,7 +5208,8 @@ def main():
                        replay_pipeline=replays["pipeline"], balance=balance)
     summary_3c = beside_runs["sharded-D"].result()
     (vec_launches, gcn_peak, inputs, params0, gcn_runs, gcn_ms,
-     gcn_added) = gcn_path(torch, np, args, dev, phases, g, A, pg)
+     gcn_added, gcn_oracles) = gcn_path(torch, np, args, dev, phases, g, A,
+                                        pg)
     del g, A
     sharded_vec = sharded_gcn(torch, np, mods, pg, pgs, params0, gcn_runs,
                               gcn_ms, gcn_added, vec_launches, dev, phases)
@@ -4662,6 +5242,8 @@ def main():
     serve_entries = serve_path(torch, np, args, dev, phases)
     gemma = gemma_path(torch, np, args, dev, phases)
     olmoe = olmoe_path(torch, np, args, dev, phases)
+    whisper = whisper_path(torch, np, args, dev, phases)
+    phases.run("gcn-oracles-wait", gcn_oracles.finish)
     service = service_path(torch, np, args, dev, phases,
                            beside_runs["service-ranks"].result())
     side.shutdown()
@@ -4670,22 +5252,31 @@ def main():
         r["model"] = LM_ARCH
     flash["launches_by_model"] = {LM_ARCH: flash["launches"],
                                   GEMMA_ARCH: gemma["launches"],
-                                  OLMOE_ARCH: olmoe["launches"]}
-    flash["launches"] += gemma["launches"] + olmoe["launches"]
-    flash["per_launch"] += gemma["rows"] + olmoe["rows"]
+                                  OLMOE_ARCH: olmoe["launches"],
+                                  WHISPER_ARCH: whisper["launches"]}
+    flash["launches"] += (gemma["launches"] + olmoe["launches"]
+                          + whisper["launches"])
+    flash["per_launch"] += gemma["rows"] + olmoe["rows"] + whisper["rows"]
     flash["max_abs_err"] = max(
         [flash["max_abs_err"]]
-        + [r["max_abs_err"] for r in gemma["rows"] + olmoe["rows"]])
+        + [r["max_abs_err"]
+           for r in gemma["rows"] + olmoe["rows"] + whisper["rows"]])
     flash["timed"] = (f"ms, plain_ms, bound_ms and library_ms sum the "
                       f"{LM_ARCH} prefill's {flash['launches_by_model'][LM_ARCH]}"
                       f" launches; {GEMMA_ARCH}: its first window and first "
                       f"global layer's launches, {OLMOE_ARCH}: its layer 0's "
-                      "launch (per_launch rows)")
+                      f"launch, {WHISPER_ARCH}: layer 0's encoder, decoder "
+                      "self, prefill cross and decode cross launches "
+                      "(per_launch rows)")
     flash[GEMMA_ARCH] = {k: gemma[k] for k in ("prefill_ms", "decode_ms",
                                                "busy_ms", "peak_gib")}
     flash[OLMOE_ARCH] = {k: olmoe[k] for k in (
         "prefill_ms", "prefill_bound_ms", "decode_ms", "decode_bound_ms",
         "busy_ms", "peak_gib")}
+    flash[WHISPER_ARCH] = {k: whisper[k] for k in (
+        "launches_prefill", "launches_decode", "prefill_ms",
+        "prefill_bound_ms", "decode_ms", "decode_bound_ms", "busy_ms",
+        "decode_busy_ms", "tokens_per_s", "peak_gib")}
     import resource
     host_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
     log(f"[device] peak device memory of the GCN path "
@@ -4733,6 +5324,10 @@ def main():
     })
     # the launchers' rank 0 and the drill (phases 10-12)
     entry["launches_main_path"] = launches
+    entry["payload_types"] = {k: v for k, v in half_times.items()
+                              if k.startswith("scalar")}
+    vec_entry["payload_types"] = {k: v for k, v in half_times.items()
+                                  if k.startswith("vector")}
     entry["launches_launchers"] = {
         "shard_check_rank0": launchers["shard_check"]["scalar"],
         "dist_smoke_rank0": launchers["dist_smoke"]["scalar"]}

@@ -5,7 +5,9 @@
 // What it computes.  q is (BH, Sq, d), k and v are (BKV, Sk, d), row-major,
 // float32 or bfloat16; BH = BKV * n_rep and query row bh reads kv row
 // bh / n_rep (grouped-query attention; the repeat is never materialised).
-// With positions 0.. on both sides (prefill and full forward):
+// With positions 0.. on both sides (prefill and full forward; and
+// cross-attention, a decoder's Sq queries against an encoder's Sk frames
+// with no mask, where Sq may exceed Sk):
 //     s[q, k] = (q . k) * d^-1/2        where the mask keeps (q, k),
 //               NEG = -2^30              elsewhere;
 //     out[q]  = sum_k softmax_k(s[q, :]) v[k]
@@ -19,8 +21,10 @@
 // tile, but each of its scores is NEG, so its weight exp(NEG - m) is 0
 // once m is a real score, and while m is still NEG (no valid key seen
 // yet) its weight 1 is wiped by alpha = exp(NEG - m_real) = 0 when the
-// first valid key arrives.  Every query has a valid key (its own position,
-// because Sq <= Sk, which the wrapper requires), so every row sees one.
+// first valid key arrives.  Every query has a valid key: with no mask all
+// Sk >= 1 of them, whatever Sq; under a causal mask or a window its own
+// position, because there Sq <= Sk, which the wrapper and the entry point
+// require.  So every row sees one.
 // Keys at or past Sk (the ragged last tile) and queries at or past Sq are
 // masked the same way, so any length is taken.  A tile that the mask keeps
 // whole skips the mask's compares.
@@ -454,7 +458,8 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
 
 // q, out: device pointers of (BH, Sq, d); k, v: (BKV, Sk, d), contiguous,
 // k and v 16-byte aligned, BH = BKV * n_rep; dtype 0 = float32, 1 =
-// bfloat16; d in {16, 32, 64, 128, 256}; 1 <= Sq <= Sk; window 0 = none; scale
+// bfloat16; d in {16, 32, 64, 128, 256}; Sq, Sk >= 1 and, when causal or
+// windowed, Sq <= Sk; window 0 = none; scale
 // is d^-1/2 rounded to float32 by the caller, as the TPU kernel's Python
 // float is; threads, q_tile, k_tile and smem_bytes are the launch shape
 // from the wrapper's launch_geometry, refused unless they are the
@@ -467,7 +472,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int k_tile, int smem_bytes, int device,
                                       void* stream) {
   if (BH <= 0) return 0;
-  if (Sq < 1 || Sq > Sk || n_rep < 1 || BH % n_rep != 0 || window < 0
+  if (Sq < 1 || Sk < 1 || (Sq > Sk && (causal || window > 0)) || n_rep < 1
+      || BH % n_rep != 0 || window < 0
       || (dtype != 0 && dtype != 1)
       || reinterpret_cast<uintptr_t>(k) % 16 != 0
       || reinterpret_cast<uintptr_t>(v) % 16 != 0) {

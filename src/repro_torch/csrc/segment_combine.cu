@@ -8,11 +8,17 @@
 // block-local destinations in [0, nb) and -1 for padding.  For every row r
 // and slot n in [0, nb):
 //     out[r, n] = op over the lanes e of row r with idx[r, e] == n
-// with op in {sum, min, max}.  A slot no lane hits holds the identity of
-// the TPU kernel: 0 for sum; for min/max the finite sentinels +-3e38 for
-// float32 and the iinfo bounds for int32.  Sums accumulate in float32
-// (in uint32 for int32, so they wrap as the TPU kernel's int32 sum does)
-// and are stored in the input type.  An index outside [0, nb) never hits.
+// with op in {sum, min, max}, on int32, float32, float16 or bfloat16
+// values.  A slot no lane hits holds the identity of the TPU kernel
+// (``sentinels`` there): 0 for sum; for min/max the finite sentinels
+// +-3e38 for float32 and bfloat16 (3e38 rounded to bfloat16), +-65504
+// (the largest finite float16) for float16, and the iinfo bounds for
+// int32.  So under min and max an infinity saturates to the sentinel
+// when no finite value beats it.  Sums accumulate in float32 (in uint32
+// for int32, so they wrap as the TPU kernel's int32 sum does) and are
+// stored in the input type; min and max of a half type compare in
+// float32, which holds every half value exactly.  An index outside
+// [0, nb) never hits.
 //
 // Order.  Every slot combines the lanes that hit it in lane order,
 // starting from the identity, in both kernels.  So a float sum is the same
@@ -24,7 +30,7 @@
 // shape serves a matrix unit, not this card, and is not carried over.
 //
 // What bounds it.  Bytes: every input read once and every output written
-// once, R*eb*8 + R*nb*4.  On the main path at n=4M vertices (M=32,
+// once, R*eb*(s+4) + R*nb*s for s-byte values.  On the main path at n=4M vertices (M=32,
 // nb=128) the Ch_msg plan is 1,387,616 x 64 and the mirror plan
 // 62,950 x 512: 1.421 GB and 0.290 GB a launch, 0.424 ms and 0.087 ms at
 // 3.35 TB/s.  The work is eb combines a row, far below the card's rate,
@@ -77,6 +83,8 @@
 // nothing, do not synchronise, and return cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 #include <limits.h>
 
@@ -94,7 +102,7 @@ constexpr float kNeg = -3.0e38f;
 constexpr float kPos = 3.0e38f;
 
 enum Op { kSum = 0, kMin = 1, kMax = 2 };
-enum DType { kInt32 = 0, kFloat32 = 1 };
+enum DType { kInt32 = 0, kFloat32 = 1, kFloat16 = 2, kBFloat16 = 3 };
 
 // accumulator type, identity and combine step for each (type, op); ``in``
 // takes a stored output back into the accumulator (a later lane tile of
@@ -160,7 +168,47 @@ template <> struct Combiner<int32_t, kMax> {
   __device__ static Acc in(int32_t v) { return v; }
 };
 
-// V values moved by one load or store instruction (V*4 bytes, aligned)
+// the half types: float32 accumulators (every half value is exact in
+// float32), the sentinels of the TPU kernel's ``sentinels`` for min/max,
+// and one rounding to the half type when the slot is stored
+template <typename H> struct HalfType;
+template <> struct HalfType<__half> {
+  __device__ static float widen(__half v) { return __half2float(v); }
+  __device__ static __half narrow(float v) { return __float2half_rn(v); }
+  __device__ static float pos() { return 65504.0f; }   // finfo max
+};
+template <> struct HalfType<__nv_bfloat16> {
+  __device__ static float widen(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+  }
+  __device__ static __nv_bfloat16 narrow(float v) {
+    return __float2bfloat16_rn(v);
+  }
+  // 3e38 rounded to bfloat16, the value the plain version stores
+  __device__ static float pos() { return widen(narrow(kPos)); }
+};
+template <typename H, int OP> struct HalfCombiner {
+  typedef float Acc;
+  static constexpr bool kOrderFree = false;
+  __device__ static Acc init() {
+    return OP == kSum ? 0.0f
+                      : OP == kMin ? HalfType<H>::pos() : -HalfType<H>::pos();
+  }
+  __device__ static Acc step(Acc a, H v) {
+    const float x = HalfType<H>::widen(v);
+    if (OP == kSum) return a + x;
+    if (OP == kMin) return x < a ? x : a;
+    return x > a ? x : a;
+  }
+  __device__ static H out(Acc a) { return HalfType<H>::narrow(a); }
+  __device__ static Acc in(H v) { return HalfType<H>::widen(v); }
+};
+template <int OP> struct Combiner<__half, OP> : HalfCombiner<__half, OP> {};
+template <int OP>
+struct Combiner<__nv_bfloat16, OP> : HalfCombiner<__nv_bfloat16, OP> {};
+
+// V values moved by one load or store instruction (V*sizeof(X) bytes,
+// aligned; at most 16)
 template <typename X, int V> struct alignas(sizeof(X) * V) Pack {
   X v[V];
 };
@@ -206,7 +254,7 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ vals,
 #pragma unroll
   for (int c = 0; c < kScalarMaxChunks; ++c) {
     const int e = t * lane_tile + c * 32 + lane;
-    v[c] = T(0);
+    v[c] = T();
     i[c] = -1;
     if (r < R && c * 32 < lane_tile && e < eb) {
       const long long g = r * eb + e;
@@ -342,7 +390,8 @@ segment_combine_kernel(const T* __restrict__ vals,
 // at most one slot, so an indexed fold does R*eb*F instead.
 //
 // What bounds it.  Bytes: every value and index read once and every
-// output written once, R*eb*(4F+4) + R*nb*4F.  The output is dense (nb
+// output written once, R*eb*(sF+4) + R*nb*sF for s-byte values (4 for
+// the graph paths' int32 and float32).  The output is dense (nb
 // slots a row, whatever the lanes hit), so it outweighs the input: the
 // Ch_msg plan at n=4M (1,387,616 rows x eb=64, nb=128) moves 34.5 GB a
 // join at F=32 and 68.6 GB at F=64, 10.3 ms and 20.5 ms at 3.35 TB/s.
@@ -360,10 +409,11 @@ segment_combine_kernel(const T* __restrict__ vals,
 //     running cursor for earlier chunks plus its rank among its chunk's
 //     lanes of that slot, read from the chunk's group mask as in the
 //     scalar kernel.
-//  2. Walk.  Lane t owns V consecutive features (V in {1, 2, 4}, from F
-//     and the data's alignment, one V*4-byte load), 32*V features a
-//     feature tile.  The warp walks the sorted lanes in order, 16/V of
-//     them loaded together (64 bytes a thread in flight), folding each
+//  2. Walk.  Lane t owns V consecutive features (V in {1, 2, 4}, and 8
+//     for a half type, from F and the data's alignment: one load of at
+//     most 16 bytes), 32*V features a feature tile.  The warp walks the
+//     sorted lanes in order, 64 bytes of them a thread loaded together
+//     (at most 16 lanes), folding each
 //     into V accumulators in registers; when the walk passes the end of
 //     slot n it stores out[r, n, :] straight away (the identity for an
 //     empty slot).  The control flow depends only on the row's indices,
@@ -374,7 +424,10 @@ segment_combine_kernel(const T* __restrict__ vals,
 // SM), not by accumulators.  A row longer than lane_tile (1024) lanes goes
 // through in lane tiles: the first writes every slot, each later one
 // continues the slots it hits from the stored value, which keeps lane
-// order.
+// order.  A half type's stored value is rounded, so there the tiles keep
+// their float32 partials in ``part`` (an (R, nb, F) float32 scratch the
+// wrapper allocates for such rows) and the last tile rounds every slot
+// once, as the scalar kernel does.
 //
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 (power limit
 // 700.00 W), a GCN join on the main path's own inputs: Ch_msg 11.22 ms at
@@ -473,30 +526,76 @@ __device__ __forceinline__ void close_slot(
   *reinterpret_cast<Pack<T, V>*>(o) = y;
 }
 
+// Where one (row, lane tile, feature tile) walk takes each slot's
+// accumulators from and puts them: o (this lane's features of the row's
+// slot 0 in out) and, for a half type over several lane tiles, part (the
+// same in the float32 partials; null otherwise).  Without part the first
+// tile stores every slot and later tiles resume and store the slots they
+// hit.  With part the tiles before the last keep their partials there,
+// and the last resumes every slot from it and stores every slot, rounded
+// once.
+template <typename T, int OP, int V>
+struct Slots {
+  typedef typename Combiner<T, OP>::Acc Acc;
+  T* o;
+  Acc* part;
+  int F;
+  bool live, first, last;
+
+  __device__ __forceinline__ void open(Acc (&acc)[V], int n, bool hit) const {
+    const long long at = static_cast<long long>(n) * F;
+    if (part != nullptr && live && !first && (hit || last)) {
+      const Pack<Acc, V> y = load_pack<Acc, V>(part + at);
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc[k] = y.v[k];
+    } else {
+      open_slot<T, OP, V>(acc, o + at,
+                          part == nullptr && live && !first && hit);
+    }
+  }
+
+  __device__ __forceinline__ void close(const Acc (&acc)[V], int n,
+                                        bool hit) const {
+    if (!live) return;
+    const long long at = static_cast<long long>(n) * F;
+    if (part != nullptr && !last) {
+      if (first || hit) {
+        Pack<Acc, V> y;
+#pragma unroll
+        for (int k = 0; k < V; ++k) y.v[k] = acc[k];
+        *reinterpret_cast<Pack<Acc, V>*>(part + at) = y;
+      }
+    } else if (part != nullptr || first || hit) {
+      close_slot<T, OP, V>(acc, o + at);
+    }
+  }
+};
+
 // fold the sorted lanes of one (row, lane tile, feature tile) and store
-// the slots; v and o point at this lane's features of the tile's first
-// lane and of the row's slot 0
+// the slots; v points at this lane's features of the tile's first lane
 template <typename T, int OP, int V>
 __device__ __forceinline__ void walk(const T* __restrict__ v,
-                                     T* __restrict__ o, int F, int nb,
-                                     const int* end, const int16_t* perm,
-                                     bool live, bool first) {
+                                     const Slots<T, OP, V>& io, int F,
+                                     int nb, const int* end,
+                                     const int16_t* perm) {
   typedef Combiner<T, OP> C;
-  constexpr int kDepth = 16 / V;       // lanes loaded together: 64 B a thread
+  // lanes loaded together: 64 bytes a thread (32 for a half type at V=1)
+  constexpr int kDepth = 64 / (V * static_cast<int>(sizeof(T))) < 16
+                         ? 64 / (V * static_cast<int>(sizeof(T))) : 16;
   typename C::Acc acc[V];
   const int n_hit = end[nb - 1];
   int n = 0, lo = 0, hi = end[0];      // slot n's lanes are perm[lo:hi]
-  open_slot<T, OP, V>(acc, o, live && !first && lo < hi);
+  io.open(acc, n, lo < hi);
   for (int kb = 0; kb < n_hit; kb += kDepth) {
     Pack<T, V> x[kDepth];
 #pragma unroll
     for (int j = 0; j < kDepth; ++j) {
       const int k = kb + j;
-      if (live && k < n_hit) {
+      if (io.live && k < n_hit) {
         x[j] = load_pack<T, V>(v + static_cast<long long>(perm[k]) * F);
       } else {
 #pragma unroll
-        for (int q = 0; q < V; ++q) x[j].v[q] = T(0);
+        for (int q = 0; q < V; ++q) x[j].v[q] = T();
       }
     }
 #pragma unroll
@@ -504,14 +603,11 @@ __device__ __forceinline__ void walk(const T* __restrict__ v,
       const int k = kb + j;
       if (k < n_hit) {
         while (k >= hi) {              // close slot n, open the next
-          if (live && (first || lo < hi)) {
-            close_slot<T, OP, V>(acc, o + static_cast<long long>(n) * F);
-          }
+          io.close(acc, n, lo < hi);
           ++n;
           lo = hi;
           hi = end[n];
-          open_slot<T, OP, V>(acc, o + static_cast<long long>(n) * F,
-                              live && !first && lo < hi);
+          io.open(acc, n, lo < hi);
         }
 #pragma unroll
         for (int q = 0; q < V; ++q) acc[q] = C::step(acc[q], x[j].v[q]);
@@ -519,14 +615,11 @@ __device__ __forceinline__ void walk(const T* __restrict__ v,
     }
   }
   for (;;) {                           // the slots after the last lane
-    if (live && (first || lo < hi)) {
-      close_slot<T, OP, V>(acc, o + static_cast<long long>(n) * F);
-    }
+    io.close(acc, n, lo < hi);
     if (++n >= nb) break;
     lo = hi;
     hi = end[n];
-    open_slot<T, OP, V>(acc, o + static_cast<long long>(n) * F,
-                        live && !first && lo < hi);
+    io.open(acc, n, lo < hi);
   }
 }
 
@@ -534,8 +627,10 @@ template <typename T, int OP, int V>
 __global__ void __launch_bounds__(kMaxWarps * 32, kVecBlocks)
 segment_combine_vec_kernel(const T* __restrict__ vals,
                            const int32_t* __restrict__ idx,
-                           T* __restrict__ out, long long R, int eb, int nb,
-                           int F, int lane_tile) {
+                           T* __restrict__ out,
+                           typename Combiner<T, OP>::Acc* __restrict__ part,
+                           long long R, int eb, int nb, int F,
+                           int lane_tile) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
   const int wpb = blockDim.x >> 5;
@@ -558,8 +653,11 @@ segment_combine_vec_kernel(const T* __restrict__ vals,
       for (int ft = 0; ft < n_ft; ++ft) {
         const int vi = ft * 32 + lane;
         const long long f = static_cast<long long>(vi) * V;
-        walk<T, OP, V>(vals + (r * eb + l0) * F + f, out + r * nb * F + f,
-                       F, nb, end, perm, vi < n_vec, lt == 0);
+        const Slots<T, OP, V> io{
+            out + r * nb * F + f,
+            part != nullptr && n_lt > 1 ? part + r * nb * F + f : nullptr,
+            F, vi < n_vec, lt == 0, lt == n_lt - 1};
+        walk<T, OP, V>(vals + (r * eb + l0) * F + f, io, F, nb, end, perm);
       }
       __syncwarp();                      // end/perm are reused next
     }
@@ -600,45 +698,63 @@ cudaError_t launch(const void* vals, const void* idx, void* out, long long R,
 
 template <typename T, int OP, int V>
 cudaError_t launch_vec(const void* vals, const void* idx, void* out,
-                       long long R, int eb, int nb, int F, int lane_tile,
-                       int warps, int smem_bytes, long long blocks,
-                       cudaStream_t stream) {
+                       void* part, long long R, int eb, int nb, int F,
+                       int lane_tile, int warps, int smem_bytes,
+                       long long blocks, cudaStream_t stream) {
   const cudaError_t err = allow_smem(segment_combine_vec_kernel<T, OP, V>,
                                      smem_bytes);
   if (err != cudaSuccess) return err;
   segment_combine_vec_kernel<T, OP, V>
       <<<static_cast<unsigned>(blocks), warps * 32, smem_bytes, stream>>>(
           static_cast<const T*>(vals), static_cast<const int32_t*>(idx),
-          static_cast<T*>(out), R, eb, nb, F, lane_tile);
+          static_cast<T*>(out),
+          static_cast<typename Combiner<T, OP>::Acc*>(part), R, eb, nb, F,
+          lane_tile);
   return cudaSuccess;
 }
 
 template <typename T, int V>
 cudaError_t launch_vec_op(int op, const void* vals, const void* idx,
-                          void* out, long long R, int eb, int nb, int F,
-                          int lane_tile, int warps, int smem_bytes,
+                          void* out, void* part, long long R, int eb, int nb,
+                          int F, int lane_tile, int warps, int smem_bytes,
                           long long blocks, cudaStream_t s) {
-  if (op == kSum) return launch_vec<T, kSum, V>(vals, idx, out, R, eb, nb, F, lane_tile, warps, smem_bytes, blocks, s);
-  if (op == kMin) return launch_vec<T, kMin, V>(vals, idx, out, R, eb, nb, F, lane_tile, warps, smem_bytes, blocks, s);
-  return launch_vec<T, kMax, V>(vals, idx, out, R, eb, nb, F, lane_tile, warps, smem_bytes, blocks, s);
+  if (op == kSum) return launch_vec<T, kSum, V>(vals, idx, out, part, R, eb, nb, F, lane_tile, warps, smem_bytes, blocks, s);
+  if (op == kMin) return launch_vec<T, kMin, V>(vals, idx, out, part, R, eb, nb, F, lane_tile, warps, smem_bytes, blocks, s);
+  return launch_vec<T, kMax, V>(vals, idx, out, part, R, eb, nb, F, lane_tile, warps, smem_bytes, blocks, s);
 }
 
 template <typename T>
 cudaError_t launch_vec_width(int vec, int op, const void* vals,
-                             const void* idx, void* out, long long R, int eb,
-                             int nb, int F, int lane_tile, int warps,
-                             int smem_bytes, long long blocks,
-                             cudaStream_t s) {
-  if (vec == 4) return launch_vec_op<T, 4>(op, vals, idx, out, R, eb, nb, F, lane_tile, warps, smem_bytes, blocks, s);
-  if (vec == 2) return launch_vec_op<T, 2>(op, vals, idx, out, R, eb, nb, F, lane_tile, warps, smem_bytes, blocks, s);
-  return launch_vec_op<T, 1>(op, vals, idx, out, R, eb, nb, F, lane_tile, warps, smem_bytes, blocks, s);
+                             const void* idx, void* out, void* part,
+                             long long R, int eb, int nb, int F,
+                             int lane_tile, int warps, int smem_bytes,
+                             long long blocks, cudaStream_t s) {
+  if constexpr (sizeof(T) == 2) {     // 8 half values make one 16-byte load
+    if (vec == 8) return launch_vec_op<T, 8>(op, vals, idx, out, part, R, eb, nb, F, lane_tile, warps, smem_bytes, blocks, s);
+  }
+  if (vec == 4) return launch_vec_op<T, 4>(op, vals, idx, out, part, R, eb, nb, F, lane_tile, warps, smem_bytes, blocks, s);
+  if (vec == 2) return launch_vec_op<T, 2>(op, vals, idx, out, part, R, eb, nb, F, lane_tile, warps, smem_bytes, blocks, s);
+  return launch_vec_op<T, 1>(op, vals, idx, out, part, R, eb, nb, F, lane_tile, warps, smem_bytes, blocks, s);
 }
+
+template <typename T>
+cudaError_t launch_op(int op, const void* vals, const void* idx, void* out,
+                      long long R, int eb, int nb, int lane_tile,
+                      int quad_out, int warps, int smem_bytes,
+                      long long blocks, cudaStream_t s) {
+  if (op == kSum) return launch<T, kSum>(vals, idx, out, R, eb, nb, lane_tile, quad_out, warps, smem_bytes, blocks, s);
+  if (op == kMin) return launch<T, kMin>(vals, idx, out, R, eb, nb, lane_tile, quad_out, warps, smem_bytes, blocks, s);
+  return launch<T, kMax>(vals, idx, out, R, eb, nb, lane_tile, quad_out, warps, smem_bytes, blocks, s);
+}
+
+// bytes of one value of each dtype
+int item_bytes(int dtype) { return dtype == kFloat16 || dtype == kBFloat16 ? 2 : 4; }
 
 }  // namespace
 
 // vals, idx, out: device pointers of (R, eb), (R, eb) int32 and (R, nb)
-// contiguous arrays; dtype 0 = int32, 1 = float32; op 0 = sum, 1 = min,
-// 2 = max; warps, lane_tile, smem_bytes and blocks as
+// contiguous arrays; dtype 0 = int32, 1 = float32, 2 = float16, 3 =
+// bfloat16; op 0 = sum, 1 = min, 2 = max; warps, lane_tile, smem_bytes and blocks as
 // kernel.launch_geometry gives them.  Returns a cudaError_t (0 on
 // success).
 extern "C" int segment_combine_launch(const void* vals, const void* idx,
@@ -648,7 +764,7 @@ extern "C" int segment_combine_launch(const void* vals, const void* idx,
                                       long long blocks, int device,
                                       void* stream) {
   if (R <= 0) return 0;
-  if (nb < 1 || nb > 1024 || eb < 0 || (dtype != kInt32 && dtype != kFloat32)
+  if (nb < 1 || nb > 1024 || eb < 0 || dtype < kInt32 || dtype > kBFloat16
       || op < kSum || op > kMax || !block_ok(warps, smem_bytes, blocks)
       || lane_tile < 32 || lane_tile > 32 * kScalarMaxChunks
       || lane_tile % 32 != 0 || smem_bytes != warps * scalar_warp_bytes(nb)) {
@@ -660,49 +776,73 @@ extern "C" int segment_combine_launch(const void* vals, const void* idx,
                        && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kInt32) {
-    if (op == kSum) err = launch<int32_t, kSum>(vals, idx, out, R, eb, nb, lane_tile, quad_out, warps, smem_bytes, blocks, s);
-    else if (op == kMin) err = launch<int32_t, kMin>(vals, idx, out, R, eb, nb, lane_tile, quad_out, warps, smem_bytes, blocks, s);
-    else err = launch<int32_t, kMax>(vals, idx, out, R, eb, nb, lane_tile, quad_out, warps, smem_bytes, blocks, s);
+    err = launch_op<int32_t>(op, vals, idx, out, R, eb, nb, lane_tile, quad_out, warps, smem_bytes, blocks, s);
+  } else if (dtype == kFloat32) {
+    err = launch_op<float>(op, vals, idx, out, R, eb, nb, lane_tile, quad_out, warps, smem_bytes, blocks, s);
+  } else if (dtype == kFloat16) {
+    err = launch_op<__half>(op, vals, idx, out, R, eb, nb, lane_tile, quad_out, warps, smem_bytes, blocks, s);
   } else {
-    if (op == kSum) err = launch<float, kSum>(vals, idx, out, R, eb, nb, lane_tile, quad_out, warps, smem_bytes, blocks, s);
-    else if (op == kMin) err = launch<float, kMin>(vals, idx, out, R, eb, nb, lane_tile, quad_out, warps, smem_bytes, blocks, s);
-    else err = launch<float, kMax>(vals, idx, out, R, eb, nb, lane_tile, quad_out, warps, smem_bytes, blocks, s);
+    err = launch_op<__nv_bfloat16>(op, vals, idx, out, R, eb, nb, lane_tile, quad_out, warps, smem_bytes, blocks, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // vals, idx, out: device pointers of (R, eb, F), (R, eb) int32 and
-// (R, nb, F) contiguous arrays; dtype and op as above; vec (1, 2 or 4
-// features a thread, dividing F, vals and out aligned to vec*4 bytes),
+// (R, nb, F) contiguous arrays; part: for a half type whose rows take more
+// than one lane tile (eb > lane_tile), an (R, nb, F) float32 scratch,
+// 16-byte aligned, for the partial sums (null otherwise, and ignored for
+// int32 and float32); dtype and op as above; vec (1, 2 or 4
+// features a thread, or 8 for a half type: vec values in at most 16
+// bytes, dividing F, vals and out aligned to vec values' bytes),
 // warps, lane_tile, smem_bytes and blocks as kernel.launch_geometry gives
 // them.  Returns a cudaError_t (0 on success).
 extern "C" int segment_combine_vec_launch(const void* vals, const void* idx,
-                                          void* out, long long R, int eb,
-                                          int nb, int F, int dtype, int op,
-                                          int vec, int warps, int lane_tile,
-                                          int smem_bytes, long long blocks,
-                                          int device, void* stream) {
+                                          void* out, void* part, long long R,
+                                          int eb, int nb, int F, int dtype,
+                                          int op, int vec, int warps,
+                                          int lane_tile, int smem_bytes,
+                                          long long blocks, int device,
+                                          void* stream) {
   if (R <= 0 || F <= 0) return 0;
-  const uintptr_t align = static_cast<uintptr_t>(vec) * 4;
-  if (nb < 1 || nb > 1024 || eb < 0 || (dtype != kInt32 && dtype != kFloat32)
+  if (dtype < kInt32 || dtype > kBFloat16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const uintptr_t align = static_cast<uintptr_t>(vec) * item_bytes(dtype);
+  if (nb < 1 || nb > 1024 || eb < 0
       || op < kSum || op > kMax || !block_ok(warps, smem_bytes, blocks)
-      || (vec != 1 && vec != 2 && vec != 4) || F % vec != 0
+      || (vec != 1 && vec != 2 && vec != 4 && vec != 8) || align > 16
+      || F % vec != 0
       || reinterpret_cast<uintptr_t>(vals) % align != 0
       || reinterpret_cast<uintptr_t>(out) % align != 0
       || lane_tile < 32 || lane_tile > kVecMaxTile || lane_tile % 32 != 0
       || smem_bytes != warps * vec_warp_bytes(nb, lane_tile)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool half = item_bytes(dtype) == 2;
+  if (half && eb > lane_tile
+      && (part == nullptr || reinterpret_cast<uintptr_t>(part) % 16 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!half) part = nullptr;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kInt32) {
-    err = launch_vec_width<int32_t>(vec, op, vals, idx, out, R, eb, nb, F,
-                                    lane_tile, warps, smem_bytes, blocks, s);
-  } else {
-    err = launch_vec_width<float>(vec, op, vals, idx, out, R, eb, nb, F,
+    err = launch_vec_width<int32_t>(vec, op, vals, idx, out, part, R, eb, nb,
+                                    F, lane_tile, warps, smem_bytes, blocks,
+                                    s);
+  } else if (dtype == kFloat32) {
+    err = launch_vec_width<float>(vec, op, vals, idx, out, part, R, eb, nb, F,
                                   lane_tile, warps, smem_bytes, blocks, s);
+  } else if (dtype == kFloat16) {
+    err = launch_vec_width<__half>(vec, op, vals, idx, out, part, R, eb, nb,
+                                   F, lane_tile, warps, smem_bytes, blocks,
+                                   s);
+  } else {
+    err = launch_vec_width<__nv_bfloat16>(vec, op, vals, idx, out, part, R,
+                                          eb, nb, F, lane_tile, warps,
+                                          smem_bytes, blocks, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -10,6 +10,11 @@ Dispatch: a CPU tensor goes to the plain version (``ref.py``); a CUDA
 tensor goes to the kernel or raises.  ``flash_attention_bhsd.launches``
 counts the kernel's launches.
 
+``check_lengths`` is the rule on the query and key lengths, in plain
+Python so that the CPU tests reach it: any ``Sq`` against ``Sk`` keys
+without a mask (cross-attention: a decoder's queries against an encoder's
+frames), ``Sq <= Sk`` under a causal mask or a window.
+
 ``launch_geometry`` works out each launch's shape (threads, query and key
 tiles, shared bytes, blocks an SM, grid) in plain Python, so the CPU tests
 hold it to the card's limits.  The wrapper passes it to the C entry point,
@@ -78,6 +83,24 @@ def launch_geometry(d: int, dtype: torch.dtype = torch.float32, BH: int = 1,
                     1 if d >= 128 else 2, (BH, -(-Sq // q_tile)))
 
 
+def check_lengths(Sq: int, Sk: int, causal: bool, window: int) -> None:
+    """Raise unless the kernel takes ``Sq`` queries against ``Sk`` keys
+    under this mask.  Positions start at 0 on both sides.  With no mask
+    (``causal=False, window=0``) every query sees all ``Sk >= 1`` keys, so
+    any ``Sq >= 1`` is taken.  Under a causal mask or a window a query
+    past the last key could be left with no key (a window behind it), so
+    ``Sq <= Sk`` is required: then every query keeps its own position."""
+    if window < 0:
+        raise ValueError(f"window={window} must be >= 0")
+    if Sq < 1 or Sk < 1:
+        raise ValueError(f"the kernel needs Sq >= 1 and Sk >= 1, got "
+                         f"Sq={Sq}, Sk={Sk}")
+    if Sq > Sk and (causal or window > 0):
+        raise ValueError(f"a causal or windowed call needs 1 <= Sq <= Sk "
+                         f"(positions from 0 on both sides), got Sq={Sq}, "
+                         f"Sk={Sk}")
+
+
 def staging_tiles(d: int) -> int:
     """bfloat16 staging tiles of the kernel at head dim ``d``: one at
     d = 256 (shared by the K and V copies), else two."""
@@ -104,7 +127,7 @@ def _library() -> ctypes.CDLL:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: int) -> None:
+           causal: bool, window: int) -> None:
     """Raise on anything the kernel does not take; never fall back."""
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
         raise ValueError("the flash attention kernel takes q, k, v on one "
@@ -124,11 +147,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if BKV < 1 or BH % BKV or BH > MAX_BH:
         raise ValueError(f"BH={BH} must be a multiple of BKV={BKV} and at "
                          f"most {MAX_BH}")
-    if not 1 <= Sq <= Sk:
-        raise ValueError(f"the kernel needs 1 <= Sq <= Sk (positions from 0 "
-                         f"on both sides), got Sq={Sq}, Sk={Sk}")
-    if window < 0:
-        raise ValueError(f"window={window} must be >= 0")
+    check_lengths(Sq, Sk, causal, window)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
 
@@ -137,7 +156,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool = True, window: int = 0) -> torch.Tensor:
     """Run the CUDA kernel on q (BH, Sq, d) and k/v (BKV, Sk, d), all on
     one CUDA device.  Raises on anything the kernel does not take."""
-    _check(q, k, v, window)
+    _check(q, k, v, causal, window)
     BH, Sq, d = q.shape
     BKV, Sk, _ = k.shape
     geo = launch_geometry(d, q.dtype, BH, Sq)

@@ -4,14 +4,19 @@ KV/SSM caches, on one device (``--device``, the GPU by default).
     PYTHONPATH=src python -m repro_torch.launch.serve_model \\
         --arch hymba_1_5b --reduced --batch 4 --prompt-len 32 --gen 32
 
-The same flags and ``[serve]`` lines as ``repro.launch.serve_model``.  The
-stage kinds ``dense``, ``ssm``, ``hybrid`` and ``moe`` run (tinyllama,
-mamba2, hymba, gemma3, olmoe, llama4 scout); encoder-decoder
-architectures come with a later slice.  OLMoE-1B-7B serves at full width
-on one 80 GB card (``--arch olmoe_1b_7b --no-reduced``, 28 GB of float32
-weights); ``--reduced --device cpu`` serves its smoke config on the CPU.
-The weights are random, drawn from ``torch.Generator(device)`` seeded with
-``seed``; the prompts are drawn with numpy as the reference draws them.
+The same flags and ``[serve]`` lines as ``repro.launch.serve_model``.
+Every architecture of ``ARCH_IDS`` runs: the stage kinds ``dense``,
+``ssm``, ``hybrid`` and ``moe`` (tinyllama, mamba2, hymba, gemma3, olmoe,
+llama4 scout, ...) and the encoder-decoder Whisper, whose encoder takes
+frame embeddings of shape (batch, enc_seq, d_model) in place of the stub
+audio front end.  OLMoE-1B-7B serves at full width on one 80 GB card
+(``--arch olmoe_1b_7b --no-reduced``, 28 GB of float32 weights), and so
+does Whisper-medium (``--arch whisper_medium --no-reduced``: 24 encoder
+and 24 decoder layers, 1500 frames, 4 GB); ``--reduced --device cpu``
+serves either's smoke config on the CPU.  The weights are random, drawn
+from ``torch.Generator(device)`` seeded with ``seed``; the prompts, and
+then the frame embeddings (standard normals), are drawn with numpy as
+the reference draws them.
 """
 from __future__ import annotations
 
@@ -41,11 +46,15 @@ def run(arch: str, reduced: bool, batch: int, prompt_len: int, gen: int,
     rng = np.random.RandomState(seed)
     prompts = torch.from_numpy(
         rng.randint(0, cfg.vocab, (batch, prompt_len)).astype(np.int32)).to(dev)
+    enc = None
+    if cfg.enc_dec:
+        enc = torch.from_numpy(rng.randn(batch, cfg.enc_seq, cfg.d_model)
+                               .astype(np.float32)).to(dev)
 
     t0 = time.time()
     with torch.no_grad():
         logits, cache = zoo.prefill(params, cfg, ctx, prompts,
-                                    max_len=prompt_len + gen)
+                                    enc_embeds=enc, max_len=prompt_len + gen)
         tok = zoo.greedy(logits)
         out = [tok]
         for _ in range(gen - 1):

@@ -8,11 +8,13 @@ reference is used as it is.  Products accumulate in the input type
 (float32 for the configs served here; TF32 stays off).
 
 Kernel dispatch (``AttnSpec.kernels``): ``"auto"`` sends a CUDA tensor's
-self-attention to the flash attention kernel and a CPU tensor to the JAX
-package's own choice of plain attention; ``"kernel"`` always goes through
-the kernel's wrapper (which launches the kernel for a CUDA tensor and
-takes its plain version for a CPU tensor, so the CPU tests cover the
-kernel's route); ``"ref"`` always takes the JAX package's choice.
+full-sequence attention (causal or windowed self-attention, an encoder's
+unmasked self-attention, cross-attention) to the flash attention kernel
+and a CPU tensor to the JAX package's own choice of plain attention;
+``"kernel"`` always goes through the kernel's wrapper (which launches
+the kernel for a CUDA tensor and takes its plain version for a CPU
+tensor, so the CPU tests cover the kernel's route); ``"ref"`` always
+takes the JAX package's choice.
 """
 from __future__ import annotations
 
@@ -164,17 +166,31 @@ def attn_qkv(x: torch.Tensor, w: dict, spec: AttnSpec,
 
 
 def attn_block(x: torch.Tensor, w: dict, spec: AttnSpec,
-               positions: torch.Tensor, return_kv: bool = False):
-    """Full self-attention sub-block (no cache): qkv + attn + out-proj.
-    ``positions`` are 0..S-1 in every row (prefill and full forward), which
-    is what the flash kernel's masks assume.  return_kv=True also returns
-    the rotated (k, v) so prefill can build the KV cache."""
-    q, k, v = attn_qkv(x, w, spec, positions)
+               positions: torch.Tensor, cross_kv=None, cross_pos=None,
+               return_kv: bool = False):
+    """Full attention sub-block (no cache): qkv + attn + out-proj.
+
+    Self-attention: ``positions`` are 0..S-1 in every row (prefill, the
+    full forward and the encoder), which is what the flash kernel's masks
+    assume.  Cross-attention (``cross_kv`` = the encoder's (k, v), not
+    rotated, at ``cross_pos``): q is projected from ``x`` and rotated at
+    ``positions``, and ``spec`` must be unmasked (``causal=False,
+    window=0``), so the kernel takes any query positions, one decode
+    token's among them.  return_kv=True also returns the rotated (k, v)
+    so prefill can build the KV cache."""
+    if cross_kv is None:
+        q, k, v = attn_qkv(x, w, spec, positions)
+        k_pos = positions
+    else:
+        q = apply_rope(torch.einsum("bsd,dhk->bshk", x, w["wq"]), positions,
+                       spec.rope_theta)
+        k, v = cross_kv
+        k_pos = cross_pos
     if use_kernel(spec.kernels, x):
         o = flash_attention(q, k, v, causal=spec.causal, window=spec.window)
     else:
         impl = attention if x.shape[1] <= spec.q_chunk else chunked_attention
-        o = impl(q, k, v, spec, positions, positions)
+        o = impl(q, k, v, spec, positions, k_pos)
     out = torch.einsum("bshk,hkd->bsd", o, w["wo"])
     if return_kv:
         return out, (k, v)

@@ -1,8 +1,9 @@
 """ArchConfig -> runnable model on one device: parameter shapes and
 initialisation, the weights carried across from the JAX package, the full
 forward, and the serving entry points (cache build, prefill, decode) --
-the port of ``repro.models.model_zoo`` for the stage kinds ``dense``,
-``ssm``, ``hybrid`` and ``moe``.
+the port of ``repro.models.model_zoo`` for every stage kind: ``dense``,
+``ssm``, ``hybrid``, ``moe``, and the encoder-decoder's ``enc`` and
+``dec_cross``.
 
 Parameters are a nested dict of tensors in the JAX package's layout, every
 per-stage weight stacked on a leading layer axis:
@@ -12,10 +13,15 @@ per-stage weight stacked on a leading layer axis:
       'out_embed':  (V_pad, D),            # is 'embed' when tie_embeddings
       'final_norm': (D,),
       'stages':     [ {'layers': {...stacked...}}, ... ],
+      'enc':        {'stages': [...], 'final_norm': (D,)}   # enc_dec only
     }
 
 so the reference's parameter tree maps one to one
-(``params_from_reference``).
+(``params_from_reference``).  An encoder-decoder model (Whisper) takes
+``enc_embeds``, the (B, enc_seq, d_model) frame embeddings of the
+reference's stub audio front end, through ``forward_logits`` and
+``prefill``; the encoder runs once, and its output rides in the cache
+(``enc_out``) for every decode step.
 """
 from __future__ import annotations
 
@@ -31,7 +37,8 @@ from repro_torch.models.layers import rms_norm
 from repro_torch.models.transformer import (ModelContext, StageSpec,
                                             apply_stage_decode,
                                             apply_stage_seq, build_stages,
-                                            check_supported, stage_kpos)
+                                            check_supported, enc_stage,
+                                            stage_kpos)
 
 NEG_INF_F32 = -2.0 ** 30
 
@@ -89,6 +96,9 @@ def stage_param_shapes(cfg: ArchConfig, stage: StageSpec) -> Dict[str, Any]:
         out["moe"] = _moe_shapes(cfg, L)
     else:
         out["mlp"] = _mlp_shapes(cfg, L)
+    if stage.kind == "dec_cross":
+        out["norm_cross"] = (L, D)
+        out["cross"] = _attn_shapes(cfg, L)
     return out
 
 
@@ -96,13 +106,18 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Any]:
     check_supported(cfg)
     V = cfg.padded_vocab(1)
     D = cfg.d_model
-    return {
+    shapes: Dict[str, Any] = {
         "embed": (V, D),
         "out_embed": (V, D),
         "final_norm": (D,),
         "stages": [{"layers": stage_param_shapes(cfg, s)}
                    for s in build_stages(cfg)],
     }
+    es = enc_stage(cfg)
+    if es is not None:
+        shapes["enc"] = {"stages": [{"layers": stage_param_shapes(cfg, es)}],
+                         "final_norm": (D,)}
+    return shapes
 
 
 def _leaves(tree, path=()):
@@ -223,15 +238,35 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
+def _run_encoder(params, cfg: ArchConfig, ctx: ModelContext,
+                 enc_embeds: torch.Tensor) -> torch.Tensor:
+    """The encoder over (B, enc_seq, D) frame embeddings: its stage
+    (unmasked self-attention) and final norm.  None for a decoder-only
+    model."""
+    if not cfg.enc_dec:
+        return None
+    if enc_embeds is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder model: pass "
+                         "enc_embeds, the (B, enc_seq, d_model) frame "
+                         "embeddings")
+    B, Se, _ = enc_embeds.shape
+    h, _, _ = apply_stage_seq(enc_embeds, params["enc"]["stages"][0],
+                              enc_stage(cfg), cfg, ctx,
+                              _positions(B, Se, enc_embeds.device))
+    return rms_norm(h, params["enc"]["final_norm"], cfg.norm_eps)
+
+
 def forward_logits(params, cfg: ArchConfig, ctx: ModelContext,
-                   tokens: torch.Tensor):
+                   tokens: torch.Tensor, enc_embeds=None):
     """tokens: (B, S) -> (logits (B, S, V_pad) float32, aux loss)."""
     B, S = tokens.shape
     pos = _positions(B, S, tokens.device)
     h = _embed_in(params, cfg, tokens, ctx)
+    enc_out = _run_encoder(params, cfg, ctx, enc_embeds)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for sp, stage in zip(params["stages"], build_stages(cfg)):
-        h, _, aux = apply_stage_seq(h, sp, stage, cfg, ctx, pos)
+        h, _, aux = apply_stage_seq(h, sp, stage, cfg, ctx, pos,
+                                    enc_out=enc_out)
         aux_total = aux_total + aux
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = emb.logits_matmul(h, params["out_embed"])
@@ -260,7 +295,7 @@ def build_cache(cfg: ArchConfig, B: int, seq_len: int, ctx: ModelContext,
         L = stage.n_layers
         c: Dict[str, Any] = {}
         clen = _stage_cache_len(stage, seq_len)
-        if stage.kind in ("dense", "hybrid", "moe"):
+        if stage.kind in ("dense", "hybrid", "moe", "dec_cross"):
             c["k"] = mk((L, B, clen, K, hd), dtype)
             c["v"] = mk((L, B, clen, K, hd), dtype)
             c["k_pos"] = mk((B, clen), torch.int32)
@@ -273,12 +308,16 @@ def build_cache(cfg: ArchConfig, B: int, seq_len: int, ctx: ModelContext,
             c["state"] = mk((L, B, cfg.n_ssm_heads, cfg.ssm.head_dim,
                              cfg.ssm.d_state), torch.float32)
         caches.append(c)
-    return {"stages": caches, "pos": mk((B,), torch.int32)}
+    out = {"stages": caches, "pos": mk((B,), torch.int32)}
+    if cfg.enc_dec:
+        out["enc_out"] = mk((B, cfg.enc_seq, cfg.d_model), dtype)
+    return out
 
 
 def prefill(params, cfg: ArchConfig, ctx: ModelContext, tokens: torch.Tensor,
-            max_len: int = 0):
-    """tokens: (B, S). Returns (last-token logits (B, V_pad), cache).
+            enc_embeds=None, max_len: int = 0):
+    """tokens: (B, S); enc_embeds: (B, enc_seq, D) frame embeddings of an
+    encoder-decoder model.  Returns (last-token logits (B, V_pad), cache).
 
     ``max_len`` sets the global-attention cache capacity (>= S + the
     decode steps to come); window stages always hold ``window`` slots."""
@@ -286,11 +325,13 @@ def prefill(params, cfg: ArchConfig, ctx: ModelContext, tokens: torch.Tensor,
     max_len = max(max_len, S)
     pos = _positions(B, S, tokens.device)
     h = _embed_in(params, cfg, tokens, ctx)
+    enc_out = _run_encoder(params, cfg, ctx, enc_embeds)
     caches = []
     for sp, stage in zip(params["stages"], build_stages(cfg)):
         clen = _stage_cache_len(stage, max_len)
         h, cache, _ = apply_stage_seq(h, sp, stage, cfg, ctx, pos,
-                                      want_cache=True, cache_len=clen)
+                                      enc_out=enc_out, want_cache=True,
+                                      cache_len=clen)
         if stage.kind != "ssm":
             cache["k_pos"] = stage_kpos(B, S, clen, tokens.device)
         caches.append(cache)
@@ -299,6 +340,8 @@ def prefill(params, cfg: ArchConfig, ctx: ModelContext, tokens: torch.Tensor,
     out = {"stages": caches,
            "pos": torch.full((B,), S, dtype=torch.int32,
                              device=tokens.device)}
+    if cfg.enc_dec:
+        out["enc_out"] = enc_out
     return _mask_pad_vocab(logits, cfg.vocab), out
 
 
@@ -309,15 +352,19 @@ def decode_step(params, cfg: ArchConfig, ctx: ModelContext,
     (see ``apply_stage_decode``)."""
     pos = cache["pos"]
     h = _embed_in(params, cfg, token, ctx)
+    enc_out = cache.get("enc_out")
     new_stages = []
     for sp, stage, sc in zip(params["stages"], build_stages(cfg),
                              cache["stages"]):
-        h, nc = apply_stage_decode(h, sp, stage, cfg, ctx, pos, sc)
+        h, nc = apply_stage_decode(h, sp, stage, cfg, ctx, pos, sc,
+                                   enc_out=enc_out)
         new_stages.append(nc)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = emb.logits_matmul(h, params["out_embed"])[:, 0]
-    return (_mask_pad_vocab(logits, cfg.vocab),
-            {"stages": new_stages, "pos": pos + 1})
+    new_cache = {"stages": new_stages, "pos": pos + 1}
+    if cfg.enc_dec:
+        new_cache["enc_out"] = enc_out
+    return _mask_pad_vocab(logits, cfg.vocab), new_cache
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:

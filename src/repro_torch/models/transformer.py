@@ -1,6 +1,6 @@
 """Stage-structured transformer backbone -- the port of
-``repro.models.transformer`` for the stage kinds ``dense``, ``ssm``,
-``hybrid`` and ``moe``.
+``repro.models.transformer``: the stage kinds ``dense``, ``ssm``,
+``hybrid``, ``moe``, and the encoder-decoder's ``enc`` and ``dec_cross``.
 
 A model is a list of **stages**; each stage is a stack of homogeneous
 layers whose parameters are stacked on a leading axis, exactly as the JAX
@@ -14,15 +14,18 @@ Modes:
   prefill -- the same forward, also emits the KV/SSM caches
   decode  -- one token against the caches (ring-buffer windows, SSM state)
 
+An encoder-decoder model (Whisper) runs its ``enc`` stage, unmasked
+self-attention over the frame embeddings, once a request; each
+``dec_cross`` layer adds cross-attention to the encoder's output after its
+self-attention.  The cross K/V are projected from ``enc_out`` again at
+every call, decode steps included, as the reference does.
+
 A ``moe`` stage runs on one device (``moe_ffn_ref``) or, with
 ``ModelContext.moe``, expert-parallel over ``torch.distributed``: every
 rank runs the whole model on all the tokens, and each MoE layer hands
 each rank its slice of the tokens (padded to a multiple of the ranks),
 runs ``moe_ffn_ep`` and gathers the slices back, as the reference's
 ``shard_map`` does.  The stage's aux loss is the sum of its layers'.
-
-The stage kinds ``enc`` and ``dec_cross`` come with a later slice of the
-port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from repro_torch.models.layers import (KERNEL_MODES, NEG_INF, AttnSpec,
 from repro_torch.models.moe import MoEContext, moe_ffn_ep, moe_ffn_ref
 from repro_torch.models.ssm import mamba_block
 
-SUPPORTED_KINDS = ("dense", "ssm", "hybrid", "moe")
+SUPPORTED_KINDS = ("dense", "ssm", "hybrid", "moe", "enc", "dec_cross")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,15 +77,25 @@ def build_stages(cfg: ArchConfig) -> List[StageSpec]:
     return stages
 
 
+def enc_stage(cfg: ArchConfig) -> Optional[StageSpec]:
+    return StageSpec("enc", cfg.n_enc_layers) if cfg.enc_dec else None
+
+
+def check_kind(stage: StageSpec) -> None:
+    """Raise for a stage of a kind the port does not know."""
+    if stage.kind not in SUPPORTED_KINDS:
+        raise NotImplementedError(f"stage kind {stage.kind!r} is not one "
+                                  f"the port runs: {SUPPORTED_KINDS}")
+
+
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for a configuration whose stage kinds the port does not run
-    yet."""
-    for stage in build_stages(cfg):
-        if stage.kind not in SUPPORTED_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: stage kind {stage.kind!r} (encoder, "
-                "cross-attention) comes with a later slice of the port; "
-                f"this one runs {SUPPORTED_KINDS}")
+    """Raise for a configuration with a stage kind the port does not
+    know."""
+    stages = build_stages(cfg)
+    if cfg.enc_dec:
+        stages.append(enc_stage(cfg))
+    for stage in stages:
+        check_kind(stage)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,10 +147,27 @@ def _moe_update(h, w, cfg: ArchConfig, ctx: ModelContext):
     return h + y[:T].reshape(h.shape), aux
 
 
-def _attn_spec(cfg: ArchConfig, window: int, ctx: ModelContext) -> AttnSpec:
+def _attn_spec(cfg: ArchConfig, window: int, ctx: ModelContext,
+               causal: bool = True) -> AttnSpec:
     return AttnSpec(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                    head_dim=cfg.hd, rope_theta=cfg.rope_theta, causal=True,
+                    head_dim=cfg.hd, rope_theta=cfg.rope_theta, causal=causal,
                     window=window, q_chunk=ctx.q_chunk, kernels=ctx.kernels)
+
+
+def _cross_attend(h, w, spec: AttnSpec, cfg: ArchConfig, q_pos, enc_out):
+    """The ``dec_cross`` layer's cross-attention update: the queries of
+    rms_norm(h, norm_cross) at ``q_pos`` against the K/V projected from
+    ``enc_out`` (B, Se, D) at the frames' positions 0..Se-1, unmasked
+    (through the flash kernel on the card under "auto")."""
+    B, Se = enc_out.shape[0], enc_out.shape[1]
+    cpos = torch.arange(Se, dtype=torch.int32,
+                        device=enc_out.device).expand(B, Se)
+    ck = torch.einsum("bsd,dhk->bshk", enc_out, w["cross"]["wk"])
+    cv = torch.einsum("bsd,dhk->bshk", enc_out, w["cross"]["wv"])
+    cspec = dataclasses.replace(spec, causal=False, window=0)
+    return attn_block(rms_norm(h, w["norm_cross"], cfg.norm_eps),
+                      w["cross"], cspec, q_pos, cross_kv=(ck, cv),
+                      cross_pos=cpos)
 
 
 def _layer(sp: dict, i: int) -> dict:
@@ -162,12 +192,13 @@ def _stack(per_layer: List[dict]) -> dict:
 # ---------------------------------------------------------------------------
 
 def apply_stage_seq(h, sp, stage: StageSpec, cfg: ArchConfig,
-                    ctx: ModelContext, positions, want_cache=False,
-                    cache_len=0):
-    """Run one stacked stage over the full sequence.
+                    ctx: ModelContext, positions, enc_out=None,
+                    want_cache=False, cache_len=0):
+    """Run one stacked stage over the full sequence (``enc_out``: the
+    encoder's output, for a ``dec_cross`` stage).
     Returns (h, stacked layer caches: dict, aux loss: scalar)."""
-    check_supported(cfg)
-    spec = _attn_spec(cfg, stage.window, ctx)
+    check_kind(stage)
+    spec = _attn_spec(cfg, stage.window, ctx, causal=stage.kind != "enc")
     per_layer = []
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(stage.n_layers):
@@ -191,6 +222,8 @@ def apply_stage_seq(h, sp, stage: StageSpec, cfg: ArchConfig,
                 h = h + a + m
             else:
                 h = h + a
+            if stage.kind == "dec_cross":
+                h = h + _cross_attend(h, w, spec, cfg, positions, enc_out)
             if stage.kind == "moe":
                 h, aux = _moe_update(h, w, cfg, ctx)
                 aux_total = aux_total + aux
@@ -239,12 +272,13 @@ def stage_kpos(B: int, S: int, clen: int, device=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def apply_stage_decode(h, sp, stage: StageSpec, cfg: ArchConfig,
-                       ctx: ModelContext, pos, cache):
+                       ctx: ModelContext, pos, cache, enc_out=None):
     """h: (B, 1, D); pos: (B,) int; cache: a stage cache {layer leaves...,
-    'k_pos'?}.  Returns (h, new_cache).  The K/V ring buffers of ``cache``
-    are written in place (one slot a layer) and shared with the new
-    cache; every other leaf is new."""
-    check_supported(cfg)
+    'k_pos'?}; enc_out: the encoder's output, for a ``dec_cross`` stage.
+    Returns (h, new_cache).  The K/V ring buffers of ``cache`` are written
+    in place (one slot a layer) and shared with the new cache; every other
+    leaf is new."""
+    check_kind(stage)
     spec = _attn_spec(cfg, stage.window, ctx)
     B = h.shape[0]
     bidx = torch.arange(B, device=h.device)
@@ -298,6 +332,8 @@ def apply_stage_decode(h, sp, stage: StageSpec, cfg: ArchConfig,
             h = h + a + m
         else:
             h = h + a
+        if stage.kind == "dec_cross":
+            h = h + _cross_attend(h, w, spec, cfg, pos[:, None], enc_out)
         if stage.kind == "moe":
             h, _ = _moe_update(h, w, cfg, ctx)
         else:

@@ -5,9 +5,11 @@ algorithms, the request-respond ones among them, and GCN training with the
 kernels against the dense backend and the CPU, Hash-Min and S-V on the
 sharded executor over an NCCL group of size 1 (the 1-D mesh, the (1, 1)
 mesh, the pipeline and a split partition), the resident graph service
-over such a group against the same service on the CPU, a hybrid model's
-and a head-dim-256 Gemma-3 model's prefill and decode with the kernels
-against the plain path).
+over such a group against the same service on the CPU, a hybrid model's,
+a head-dim-256 Gemma-3 model's and a small Whisper's prefill and decode
+with the kernels against the plain path).  The segment_combine kernels
+also on float16 and bfloat16 payloads, and the flash kernel on unmasked
+rectangular shapes (cross-attention).
 
 Every test here carries the ``cuda`` marker and skips without a GPU.  The
 file imports no JAX, so it runs on a machine with a card and PyTorch only:
@@ -76,10 +78,12 @@ def test_kernel_matches_plain(cuda, op, dtype, eb, nb, rows):
 def test_kernel_rejects_what_it_does_not_take(cuda):
     vals, idx = _inputs("min", torch.float32, 8, 32, 4, seed=0)
     v, i = vals.to(cuda), idx.to(cuda)
-    with pytest.raises(NotImplementedError):
-        tkernel.launch(v.to(torch.bfloat16), i, "min", 32)
-    with pytest.raises(NotImplementedError):
-        tkernel.launch_vec(v[..., None].to(torch.float16), i, "min", 32)
+    assert tkernel.launch(v.to(torch.bfloat16), i, "min",
+                          32).dtype == torch.bfloat16
+    assert tkernel.launch_vec(v[..., None].to(torch.float16), i, "min",
+                              32).dtype == torch.float16
+    with pytest.raises(TypeError, match="dtype"):
+        tkernel.launch(v.double(), i, "min", 32)
     with pytest.raises(ValueError, match="3-D"):
         tkernel.launch_vec(v, i, "min", 32)
     with pytest.raises(ValueError, match="2-D"):
@@ -149,6 +153,104 @@ def test_vector_kernel_f1_equals_scalar_kernel(cuda, op, dtype):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(vec[:, :, 0].cpu().numpy(),
                                   scalar.cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# float16 and bfloat16 payloads
+# ---------------------------------------------------------------------------
+
+HALF = [torch.float16, torch.bfloat16]
+
+
+def _half_inputs(op, dtype, eb, nb, rows, F, seed):
+    """Random half values with +-0.0 everywhere and, for min/max, +-inf
+    (infinities stay out of sums, as in the reference's own test); float16
+    values also at +-65504, its sentinels."""
+    rng = np.random.RandomState(seed)
+    idx = rng.randint(-1, nb + 3, (rows, eb)).astype(np.int32)
+    idx[0] = rng.randint(0, nb)
+    shape = (rows, eb) if F is None else (rows, eb, F)
+    vals = rng.randn(*shape).astype(np.float32)
+    special = (np.array([0.0, -0.0, 1.5, -1.5], np.float32) if op == "sum"
+               else np.array([0.0, -0.0, np.inf, -np.inf], np.float32))
+    use = rng.rand(*shape) < 0.3
+    vals = np.where(use, special[rng.randint(0, 4, shape)], vals)
+    if op != "sum" and dtype == torch.float16:
+        vals.reshape(-1)[:2] = [65504.0, -65504.0]
+    return torch.from_numpy(vals).to(dtype), torch.from_numpy(idx)
+
+
+def _half_lane_sum(vals, idx, nb):
+    """The kernels' half sum: float32 folded in lane order from 0, then
+    one rounding to the half type."""
+    return torch.from_numpy(_lane_order_sum(vals.float(), idx, nb)).to(
+        vals.dtype)
+
+
+@pytest.mark.parametrize("F", [None, 1, 3, 8, 64, 256])
+@pytest.mark.parametrize("eb,nb", [(64, 128), (37, 100), (2048, 1024)])
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_half_kernels_match_plain(cuda, op, dtype, eb, nb, F):
+    """float16 and bfloat16 through both kernels (F=256 takes 8 values a
+    load): min and max equal to the plain version (the sentinels +-65504
+    for float16, 3e38 rounded for bfloat16, which an infinity saturates
+    to), sums bitwise equal to the float32 lane-order fold rounded once;
+    the output keeps the input type."""
+    rows = 3 if eb * (F or 1) > 2 ** 16 else 50
+    vals, idx = _half_inputs(op, dtype, eb, nb, rows, F, seed=eb + (F or 0))
+    counter = "launches" if F is None else "launches_vec"
+    before = getattr(tkernel.segment_combine_blocks, counter)
+    got = tkernel.segment_combine_blocks(vals.to(cuda), idx.to(cuda), op, nb)
+    torch.cuda.synchronize()
+    assert getattr(tkernel.segment_combine_blocks, counter) == before + 1
+    assert got.dtype == dtype
+    if op == "sum":
+        want = _half_lane_sum(vals, idx, nb)
+        assert torch.equal(got.cpu().view(torch.int16),
+                           want.view(torch.int16))
+    else:
+        want = segment_combine_blocks_ref(vals, idx, op, nb)
+        np.testing.assert_array_equal(got.cpu().float().numpy(),
+                                      want.float().numpy())
+
+
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_half_vector_f1_equals_scalar(cuda, op, dtype):
+    vals, idx = _half_inputs(op, dtype, 64, 128, 500, 1, seed=7)
+    v, i = vals.to(cuda), idx.to(cuda)
+    vec = tkernel.launch_vec(v, i, op, 128)
+    scalar = tkernel.launch(v[:, :, 0].contiguous(), i, op, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(vec[:, :, 0].view(torch.int16),
+                       scalar.view(torch.int16))
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_half_identity_remap_through_combine_rows(cuda, op):
+    """``plan._combine_rows`` on a float16 payload on the card: slots that
+    no edge reaches come back as the channel identity (+-inf), not the
+    kernel's +-65504, and the others as numpy's reduction."""
+    from repro_torch.kernels.segment_combine.ops import (pack_edges,
+                                                         pack_values)
+    rng = np.random.RandomState(5)
+    N, E, nb = 200, 600, 64
+    dst = rng.randint(0, N // 2, E)
+    vals = rng.randn(E).astype(np.float16)
+    order, idxl = pack_edges(dst, N, nb=nb, eb_align=128)
+    pv = pack_values(vals, order, idxl, op)
+    before = tkernel.segment_combine_blocks.launches
+    blocks = tplan._combine_rows(torch.from_numpy(pv).to(cuda),
+                                 torch.from_numpy(idxl).to(cuda), op, nb)
+    torch.cuda.synchronize()
+    assert tkernel.segment_combine_blocks.launches == before + 1
+    out = blocks.cpu().numpy().reshape(-1)[:N]
+    ident = np.float16(np.inf if op == "min" else -np.inf)
+    ref = np.full(N, ident, np.float16)
+    (np.minimum if op == "min" else np.maximum).at(ref, dst, vals)
+    np.testing.assert_array_equal(out, ref)
+    assert (out[N // 2:] == ident).all()
 
 
 # ---------------------------------------------------------------------------
@@ -283,8 +385,8 @@ def test_entry_points_refuse_a_bad_geometry(cuda):
     v3 = v[..., None].expand(10, 64, 4).contiguous()
     out3 = torch.empty((10, 128, 4), device=cuda)
     g3 = tkernel.launch_geometry(10, 64, 128, 4)
-    args3 = [v3.data_ptr(), i.data_ptr(), out3.data_ptr(), 10, 64, 128, 4,
-             1, 0]
+    args3 = [v3.data_ptr(), i.data_ptr(), out3.data_ptr(), None, 10, 64,
+             128, 4, 1, 0]
     assert lib.segment_combine_vec_launch(
         *args3, g3.vec, g3.warps, g3.lane_tile, g3.smem_bytes, g3.blocks,
         cuda.index or 0, stream) == 0
@@ -292,6 +394,27 @@ def test_entry_points_refuse_a_bad_geometry(cuda):
         assert lib.segment_combine_vec_launch(
             *args3, vec, g3.warps, g3.lane_tile, g3.smem_bytes, g3.blocks,
             cuda.index or 0, stream) == 1
+    # float16 (dtype 2): 8 values (16 bytes) a load, never 16
+    v8 = v[..., None].expand(10, 64, 8).contiguous().half()
+    out8 = torch.empty((10, 128, 8), device=cuda, dtype=torch.float16)
+    args8 = [v8.data_ptr(), i.data_ptr(), out8.data_ptr(), None, 10, 64,
+             128, 8, 2, 0]
+    for vec, rc in ((8, 0), (16, 1)):
+        assert lib.segment_combine_vec_launch(
+            *args8, vec, g3.warps, g3.lane_tile, g3.smem_bytes, g3.blocks,
+            cuda.index or 0, stream) == rc
+    # a half row longer than its lane tile needs the float32 scratch
+    g2 = tkernel.launch_geometry(10, 2048, 128, 8, itemsize=2)
+    v2 = torch.zeros((10, 2048, 8), device=cuda, dtype=torch.float16)
+    i2 = torch.zeros((10, 2048), device=cuda, dtype=torch.int32)
+    part = torch.empty((10, 128, 8), device=cuda)
+    for ptr, rc in ((None, 1), (part.data_ptr(), 0)):
+        assert lib.segment_combine_vec_launch(
+            v2.data_ptr(), i2.data_ptr(), out8.data_ptr(), ptr, 10, 2048,
+            128, 8, 2, 0, g2.vec, g2.warps, g2.lane_tile, g2.smem_bytes,
+            g2.blocks, cuda.index or 0, stream) == rc
+    assert lib.segment_combine_launch(*args[:6], 4, 0, *good,
+                                      cuda.index or 0, stream) == 1
     torch.cuda.synchronize()
 
 
@@ -776,6 +899,36 @@ def test_flash_kernel_at_tile_edges(cuda, S, d, n_rep, causal, window):
         1e-5 * float(v.abs().max()))
 
 
+@pytest.mark.parametrize("Sq,Sk", [(1, 1500), (384, 1500), (1600, 1500),
+                                   (37, 100), (37, 16), (1500, 1500)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_unmasked_rectangular(cuda, Sq, Sk, dtype):
+    """Cross-attention's shapes (no mask, Sq != Sk, Sq > Sk among them,
+    Whisper's 1500 frames and a decode step's one query): float32 within
+    1e-5 of max|v| of the float64 plain version, bfloat16 within 2e-2."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    gen = torch.Generator(cuda).manual_seed(Sq + Sk)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in [(4, Sq, 64), (2, Sk, 64), (2, Sk, 64)])
+    before = fk.flash_attention_bhsd.launches
+    got = fk.flash_attention_bhsd(q, k, v, causal=False, window=0)
+    torch.cuda.synchronize()
+    assert fk.flash_attention_bhsd.launches == before + 1
+    assert got.shape == (4, Sq, 64) and got.dtype == dtype
+    want = flash_attention_ref(q.double(), k.double(), v.double(),
+                               causal=False, window=0)
+    err = float((got.double() - want).abs().max())
+    if dtype == torch.float32:
+        assert err <= 1e-5 * float(v.abs().max())
+    else:
+        assert err <= 2e-2
+    if Sq > Sk:
+        for causal, window in ((True, 0), (False, 16)):
+            with pytest.raises(ValueError, match="Sq <= Sk"):
+                fk.launch(q, k, v, causal=causal, window=window)
+
+
 def test_flash_kernel_takes_unaligned_kv(cuda):
     """k and v that start 4 bytes past a 16-byte boundary (views into a
     larger buffer) give the same output as aligned copies."""
@@ -968,6 +1121,49 @@ def test_gemma3_model_kernels_against_plain(cuda):
             if mode == "ref":
                 fed.append(zoo.greedy(logits))
             logits, cache = zoo.decode_step(params, cfg, ctx, fed[i], cache)
+            steps.append(logits)
+        out[mode] = torch.stack(steps)[..., :cfg.vocab]
+    scale = float(out["ref"].abs().max())
+    assert float((out["auto"] - out["ref"]).abs().max()) <= 1e-4 * scale
+
+
+def test_whisper_model_kernels_against_plain(cuda):
+    """A small Whisper (2 encoder and 2 decoder layers at d=64, 100 frames,
+    a prompt of 120 tokens: longer than the frames, so the cross-attention
+    has Sq > Sk): prefill through the flash kernel (one launch an encoder
+    layer, two a decoder layer: self and cross) and four decode steps (one
+    cross launch a decoder layer) against the plain path, each within 1e-4
+    of max|logit|."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.transformer import ModelContext
+    cfg = dataclasses.replace(get_config("whisper_medium").reduced(),
+                              vocab=250, head_dim=64, enc_seq=100)
+    params = zoo.init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    rng = np.random.RandomState(0)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, (2, 120)).astype(
+        np.int32)).to(cuda)
+    enc = torch.from_numpy(rng.randn(2, cfg.enc_seq, cfg.d_model).astype(
+        np.float32)).to(cuda)
+    out, fed = {}, []
+    for mode in ("ref", "auto"):
+        ctx = ModelContext(q_chunk=128, kernels=mode)
+        on = mode == "auto"
+        before = fk.flash_attention_bhsd.launches
+        logits, cache = zoo.prefill(params, cfg, ctx, toks, enc_embeds=enc,
+                                    max_len=124)
+        assert fk.flash_attention_bhsd.launches - before == (
+            cfg.n_enc_layers + 2 * cfg.n_layers if on else 0)
+        steps = [logits]
+        for i in range(4):
+            if mode == "ref":
+                fed.append(zoo.greedy(logits))
+            before = fk.flash_attention_bhsd.launches
+            logits, cache = zoo.decode_step(params, cfg, ctx, fed[i], cache)
+            assert fk.flash_attention_bhsd.launches - before == (
+                cfg.n_layers if on else 0)
             steps.append(logits)
         out[mode] = torch.stack(steps)[..., :cfg.vocab]
     scale = float(out["ref"].abs().max())

@@ -7,7 +7,8 @@ it), at most 1024 threads a block, a grid within ``INT_MAX``, and the
 shapes the CUDA source assumes (lane tiles of whole 32-lane chunks, an
 int16 sort, loads that divide F and fit the data's alignment).  The C
 entry points check the same values again on the card
-(``tests/test_torch_cuda.py``).
+(``tests/test_torch_cuda.py``).  Values of 2 bytes (float16, bfloat16)
+change only the vector kernel's load width.
 """
 import pytest
 
@@ -91,6 +92,54 @@ def test_grid_within_int_max(R, n_sm):
             geo = tkernel.launch_geometry(R, 64, nb, F, n_sm=n_sm)
             _limits(geo)
             assert geo.blocks == min(n_sm * per_sm, -(-R // geo.warps))
+
+
+@pytest.mark.parametrize("F", [1, 2, 7, 8, 16, 31, 32, 64, 128, 130, 255,
+                               256, 512])
+def test_half_type_vector_geometry(F):
+    """2-byte values (float16, bfloat16): one load moves up to 8 of them
+    (16 bytes), dividing F, fitting the alignment and keeping a warp's 32
+    threads busy; the shared bytes and warps are the 4-byte types' (the
+    kernels keep float32 accumulators and the same sort words)."""
+    for nb in (1, 32, 128, 1024):
+        for eb in (0, 37, 64, 2048):
+            for align in (2, 4, 8, 16):
+                geo = tkernel.launch_geometry(1_387_616, eb, nb, F, align,
+                                              itemsize=2)
+                _limits(geo)
+                four = tkernel.launch_geometry(1_387_616, eb, nb, F, 16)
+                assert (geo.warps, geo.lane_tile, geo.smem_bytes,
+                        geo.blocks) == (four.warps, four.lane_tile,
+                                        four.smem_bytes, four.blocks)
+                assert geo.vec in (1, 2, 4, 8)
+                assert 2 * geo.vec <= tkernel.MAX_LOAD
+                assert F % geo.vec == 0 and align % (2 * geo.vec) == 0
+                assert geo.vec == 1 or F // geo.vec >= 32
+    assert tkernel.launch_geometry(100, 64, 128, 256, itemsize=2).vec == 8
+    assert tkernel.launch_geometry(100, 64, 128, 128, itemsize=2).vec == 4
+    assert tkernel.launch_geometry(100, 64, 128, 256, 8, itemsize=2).vec == 4
+    # 4-byte values never take 8 (32 bytes: two loads)
+    assert tkernel.launch_geometry(100, 64, 128, 512).vec == 4
+
+
+def test_half_types_are_taken_by_the_kernels():
+    """float16 and bfloat16 have dtype codes of the C entry points and pass
+    the wrapper's type rules (a CPU tensor is then refused for its device,
+    never for its type); a type the kernels lack is refused for its
+    type."""
+    assert tkernel._DTYPES == {torch.int32: 0, torch.float32: 1,
+                               torch.float16: 2, torch.bfloat16: 3}
+    idx = torch.zeros((4, 8), dtype=torch.int32)
+    for dt in (torch.float16, torch.bfloat16):
+        for vals, dim in ((torch.zeros((4, 8), dtype=dt), 2),
+                          (torch.zeros((4, 8, 3), dtype=dt), 3)):
+            with pytest.raises(ValueError, match="CUDA device"):
+                tkernel._check(vals, idx, "min", 32, dim)
+            out = tkernel.segment_combine_blocks(vals, idx, "min", 32)
+            assert out.dtype == dt and out.shape[:2] == (4, 32)
+    with pytest.raises(TypeError, match="dtype"):
+        tkernel._check(torch.zeros((4, 8), dtype=torch.float64), idx, "min",
+                       32, 2)
 
 
 def test_geometry_refuses_nb_outside_the_kernels_range():

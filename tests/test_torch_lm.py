@@ -209,11 +209,24 @@ def test_embed_lookup_bitwise_equal_to_jax(method):
 
 
 def test_other_stage_kinds_raise():
-    """Encoder-decoder stages (``enc``, ``dec_cross``) come with a later
-    slice; ``moe`` runs since the MoE slice (``test_torch_lm_moe.py``)."""
+    """A stage of a kind the port does not know raises, in the full-sequence
+    and the decode path; every kind of the reference runs (``moe`` in
+    ``test_torch_lm_moe.py``, ``enc`` and ``dec_cross`` in
+    ``test_torch_lm_whisper.py``)."""
+    from repro_torch.models import transformer as ttf
     cfg = tget("whisper_medium").reduced()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tzoo.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params = tzoo.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    sp = params["stages"][0]
+    h = torch.zeros((1, 3, cfg.d_model))
+    pos = torch.arange(3, dtype=torch.int32)[None]
+    unknown = ttf.StageSpec("conv", cfg.n_layers)
+    with pytest.raises(NotImplementedError, match="stage kind 'conv'"):
+        ttf.apply_stage_seq(h, sp, unknown, cfg, TCtx(), pos)
+    with pytest.raises(NotImplementedError, match="stage kind 'conv'"):
+        ttf.apply_stage_decode(h[:, :1], sp, unknown, cfg, TCtx(), pos[:, 0],
+                               {})
+    with pytest.raises(NotImplementedError, match="stage kind 'conv'"):
+        ttf.check_kind(unknown)
 
 
 def test_serve_model_runs_on_the_cpu(capsys):

@@ -79,6 +79,41 @@ def test_flash_geometry_refuses_what_the_kernel_does_not_take():
             fk.launch_geometry(64, dtype)
 
 
+@pytest.mark.parametrize("Sq,Sk", [(1, 1500), (384, 1500), (1600, 1500),
+                                   (37, 100), (37, 16), (1500, 1500),
+                                   (2, 1)])
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 0),
+                                           (False, 16), (True, 16)])
+def test_flash_length_rule(Sq, Sk, causal, window):
+    """Any Sq against Sk keys with no mask (cross-attention: Whisper's
+    decoder against its 1500 frames, a decode step at Sq = 1); Sq <= Sk
+    under a causal mask or a window.  The wrapper's ``_check`` applies this
+    rule on the card; the grid covers every query tile."""
+    if Sq > Sk and (causal or window):
+        with pytest.raises(ValueError, match="Sq <= Sk"):
+            fk.check_lengths(Sq, Sk, causal, window)
+    else:
+        fk.check_lengths(Sq, Sk, causal, window)
+        geo = fk.launch_geometry(64, torch.float32, 64, Sq)
+        assert geo.grid == (64, -(-Sq // geo.q_tile))
+
+
+def test_flash_length_rule_refuses_empty_and_negative():
+    for Sq, Sk, window in ((0, 10, 0), (10, 0, 0), (1, 1, -1)):
+        with pytest.raises(ValueError):
+            fk.check_lengths(Sq, Sk, False, window)
+
+
+def test_flash_whisper_geometry():
+    """Whisper-medium at B=4: 64 (batch, head) rows at d=64; the encoder's
+    1500 queries make 12 tiles of 128 (the last holds 92), a 384-token
+    prompt 3 and a decode step's cross-attention one tile with one live
+    row; the keys' ragged last tile (1500 = 23 x 64 + 28) is masked."""
+    for Sq, tiles in ((1500, 12), (384, 3), (1, 1)):
+        geo = fk.launch_geometry(64, torch.float32, 64, Sq)
+        assert geo.grid == (64, tiles) and geo.smem_bytes == 106496
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_geometry_at_head_dim_256(dtype):
     """Gemma-3-4B's prefill: 32 (batch, head) rows of 2048 queries at

@@ -17,16 +17,16 @@
   with it) and grows on an overflow; it refuses what the reference
   refuses.
 
+The launcher's own test (``serve_graph`` in a process of its own) is in
+``test_torch_service_cli.py``, so that the two files take about as long
+under the suite's one-file-a-worker scheduling.
+
 Tolerances: SSSP distances, ego answers and every statistic bitwise; PPR
 within 1e-6 of its max (float32 sums in another order; on these inputs
 the two packages agree bitwise); the oracles' own tolerances as in the
 reference's tests (SSSP allclose, PPR atol 1e-5).
 """
 import dataclasses
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -48,7 +48,6 @@ from repro_torch.launch import mesh as meshlib  # noqa: E402
 from test_service import (ARRAY_FIELDS, _ppr_oracle,  # noqa: E402
                           churn_delta)
 
-ROOT = Path(__file__).resolve().parents[1]
 PPR_RTOL = 1e-6
 OFFSETS = ("eg_off", "all_off", "mir_eoff", "pair_counts", "phys_log",
            "phys_eg_off", "phys_all_off", "phys_mir_off")
@@ -488,20 +487,3 @@ def test_service_refuses_what_the_reference_refuses(group):
         svc.submit([tservice.Query("nope", 0)])
     with pytest.raises(ValueError):
         svc.submit([tservice.Query("sssp", 99)])
-
-
-def test_serve_graph_cli_on_the_cpu():
-    """The launcher at world size 1 in its own process: the reference's
-    [serve-graph] lines and its checks (flat counter, epoch 1, post-fold
-    parity with a fresh partition)."""
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve_graph", "--device",
-         "cpu", "--n", "2000", "--workers", "4", "--batch", "12",
-         "--buckets", "2", "4"], cwd=ROOT, capture_output=True, text=True,
-        timeout=600, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    for tag in ("[serve-graph] resident graph n=2000", "warmup: 3 executors",
-                "12 mixed queries", "(epoch 1, no executor built)",
-                "post-fold parity vs fresh partition() OK",
-                "[serve-graph] OK"):
-        assert tag in proc.stdout, (tag, proc.stdout)
