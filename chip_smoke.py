@@ -233,14 +233,64 @@ Phases; any failure exits non-zero and prints no result:
    ``[profile] whisper_medium``: the busy share of a prefill and a decode
    step; ``[kernel] flash_attention whisper_medium ...`` a line a launch
    shape.
+16. train TinyLlama-1.1B at full width and depth (22 layers, d_model
+   2048, 32/4 heads of dim 64, d_ff 5632, vocab 32,000, untied;
+   1,100,048,384 float32 parameters from ``torch.Generator(seed)``, TF32
+   off) through ``train_step.make_train_step`` under the reference's
+   default ``ModelContext`` (remat "full", the ``rr`` lookup) on
+   ``SyntheticLM(vocab, seq_len=2048, global_batch=4, seed)`` batches
+   (8192 tokens a step): one warm-up step, then ``TRAIN_STEPS`` steps
+   each between two CUDA events, one more under torch.profiler.  Step 0,
+   in phase 7 (``half_type_cases``): the flash kernel on float16 at every
+   head dim (causal, window 1024, unmasked, unmasked Sq > Sk) and the SSD
+   kernel on float16 and bfloat16 inputs at Hymba's layer shape (and
+   bfloat16 x with float32 B and C) against the float64 plain versions
+   within one ulp of the half output on top of float32's tolerance, each
+   timed beside its float32 time.  Gates: (a) the flash Function (the
+   kernel forward, the plain chunked backward) on layer 0's recorded q,
+   k, v with a seeded upstream gradient: o, dq, dk, dv against a float64
+   autograd of the plain version, each within ``PLAIN_FACTOR`` times the
+   float32 plain path's own error; (b) layers 0-3, on each layer's input
+   (first sequence) and a seeded upstream gradient, every parameter
+   gradient of the kernel path against a float64 recomputation of the
+   plain path (its norms and rotary angles, as the model's, in float32),
+   within the larger of ``LAYER_GRAD_RTOL`` and ``PLAIN_FACTOR`` times the
+   float32 plain path's error; (c) one step at B=1 under remat "none" and
+   "full" on the same batch: the loss bitwise, every leaf bitwise but the
+   embedding, within the float32 bound of two summation orders of its
+   rows (index_add_'s atomics); (d) 22 flash launches a step under "none"
+   and 44 under "full" (the recomputed forward), the Function's backward
+   none; (e) loss and grad_norm finite on every step, every parameter
+   leaf moved by the first; (f) the SSD Function at Hymba-1.5B's layer
+   shape (b=4, S=2048, 50 heads of dim 64, d_state 16, chunk 128): y, dx,
+   ddt, dA, dB, dC against float64 autograd of ``ssd_chunked`` within
+   ``PLAIN_FACTOR`` times float32's own error; (g) ``launch/train.py``'s
+   ``run(..., reduced=False)`` at full width with the depth cut to
+   ``TRAIN_LAUNCHER_LAYERS`` layers (to keep the checkpoint small;
+   ``get_config`` is swapped in the launcher's module), the ``onehot``
+   lookup (a product, where ``rr``'s index_add_ atomics would make two
+   runs differ): straight, then cut after ``TRAIN_CUT`` steps and resumed
+   from its checkpoint in a fresh state, the losses equal bitwise.
+   ``[train] tinyllama_1_1b`` lines: ms a step (median and each),
+   tokens/s, the products' bound and ``mfu_fp32`` (6NT over 67 TFLOP/s),
+   peak memory under "full" and at B=1 under "none" and "full", loss and
+   grad_norm per step; ``[profile] tinyllama_1_1b train step``: the busy
+   share and top device ops, and the plain attention backward's share
+   (its kernels' device time on layer 0's inputs under torch.profiler,
+   times 22).
 Phases 10, 11 and 14 run in processes of their own beside phase 3's
 host set-up (graph build and partition), started once the kernels are
 built and waited for before phase 3's first timed run; phase 13 runs
 after phase 8.  Two more spawns whose card work is not timed run beside
 host-only phases of the main thread, each waited for at the end of its
 window: phase 3c's ranks beside phase 3's scipy oracles (through the
-dense-parity check), phase 9's spawned ranks beside phase 3b's split
-partition (its comparison with world size 1 comes in phase 9).
+dense-parity check), phase 9's spawned ranks beside the wait for phase
+3b's split partition (its comparison with world size 1 comes in phase
+9) and the ``[balance]`` lines (host tables only) that follow it.  That
+partition and its plans are made on the CPU (no card use) in a spawned
+process of their own (no GIL shared with the main thread) from phase
+3's oracles on, beside them, the profiles, the S-V 2^24 check and phase
+3b's first runs, and moved to the card after the wait.
 
 10. ``python -m repro_torch.launch.shard_check --suite tier1``
    on the card: 40 parity cells (n=180, M=8) over 8 ranks (gloo on cuda:0
@@ -303,13 +353,18 @@ partition (its comparison with world size 1 comes in phase 9).
    ``moe_mirror_threshold`` at these shapes with the card's float32 ratio
    beside the hottest expert's load.
 
-One JSON line ``{"kernels": [...]}`` with all four kernels (the scalar
+One JSON line ``{"kernels": [...]}`` with all four kernels (the flash
+and SSD entries carry ``half_types``, phase 7's step-0 timings on
+float32, bfloat16 and float16 inputs beside their bounds, and the flash
+entry phase 16's summary and its timed steps' launches under
+``launches_by_model["tinyllama_1_1b train"]``; the scalar
 kernel's entry carries ``sharded``: phase 3b's launches, each mode's, the
 replays' times and the static balance figures; the vector kernel's the
 sharded GCN's launches, ms an epoch and peak memory by mode, and phase
-3c's GCN runs; the flash entry's ``launches`` counts the four models'
+3c's GCN runs; the flash entry's ``launches`` counts the models'
 counted runs (the prefills of Hymba, Gemma and OLMoE; Whisper's prefill
-and decode steps), ``launches_by_model`` each, and its sums
+and decode steps; TinyLlama's timed training steps),
+``launches_by_model`` each, and its sums
 the Hymba prefill's timed launches, ``timed`` says so; the scalar
 entry's ``launches`` also counts rank 0's launches in phases 10 and 11
 and the vector entry's those
@@ -322,6 +377,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -487,6 +543,18 @@ DIST_SMOKE_TIMEOUT_S = 300
 # (tests/test_checkpoint_fault.py)
 DRILL_KILL = 2
 DRILL_RTOL, DRILL_ATOL = 2e-4, 1e-5
+# Phase 16: TinyLlama-1.1B trained at full width and depth on SyntheticLM
+# batches of 4 x 2048 tokens; one warm-up step, TRAIN_STEPS timed
+TRAIN_ARCH = "tinyllama_1_1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 3
+TRAIN_CHECK_LAYERS = 4       # (b): layers 0-3
+# (b): a parameter gradient of a layer sums T=2048 tokens' float32
+# products, ~1e-5 of its max from float64; the floor of the PLAIN_FACTOR
+# rule
+LAYER_GRAD_RTOL = 1e-4
+# (g): the launcher at full width with the depth cut to 2 layers (a
+# checkpoint of 3.5 GB), 4 steps straight, cut after 2 and resumed
+TRAIN_LAUNCHER_LAYERS, TRAIN_LAUNCHER_STEPS, TRAIN_CUT = 2, 4, 2
 
 
 def fail(msg: str) -> None:
@@ -1113,11 +1181,13 @@ def profile_run(torch, fn, name: str, top: int = 12,
             f"({100 * e.self_device_time_total / kernels_us:5.1f}%)")
 
 
-def main_path(torch, np, mods, args, dev, phases, ready=None, beside=None):
+def main_path(torch, np, mods, args, dev, phases, ready=None, beside=None,
+              host_side=None):
     """Phase 3; ``ready()`` runs once the host set-up (graph, partition)
     is done, before any timed device work; ``beside()`` starts work whose
     card use is not timed before the host-only oracles and returns the
-    call that waits for it, made before the profiles."""
+    call that waits for it, made before the profiles; ``host_side(g,
+    pg)`` starts host work of a later phase at the same point."""
     api, structs, gen, cost_model, planlib, kernel = mods
     from repro_torch.train.gcn import normalize_adjacency
     g = phases.run("graph", lambda: normalize_adjacency(gen.powerlaw(
@@ -1201,6 +1271,8 @@ def main_path(torch, np, mods, args, dev, phases, ready=None, beside=None):
 
     # oracles independent of the port (host only)
     wait_beside = beside() if beside is not None else None
+    if host_side is not None:
+        host_side(g, pg)
     A = phases.run("adjacency", adjacency, np, g)
     cc, dist_o, pr_o = phases.run("oracles", oracles, np, g, A, 0, 30)
     labels = structs.canonical_labels(pg, runs["hashmin"][0].state)
@@ -1533,8 +1605,92 @@ def drop_shards(pg):
         del pg.plan_cache[key]
 
 
+SPLIT_KINDS = ("eg", "mir", "all")
+
+
+def split_partition(api, planlib, g, M, tau, nb):
+    """Phase 3b's split partition of the main path's graph
+    (``SPLIT_FACTOR``) on the CPU and its three plans packed at block
+    width ``nb`` from its numpy arrays: host work, no card.  Returns (the
+    host partition, host seconds)."""
+    t0 = time.perf_counter()
+    eng_s = api.Engine(backend="pallas", layout="csr", balance="split",
+                       split_factor=SPLIT_FACTOR, device="cpu")
+    pgs = eng_s.partition(g, M, tau=tau, seed=0)
+    for kind in SPLIT_KINDS:
+        planlib.get_plan(pgs, kind, nb=nb)
+    return pgs, time.perf_counter() - t0
+
+
+def start_split_partition(np, planlib, g, pg, dev):
+    """Save the main path's graph and start ``split_partition_worker`` on
+    it in a spawned process: its own interpreter, so the main thread's
+    timed runs share no GIL with it.  Returns the call that waits for it
+    and gives (the partition's numpy fields, its plans, the worker's
+    seconds)."""
+    import multiprocessing
+    import pickle
+    import tempfile
+    tmp = tempfile.TemporaryDirectory(prefix="split-partition-")
+    d = Path(tmp.name)
+    np.save(d / "src.npy", g.src)
+    np.save(d / "dst.npy", g.dst)
+    np.save(d / "weight.npy", g.weight)
+    (d / "meta.json").write_text(json.dumps(
+        {"n": int(g.n), "M": int(pg.M), "tau": int(pg.tau),
+         "nb": int(planlib.default_nb(dev))}))
+    proc = multiprocessing.get_context("spawn").Process(
+        target=split_partition_worker, args=(str(d),), daemon=True)
+    proc.start()
+
+    def wait():
+        proc.join()
+        if proc.exitcode != 0:
+            log((d / "log.txt").read_text()
+                if (d / "log.txt").exists() else "")
+            fail(f"the split partition's process exited {proc.exitcode}")
+        with open(d / "split.pkl", "rb") as f:
+            out = pickle.load(f)
+        tmp.cleanup()
+        return out["fields"], out["plans"], out["seconds"]
+    return wait
+
+
+def split_partition_worker(path):
+    """The split partition's process: reads the graph beside it, runs
+    ``split_partition`` and pickles the partition's numpy fields and
+    plans to ``split.pkl``; its lines go to ``log.txt``."""
+    import pickle
+    d = Path(path)
+    sys.stdout = sys.stderr = open(d / "log.txt", "w", buffering=1)
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.core import plan as planlib
+    from repro_torch.graph import structs
+    meta = json.loads((d / "meta.json").read_text())
+    g = structs.Graph(meta["n"], np.load(d / "src.npy"),
+                      np.load(d / "dst.npy"), np.load(d / "weight.npy"))
+    pgs, seconds = split_partition(api, planlib, g, meta["M"], meta["tau"],
+                                   meta["nb"])
+    with open(d / "split.tmp", "wb") as f:
+        pickle.dump({"fields": structs.to_numpy(pgs),
+                     "plans": dict(pgs.plan_cache), "seconds": seconds}, f,
+                    protocol=pickle.HIGHEST_PROTOCOL)
+    (d / "split.tmp").rename(d / "split.pkl")
+
+
+def split_to_device(structs, fields, plans, dev):
+    """The split partition from its numpy ``fields`` with its arrays on
+    ``dev`` and its packed ``plans`` carried over (their device copies
+    are made at first use, as for any partition)."""
+    out = structs.from_numpy(fields, dev)
+    out.plan_cache.update(plans)
+    return out
+
+
 def sharded_modes(torch, np, mods, g, pg, runs, algos, ref_fn, dev, phases,
-                  beside=None):
+                  split_wait, beside=None, host_work=None):
     """Phase 3b, continued: the (1, 1) mesh (the hierarchical exchanges
     through subgroups of one rank), the pipeline (``PIPELINE_CHUNKS``
     chunks a join, forced) and a ``balance="split"`` partition of the
@@ -1543,7 +1699,12 @@ def sharded_modes(torch, np, mods, g, pg, runs, algos, ref_fn, dev, phases,
     (the split partition to its own warm run, made first); the scalar
     kernel's launches counted from 0 before each run and read after it;
     one superstep of Hash-Min and S-V replayed through the kernel and its
-    plain version under split and under the pipeline's chunks.  Returns
+    plain version under split and under the pipeline's chunks.  The split
+    partition comes from ``split_wait`` (``split_partition``'s host
+    result, made in a spawned process from phase 3's oracles on, moved to
+    the card here); ``beside()`` starts work whose card use is not timed while it
+    is waited for, and ``host_work(pgs)`` (host-only, untimed) runs on
+    this thread in that window, before the wait for ``beside``.  Returns
     (the modes' launches, the two replay rows, the split partition)."""
     import datetime
     import torch.distributed as dist
@@ -1551,17 +1712,21 @@ def sharded_modes(torch, np, mods, g, pg, runs, algos, ref_fn, dev, phases,
     from repro_torch.core import exec as exec_mod
     api, kernel = mods[0], mods[5]
     kinds = ("eg", "mir", "all")
-    wait_beside = beside() if beside is not None else None
-    t0 = time.perf_counter()
     eng_s = api.Engine(backend="pallas", layout="csr", balance="split",
                        split_factor=SPLIT_FACTOR, device=dev)
-    pgs = phases.run("split-partition", eng_s.partition, g, pg.M, tau=pg.tau,
-                     seed=0)
+    wait_beside = beside() if beside is not None else None
+    fields, plans, split_s = phases.run("split-partition-wait", split_wait)
+    pgs = phases.run("split-partition-upload", split_to_device, mods[1],
+                     fields, plans, dev)
+    del fields, plans
+    if host_work is not None:
+        host_work(pgs)
     if wait_beside is not None:
         phases.run("beside-split-wait", wait_beside)
     log(f"[sharded] split partition (split_factor {SPLIT_FACTOR}) of the "
-        f"n={g.n} graph: {time.perf_counter() - t0:.3f} s on the host, "
-        f"M={pgs.M} -> M_phys={pgs.M_phys} physical shards")
+        f"n={g.n} graph and its plans: {split_s:.3f} s on the host (no "
+        f"card) in a process from phase 3's oracles on, M={pgs.M} -> "
+        f"M_phys={pgs.M_phys} physical shards")
     check_cut(pgs, "phase 3b")
     split_runs = {}
     for algo, params in algos:
@@ -1571,8 +1736,8 @@ def sharded_modes(torch, np, mods, g, pg, runs, algos, ref_fn, dev, phases,
         if algo == "attr_bcast":
             p["attr"] = 3 * torch.arange(pgs.n_pad, dtype=torch.float32,
                                          device=dev).view(pgs.M, pgs.n_loc)
-        # the first run also packs the split partition's plans on the
-        # host; the second is the steady state, the yardstick
+        # the first run pays the allocator's growth; the second is the
+        # steady state, the yardstick
         for tag in ("cold", "warm"):
             res, dev_ms, _ = phases.run(f"split-one-{algo}-{tag}", timed,
                                         torch,
@@ -3110,18 +3275,20 @@ def per_layer_decode_vs_forward(torch, cfg, zoo, tf, params, seq, n_prompt,
     return max(errs), lerr, hi - lo
 
 
-def profile_kernels(torch, fn, name: str, top: int = 10):
+def profile_kernels(torch, fn, name: str, top: int = 10,
+                    no_grad: bool = True):
     """Where the device time of one call of ``fn`` goes, by device kernel
     (torch.profiler; the ctypes-launched kernels appear under their own
     names): the busy share of the wall time and the kernels with the most
-    device time.  Returns {kernel name: (launches, device us)}, empty if
-    the profiler saw no device time."""
+    device time.  ``fn`` runs under ``torch.no_grad`` unless ``no_grad``
+    is False (a training step).  Returns {kernel name: (launches, device
+    us)}, empty if the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        with torch.no_grad():
+        with torch.no_grad() if no_grad else contextlib.nullcontext():
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -3168,6 +3335,8 @@ def serve_path(torch, np, args, dev, phases):
                            dev, args.seed)
     ssd_err = phases.run("ssd-vs-plain", ssd_random_cases, torch, np, dev,
                          args.seed)
+    half = phases.run("half-types", half_type_cases, torch, np, dev,
+                      args.seed)
     cfg = get_config(LM_ARCH)
     params = phases.run("lm-init", lambda: zoo.init_params(
         cfg, torch.Generator(dev).manual_seed(args.seed), dev))
@@ -3342,6 +3511,8 @@ def serve_path(torch, np, args, dev, phases):
                      s_rows, ssd_err, library=False),
     ]
     entries[1]["passes"] = s_passes
+    entries[0]["half_types"] = half["flash"]
+    entries[1]["half_types"] = half["ssd"]
     del params, cache, step_logits
     torch.cuda.empty_cache()
     return entries
@@ -5121,6 +5292,631 @@ def preemption_drill(torch, np, pg, params0, straight, replay, vec_want):
             "replay_leaf_rel": d_replay[2]}
 
 
+# ---------------------------------------------------------------------------
+# step 0 of phase 16: the LM kernels on half types
+# ---------------------------------------------------------------------------
+
+def half_type_cases(torch, np, dev, seed):
+    """The flash kernel on float16 (every head dim of ``HEAD_DIMS``;
+    causal, windowed, unmasked and unmasked with Sq > Sk) and the SSD
+    kernel on float16 and bfloat16 inputs at Hymba-1.5B's layer shape (and
+    a mix: bfloat16 x with float32 B and C), each against its float64
+    plain version on the same inputs, within one ulp of the half output
+    at each value on top of float32's own tolerance (FLASH_F32_TOL of
+    max|v|, SSD_RTOL of max|y|); then each kernel timed once on float32,
+    bfloat16 and float16 inputs at the main path's shape (flash: Hymba's
+    global layer, BH=100, S=2048, d=64, causal; SSD: b=4, S=2048, 50
+    heads, P=64, N=16, chunk 128), beside its bound (operations the same,
+    the half types' bytes halved).  Returns {"flash": ..., "ssd": ...}."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref_model
+    gen = torch.Generator(dev).manual_seed(seed + 16)
+    f16 = torch.float16
+    worst, n = 0.0, 0
+    for d in (16, 32, 64, 128, 256):
+        for Sq, Sk, causal, window in ((257, 257, True, 0),
+                                       (2112, 2112, True, 1024),
+                                       (129, 129, False, 0),
+                                       (384, 1500, False, 0),
+                                       (1600, 1500, False, 0)):
+            for n_rep in (1, 5):
+                q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+                    f16) for shape in [(2 * n_rep, Sq, d), (2, Sk, d),
+                                       (2, Sk, d)])
+                got = fk.launch(q, k, v, causal=causal, window=window)
+                want = flash_attention_ref(q.double(), k.double(),
+                                           v.double(), causal=causal,
+                                           window=window)
+                torch.cuda.synchronize()
+                vmax = float(v.abs().max())
+                excess = ((got.double() - want).abs()
+                          - half_ulp(torch, want.abs(), f16)
+                          - FLASH_F32_TOL * vmax)
+                if got.dtype != f16 or float(excess.max()) > 0:
+                    fail(f"float16 flash kernel vs float64 plain: {got.dtype}"
+                         f", {float(excess.max()):.3g} past one ulp + "
+                         f"{FLASH_F32_TOL} x max|v| (d={d}, Sq={Sq}, Sk={Sk},"
+                         f" causal={causal}, window={window}, n_rep={n_rep})")
+                worst = max(worst, float((got.double() - want).abs().max()))
+                n += 1
+                del want
+    log(f"[kernel] flash_attention: {n} float16 cases (d 16-256; causal, "
+        f"window 1024 at 2112, unmasked, unmasked 1600 x 1500) within one "
+        f"float16 ulp + {FLASH_F32_TOL} x max|v| of the float64 plain "
+        f"version (max |err| {worst:.3g})")
+    flash = {"cases": n, "max_abs_err": worst}
+    BH, S, d = 100, 2048, 64
+    q, k, v = (torch.randn(shape, generator=gen, device=dev) for shape in
+               [(BH, S, d), (20, S, d), (20, S, d)])
+    ops = 4 * d * flash_pairs(S, 0) * BH
+    for dt in (torch.float32, torch.bfloat16, f16):
+        qq, kk, vv = (t.to(dt) for t in (q, k, v))
+        fk.launch(qq, kk, vv, causal=True, window=0)        # warm-up
+        _, ms = event_ms(torch, lambda: fk.launch(qq, kk, vv, causal=True,
+                                                  window=0))
+        size = torch.finfo(dt).bits // 8
+        nbytes = size * (2 * BH * S * d + 2 * 20 * S * d)
+        bound = max(ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        flash[str(dt).split(".")[1]] = {"ms": ms, "bound_ms": bound,
+                                        "bytes": nbytes, "ops": ops}
+    log("[kernel] flash_attention by input type (BH=100, S=2048, d=64, "
+        "causal, n_rep 5): " + ", ".join(
+            f"{k} {v['ms']:.3f} ms (bound {v['bound_ms']:.3f})"
+            for k, v in flash.items() if isinstance(v, dict)))
+    del q, k, v
+    b, S, h, P, g, N, Q = 4, 2048, 50, 64, 1, 16, 128
+    x = torch.randn((b, S, h, P), generator=gen, device=dev)
+    dt_ = torch.nn.functional.softplus(torch.randn((b, S, h), generator=gen,
+                                                   device=dev) - 1.0)
+    A = -torch.exp(0.5 * torch.randn((h,), generator=gen, device=dev))
+    Bm, Cm = (torch.randn((b, S, g, N), generator=gen, device=dev)
+              for _ in range(2))
+    ssd, worst = {}, 0.0
+    for xt, bt in ((torch.float16, torch.float16),
+                   (torch.bfloat16, torch.bfloat16),
+                   (torch.bfloat16, torch.float32)):
+        xx, BB, CC = x.to(xt), Bm.to(bt), Cm.to(bt)
+        y, st = sk.ssd_chunk_scan(xx, dt_, A, BB, CC, chunk=Q)
+        y64, st64 = ssd_scan_ref_model(xx.double(), dt_.double(), A.double(),
+                                       BB.double(), CC.double())
+        torch.cuda.synchronize()
+        excess = ((y.double() - y64).abs() - half_ulp(torch, y64.abs(), xt)
+                  - SSD_RTOL * float(y64.abs().max()))
+        es = ssd_case_err(torch, st, st64)
+        if (y.dtype != xt or st.dtype != torch.float32
+                or float(excess.max()) > 0 or not es <= SSD_RTOL):
+            fail(f"SSD kernel on x {xt}, B/C {bt}: y {y.dtype} "
+                 f"{float(excess.max()):.3g} past one ulp + {SSD_RTOL} x "
+                 f"max|y|, state {es:.3g} of max (limit {SSD_RTOL})")
+        worst = max(worst, float((y.double() - y64).abs().max()))
+        del y64, st64
+    for xt in (torch.float32, torch.bfloat16, f16):
+        xx, BB, CC = x.to(xt), Bm.to(xt), Cm.to(xt)
+        sk.launch(xx, dt_, A, BB, CC, chunk=Q)               # warm-up
+        _, ms = event_ms(torch, lambda: sk.launch(xx, dt_, A, BB, CC,
+                                                  chunk=Q))
+        size = torch.finfo(xt).bits // 8
+        tri = Q * (Q + 1) // 2
+        ops = b * h * (S // Q) * (2 * tri * (N + P) + 4 * Q * P * N)
+        nbytes = (size * (2 * b * S * h * P + 2 * b * S * g * N)
+                  + 4 * (b * S * h + h + b * h * P * N))
+        ssd[str(xt).split(".")[1]] = {
+            "ms": ms, "ops": ops, "bytes": nbytes,
+            "bound_ms": max(ops / FP32_OPS_PER_S,
+                            nbytes / HBM_BYTES_PER_S) * 1e3}
+    ssd["max_abs_err"] = worst
+    log(f"[kernel] ssd_scan: float16 and bfloat16 x, B, C (and bfloat16 x "
+        f"with float32 B, C) at Hymba's layer shape within one ulp + "
+        f"{SSD_RTOL} x max|y| of the float64 recurrence (max |err| "
+        f"{worst:.3g}); by input type: " + ", ".join(
+            f"{k} {v['ms']:.3f} ms (bound {v['bound_ms']:.3f})"
+            for k, v in ssd.items() if isinstance(v, dict)))
+    del x, Bm, Cm
+    torch.cuda.empty_cache()
+    return {"flash": flash, "ssd": ssd}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: train TinyLlama-1.1B at full width and depth
+# ---------------------------------------------------------------------------
+
+def train_products(cfg, B, S, remat: bool):
+    """Products of one training step of a dense model (T = B*S tokens), in
+    operations (an FMA is 2): the weight products forward (the layers and
+    the logits), twice that backward, the layers' forward again under
+    recomputation; the flash kernel's QK^T and PV over the causal pairs
+    (once, twice under recomputation), and the plain attention backward:
+    six products (QK^T and PV recomputed, dP, dV, dQ, dK) over the pairs
+    its query chunks compute (every key up to the chunk's last row)."""
+    from repro_torch.kernels.flash_attention.ref import vjp_chunk_rows
+    T, D, L = B * S, cfg.d_model, cfg.n_layers
+    H, K, hd, F = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+    layer_w = D * H * hd + 2 * D * K * hd + H * hd * D + 3 * D * F
+    head_w = cfg.padded_vocab(1) * D
+    dense = 3 * 2 * T * (L * layer_w + head_w)
+    if remat:
+        dense += 2 * T * L * layer_w
+    BH = B * H
+    attn_fwd = 4 * hd * flash_pairs(S, 0) * BH
+    c = vjp_chunk_rows(BH, S, S)
+    pairs = sum((min(S, i + c) - i) * min(S, i + c) for i in range(0, S, c))
+    attn_bwd = 6 * 2 * hd * pairs * BH
+    attn = L * (attn_fwd * (2 if remat else 1) + attn_bwd)
+    return {"dense": dense, "attn_fwd": L * attn_fwd * (2 if remat else 1),
+            "attn_bwd": L * attn_bwd, "total": dense + attn}
+
+
+def grads_of(torch, zoo, cfg, ctx, params, batch, dh_too=False):
+    """(loss, gradient leaves of ``params``[, the embedding output's
+    gradient]) of ``loss_fn``; the flash and SSD launches of the call."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    seen = []
+    saved = zoo._embed_in
+
+    def spy(*a):
+        h = saved(*a)
+        seen.append(h)
+        return h
+    fk.flash_attention_bhsd.launches = 0
+    zoo._embed_in = spy
+    try:
+        loss, _ = zoo.loss_fn(p, cfg, ctx, batch)
+    finally:
+        zoo._embed_in = saved
+    leaves = tree_leaves(p)
+    got = torch.autograd.grad(loss, leaves + (seen[:1] if dh_too else []))
+    torch.cuda.synchronize()
+    return loss.detach(), got, fk.flash_attention_bhsd.launches
+
+
+def flash_grads(torch, ref, q, k, v, do, dtype, slices=4):
+    """[o, dq, dk, dv] of the causal plain version ``ref`` in ``dtype`` by
+    torch.autograd over the whole sequence (none of the Function's query
+    chunks or key slices), taken in ``slices`` slices of the kv heads with
+    their query heads (heads do not interact), which holds each float64
+    score tensor to 1 GiB at the training shape (BH=128, S=2048)."""
+    BKV = k.shape[0]
+    r = q.shape[0] // BKV
+    step = max(1, BKV // slices)
+    parts = [[], [], [], []]
+    for g0 in range(0, BKV, step):
+        g1 = min(BKV, g0 + step)
+        ins = [t.detach().to(dtype).requires_grad_(True)
+               for t in (q[g0 * r:g1 * r], k[g0:g1], v[g0:g1])]
+        o = ref(*ins, causal=True)
+        grads = torch.autograd.grad(o, ins, do[g0 * r:g1 * r].to(dtype))
+        for part, t in zip(parts, (o.detach(), *grads)):
+            part.append(t)
+        del o, grads, ins
+    return [torch.cat(part) for part in parts]
+
+
+def train_flash_check(torch, fk, q, k, v, dev, seed):
+    """Gate (a): the Function's o, dq, dk, dv (kernel forward, plain
+    backward, ``flash_attention_vjp``) on layer 0's recorded q, k, v
+    against ``flash_grads`` in float64 (plain autograd of the whole plain
+    version, independent of the backward's chunking), each within
+    PLAIN_FACTOR times the error of ``flash_grads`` in float32 (the plain
+    path's own) or FLASH_F32_TOL of its max.  Returns (rows, the backward's
+    device ms on these inputs, the sum of its kernels' device time under
+    torch.profiler: one call alone is bound by its ~500 launches on the
+    host, which the training step's queue hides)."""
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
+                                                         flash_attention_vjp)
+    gen = torch.Generator(dev).manual_seed(seed + 160)
+    do = torch.randn(q.shape, generator=gen, device=dev)
+    ins = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    before = fk.flash_attention_bhsd.launches
+    o = fk.flash_attention_bhsd(*ins, causal=True, window=0)
+    if type(o.grad_fn).__name__ != "FlashAttentionBackward":
+        fail(f"the flash kernel's output on the card has grad_fn "
+             f"{o.grad_fn}: not the FlashAttention Function")
+    got = [o.detach()] + list(torch.autograd.grad(o, ins, do))
+    torch.cuda.synchronize()
+    if fk.flash_attention_bhsd.launches != before + 1:
+        fail(f"{fk.flash_attention_bhsd.launches - before} flash launches for"
+             " one forward and backward of the Function: expected 1 (the "
+             "backward is plain PyTorch)")
+    plain = flash_grads(torch, flash_attention_ref, q, k, v, do,
+                        torch.float32)
+    want = flash_grads(torch, flash_attention_ref, q, k, v, do,
+                       torch.float64)
+    rows = {}
+    for name, g, p, w in zip(("o", "dq", "dk", "dv"), got, plain, want):
+        err = float((g.double() - w).abs().max())
+        own = float((p.double() - w).abs().max())
+        wmax = float(w.abs().max())
+        lim = max(FLASH_F32_TOL * wmax, PLAIN_FACTOR * own)
+        if not err <= lim:
+            fail(f"(a) flash Function {name} at the training shape: |err| "
+                 f"{err:.3g} > {lim:.3g} (the float32 plain path's "
+                 f"{own:.3g}, max {wmax:.3g})")
+        rows[name] = {"err": err, "plain_err": own, "max": wmax}
+    del want, plain
+    flash_attention_vjp(q, k, v, do, causal=True)          # warm-up
+    prof = profile_kernels(torch, lambda: flash_attention_vjp(
+        q, k, v, do, causal=True), "flash_attention_vjp, layer 0", 5)
+    bwd_ms = sum(us for _, us in prof.values()) / 1e3 if prof else None
+    return rows, bwd_ms
+
+
+def train_layer_check(torch, zoo, tf, cfg, params, tokens, seed):
+    """Gate (b): for layers 0-3 of the model, on each layer's input (the
+    kernels' run's, first sequence) and a seeded upstream gradient, every
+    parameter gradient of the kernel path (training's context, remat
+    "full") against a float64 recomputation of the plain path, within the
+    larger of LAYER_GRAD_RTOL of its max and PLAIN_FACTOR times the
+    float32 plain path's own error.  Returns the worst rel errors."""
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    dev = tokens.device
+    gen = torch.Generator(dev).manual_seed(seed + 161)
+    layers = one_layer_stages(params, cfg)[:TRAIN_CHECK_LAYERS]
+    ctxs = {"kernel": tf.ModelContext(),
+            "plain": tf.ModelContext(kernels="ref", remat="none"),
+            "f64": tf.ModelContext(kernels="ref", remat="none")}
+    with torch.no_grad():
+        h = zoo._embed_in(params, cfg, tokens[:1], ctxs["kernel"])
+    S = h.shape[1]
+    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(1, S)
+    worst = []
+    for li, (stage, sp) in enumerate(layers):
+        cot = torch.randn(h.shape, generator=gen, device=dev)
+        grads = {}
+        for name, ctx in ctxs.items():
+            dt = torch.float64 if name == "f64" else torch.float32
+            w = tree_map(lambda t: t.detach().to(dt).requires_grad_(True), sp)
+            out = tf.apply_stage_seq(h.to(dt), w, stage, cfg, ctx, pos)[0]
+            grads[name] = torch.autograd.grad(out, tree_leaves(w),
+                                              cot.to(dt))
+            if name == "kernel":
+                h_next = out.detach()
+        rel = 0.0
+        for gk, gp, g64 in zip(grads["kernel"], grads["plain"],
+                               grads["f64"]):
+            err = float((gk.double() - g64).abs().max())
+            own = float((gp.double() - g64).abs().max())
+            gmax = float(g64.abs().max())
+            lim = max(LAYER_GRAD_RTOL * gmax, PLAIN_FACTOR * own)
+            if not err <= lim:
+                fail(f"(b) layer {li}: a parameter gradient of the kernel "
+                     f"path differs from float64 by {err:.3g} > {lim:.3g} "
+                     f"(float32 plain {own:.3g}, max {gmax:.3g})")
+            rel = max(rel, err / max(gmax, 1e-30))
+        worst.append(rel)
+        h = h_next
+        del grads
+    log("[check] (b) train, layers 0-3: worst parameter-gradient error of "
+        "the kernel path against float64, of the leaf's max: "
+        + ", ".join(f"{e:.2g}" for e in worst) + f" (limits: the larger of "
+        f"{LAYER_GRAD_RTOL} and {PLAIN_FACTOR} x the float32 plain path's)")
+    return worst
+
+
+def train_remat_check(torch, zoo, tf, cfg, params, tokens):
+    """Gate (c) and (d): one step's loss and gradients at B=1 under
+    remat "none" and "full" on the same batch: the loss bitwise, every
+    leaf bitwise but the embedding, whose rows sum their tokens'
+    gradients with index_add_ atomics in no fixed order: within
+    2 (n - 1) 2^-24 sum_t |g_t| of each row (n its token count, g_t the
+    embedding output's gradient), any two orders' float32 bound; 22 flash
+    launches under "none" and 44 under "full".  Peak memory of each."""
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.models import model_zoo as zoo_mod
+    batch = {"tokens": tokens[:1]}
+    out = {}
+    for remat in ("none", "full"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out[remat] = grads_of(torch, zoo, cfg, tf.ModelContext(remat=remat),
+                              params, batch, dh_too=True)
+        out[remat] += (torch.cuda.max_memory_allocated(),)
+    L = cfg.n_layers
+    if out["none"][2] != L or out["full"][2] != 2 * L:
+        fail(f"(d) flash launches a step: {out['none'][2]} under remat "
+             f"'none', {out['full'][2]} under 'full'; expected {L} and "
+             f"{2 * L} (the forward, and the recomputed forward; the "
+             "Function's backward launches none)")
+    if not torch.equal(out["none"][0], out["full"][0]):
+        fail(f"(c) the loss under remat 'none' {float(out['none'][0])!r} and "
+             f"'full' {float(out['full'][0])!r} differ")
+    paths = [p for p, _ in zoo_mod._leaves(params)]
+    emb_i = paths.index(("embed",))
+    n_g = len(paths)
+    differ = [paths[i] for i in range(n_g) if i != emb_i and not torch.equal(
+        out["none"][1][i], out["full"][1][i])]
+    if differ:
+        fail(f"(c) leaves whose gradient differs under remat 'full': {differ}")
+    ids = tokens[:1].reshape(-1).long()
+    dh = out["none"][1][n_g].reshape(-1, cfg.d_model).double().abs()
+    mass = torch.zeros(params["embed"].shape, dtype=torch.float64,
+                       device=ids.device).index_add_(0, ids, dh)
+    count = torch.bincount(ids, minlength=params["embed"].shape[0])
+    bound = 2 * (count - 1).clamp(min=0)[:, None] * 2.0 ** -24 * mass
+    diff = (out["none"][1][emb_i].double()
+            - out["full"][1][emb_i].double()).abs()
+    if not bool((diff <= bound).all()):
+        fail(f"(c) the embedding's gradient under 'none' and 'full' differs "
+             f"past its summation-order bound: "
+             f"{float((diff - bound).max()):.3g}")
+    log(f"[check] (c) remat 'none' vs 'full' at B=1, S={tokens.shape[1]}: "
+        f"loss bitwise equal ({float(out['none'][0]):.6f}), {n_g - 1} of "
+        f"{n_g} leaves' gradients bitwise equal, the embedding's within its "
+        f"summation-order bound (max |diff| {float(diff.max()):.3g}, bound "
+        f"at that row up to {float(bound.max()):.3g}); (d) flash launches "
+        f"{out['none'][2]} / {out['full'][2]}")
+    return {"peak_none": out["none"][3], "peak_full": out["full"][3],
+            "embed_max_diff": float(diff.max())}
+
+
+def ssd_grad_check(torch, dev, seed):
+    """Gate (f): the SSD Function (kernel forward, backward through
+    ``ssd_chunked``) at Hymba-1.5B's layer shape: y, dx, ddt, dA, dB, dC
+    against float64 autograd of ``ssd_chunked`` at the same chunk, each
+    within the larger of SSD_RTOL of its max and PLAIN_FACTOR times the
+    float32 ``ssd_chunked`` path's own error; one kernel call.  Returns
+    the rows and the backward's ms."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.models.ssm import ssd_chunked
+    b, S, h, P, g, N, Q = 4, 2048, 50, 64, 1, 16, 128
+    gen = torch.Generator(dev).manual_seed(seed + 162)
+    x = torch.randn((b, S, h, P), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(torch.randn((b, S, h), generator=gen,
+                                                  device=dev) - 1.0)
+    A = -torch.exp(0.5 * torch.randn((h,), generator=gen, device=dev))
+    B, C = (torch.randn((b, S, g, N), generator=gen, device=dev)
+            for _ in range(2))
+    dy = torch.randn((b, S, h, P), generator=gen, device=dev)
+
+    def run(fn, dtype):
+        ins = [t.to(dtype).requires_grad_(True) for t in (x, dt, A, B, C)]
+        y = fn(*ins)
+        return [y.detach()] + list(torch.autograd.grad(y, ins, dy.to(dtype)))
+    before = sk.ssd_chunk_scan.launches
+    got = run(lambda *a: sk.ssd_chunk_scan(*a, chunk=Q)[0], torch.float32)
+    torch.cuda.synchronize()
+    if sk.ssd_chunk_scan.launches != before + 1:
+        fail(f"{sk.ssd_chunk_scan.launches - before} SSD calls for one "
+             "forward and backward of the Function: expected 1")
+    plain = run(lambda *a: ssd_chunked(*a, Q)[0], torch.float32)
+    want = run(lambda *a: ssd_chunked(*a, Q)[0], torch.float64)
+    rows = {}
+    for name, gg, p, w in zip(("y", "dx", "ddt", "dA", "dB", "dC"), got,
+                              plain, want):
+        err = float((gg.double() - w).abs().max())
+        own = float((p.double() - w).abs().max())
+        wmax = float(w.abs().max())
+        lim = max(SSD_RTOL * wmax, PLAIN_FACTOR * own)
+        if not err <= lim:
+            fail(f"(f) SSD Function {name} at Hymba's layer shape: |err| "
+                 f"{err:.3g} > {lim:.3g} (float32 ssd_chunked {own:.3g}, max"
+                 f" {wmax:.3g})")
+        rows[name] = {"err": err, "plain_err": own, "max": wmax}
+    del want, plain
+    ins = [t.requires_grad_(True) for t in (x, dt, A, B, C)]
+    y = sk.ssd_chunk_scan(*ins, chunk=Q)[0]
+    _, bwd_ms = event_ms(torch, lambda: torch.autograd.grad(y, ins, dy))
+    log("[check] (f) SSD Function at b=4, S=2048, 50 heads, P=64, N=16, "
+        "chunk 128 against float64 autograd of ssd_chunked, |err| (float32 "
+        "plain's): " + ", ".join(f"{k} {v['err']:.3g} ({v['plain_err']:.3g})"
+                                 for k, v in rows.items())
+        + f"; the backward (ssd_chunked recomputed) {bwd_ms:.3f} ms")
+    return rows, bwd_ms
+
+
+def train_launcher_check(torch, dev):
+    """Gate (g): ``launch/train.py``'s ``run(..., reduced=False)`` at full
+    width with the depth cut to TRAIN_LAUNCHER_LAYERS layers (to keep the
+    checkpoint a few GB; ``get_config`` is swapped in the launcher's module
+    for the cut config), B=4, S=2048, token lookup ``onehot`` (its
+    gradient is a product, where ``rr``'s index_add_ sums with atomics in
+    no fixed order, so that two runs can agree bit for bit): a straight
+    run of TRAIN_LAUNCHER_STEPS steps, then a run cut after TRAIN_CUT
+    steps (its checkpoint written at its end) and a fresh run resumed from
+    that checkpoint; the losses must be equal bitwise.  The warm-up is 20
+    steps, so the cut run's shorter schedule is the same."""
+    import dataclasses
+    import tempfile
+    from repro_torch.launch import train as launcher
+    real = launcher.get_config
+    launcher.get_config = lambda a: dataclasses.replace(
+        real(a), n_layers=TRAIN_LAUNCHER_LAYERS)
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=1,
+              embed_method="onehot", device=dev)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            straight = launcher.run(TRAIN_ARCH, False,
+                                    steps=TRAIN_LAUNCHER_STEPS,
+                                    ckpt_dir=f"{tmp}/a", ckpt_every=0, **kw)
+            t1 = time.perf_counter()
+            cut = launcher.run(TRAIN_ARCH, False, steps=TRAIN_CUT,
+                               ckpt_dir=f"{tmp}/b",
+                               ckpt_every=TRAIN_LAUNCHER_STEPS, **kw)
+            t2 = time.perf_counter()
+            resumed = launcher.run(TRAIN_ARCH, False,
+                                   steps=TRAIN_LAUNCHER_STEPS,
+                                   ckpt_dir=f"{tmp}/b", ckpt_every=0, **kw)
+            t3 = time.perf_counter()
+            disk = sum(p.stat().st_size for p in Path(tmp, "b").rglob("*")
+                       if p.is_file())
+    finally:
+        launcher.get_config = real
+    if cut + resumed != straight or not all(map(math.isfinite, straight)):
+        fail(f"(g) the launcher's losses: straight {straight}, cut {cut} + "
+             f"resumed {resumed}: not equal bitwise (or not finite)")
+    log(f"[check] (g) launch/train.py at full width, {TRAIN_LAUNCHER_LAYERS}"
+        f" layers, B={TRAIN_BATCH}, S={TRAIN_SEQ}: straight "
+        f"{TRAIN_LAUNCHER_STEPS} steps {straight} in {t1 - t0:.3f} s; cut "
+        f"after {TRAIN_CUT} ({t2 - t1:.3f} s, checkpoint "
+        f"{disk / 1e9:.3f} GB) and resumed in a fresh state ({t3 - t2:.3f} "
+        "s): the losses equal bitwise")
+    return {"losses": straight, "ckpt_bytes": disk,
+            "straight_s": t1 - t0, "cut_s": t2 - t1, "resumed_s": t3 - t2}
+
+
+def train_path(torch, np, args, dev, phases):
+    """Phase 16: train TinyLlama-1.1B at full width and depth (22 layers,
+    d_model 2048, 32/4 heads of dim 64, d_ff 5632, vocab 32,000; float32
+    parameters from ``torch.Generator(seed)``, TF32 off) on
+    ``SyntheticLM(vocab, seq_len=2048, global_batch=4, seed)`` batches
+    (T = 8192 tokens a step) through ``make_train_step`` under the
+    reference's default context (remat "full", ``rr`` lookup): one warm-up
+    step and TRAIN_STEPS steps timed between CUDA events, one profiled.
+    Gates (a)-(g) of the module docstring.  Returns the phase's
+    summary."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import data as tdata
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    B, S, L = TRAIN_BATCH, TRAIN_SEQ, cfg.n_layers
+    T = B * S
+    state = phases.run("train-init", lambda: ts.init_train_state(
+        cfg, torch.Generator(dev).manual_seed(args.seed), dev))
+    torch.cuda.synchronize()
+    n_par = zoo.n_params(state["params"])
+    data = tdata.SyntheticLM(tdata.DataConfig(
+        vocab=cfg.vocab, seq_len=S, global_batch=B, seed=args.seed))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                data.batch_at(i).items()} for i in range(1 + TRAIN_STEPS)]
+    stats = tdata.token_stats(data.batch_at(1)["tokens"])
+    log(f"[train] {cfg.name}: {L} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of dim {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab} (padded {cfg.padded_vocab(1)}), "
+        f"untied; {n_par:,} parameters float32 (train state: params, master,"
+        f" m, v {4 * 4 * n_par / 1e9:.2f} GB); B={B}, S={S}: {T} tokens a "
+        f"step, {stats['unique']} distinct (dedup ratio "
+        f"{stats['dedup_ratio']:.4f})")
+    ctx = tf.ModelContext()
+    if ctx.remat != "full" or ctx.embed_method != "rr":
+        fail(f"the reference's default context is remat 'full', lookup "
+             f"'rr'; the port's is {ctx.remat!r}, {ctx.embed_method!r}")
+    step_fn = ts.make_train_step(cfg, ctx)
+    params0 = state["params"]
+    state, m0 = phases.run("train-warm", step_fn, state, batches[0])
+    torch.cuda.synchronize()
+    still = [i for i, (a, b) in enumerate(zip(tree_leaves(params0),
+                                              tree_leaves(state["params"])))
+             if torch.equal(a, b)]
+    if still:
+        fail(f"(e) {len(still)} parameter leaves did not move in the first "
+             f"step: {still[:8]}")
+    del params0
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, gnorms, launches = [], [], [], []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        fk.flash_attention_bhsd.launches = 0        # the path starts here
+        sk.ssd_chunk_scan.launches = 0
+        ev[0].record()
+        state, m = step_fn(state, batches[1 + i])
+        ev[1].record()
+        ev[1].synchronize()
+        launches.append((fk.flash_attention_bhsd.launches,   # ... ends here
+                         sk.ssd_chunk_scan.launches))
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    host_s = time.perf_counter() - t0
+    peak_full = torch.cuda.max_memory_allocated()
+    losses = [float(m0["loss"])] + losses
+    gnorms = [float(m0["grad_norm"])] + gnorms
+    if any(n != (2 * L, 0) for n in launches):
+        fail(f"(d) launches (flash, SSD) a step {launches}: expected "
+             f"({2 * L}, 0), the forward and the recomputed forward of each "
+             "layer")
+    if not all(map(math.isfinite, losses + gnorms)):
+        fail(f"(e) non-finite loss or grad_norm: {losses}, {gnorms}")
+    med = float(np.median(step_ms))
+    prods = train_products(cfg, B, S, remat=True)
+    bound_ms = prods["total"] / FP32_OPS_PER_S * 1e3
+    model_flops = 6 * n_par * T
+    mfu = model_flops / (med / 1e3) / FP32_OPS_PER_S
+    log(f"[train] {cfg.name}: {med:.3f} ms a step (median of "
+        f"{TRAIN_STEPS}; each " + ", ".join(f"{x:.3f}" for x in step_ms)
+        + f"), {T / med * 1e3:.0f} tokens/s, {host_s:.3f} s host for the "
+        f"{TRAIN_STEPS} steps; products {prods['total'] / 1e12:.2f} TFLOP a "
+        f"step (weights {prods['dense'] / 1e12:.2f}, flash forward "
+        f"{prods['attn_fwd'] / 1e12:.2f}, plain attention backward "
+        f"{prods['attn_bwd'] / 1e12:.2f}): bound {bound_ms:.3f} ms at 67 "
+        f"TFLOP/s float32, bound/step {bound_ms / med:.3f}; model FLOPs "
+        f"6NT {model_flops / 1e12:.2f} TFLOP, mfu_fp32 {mfu:.4f}; peak "
+        f"device memory under remat 'full' (B={B}) {peak_full / 2**30:.2f} "
+        "GiB")
+    log(f"[train] {cfg.name}: loss by step " + ", ".join(
+        f"{x:.4f}" for x in losses) + "; grad_norm " + ", ".join(
+        f"{x:.4f}" for x in gnorms) + f"; flash launches a step "
+        f"{[n for n, _ in launches]}")
+    params = state["params"]
+    prof = phases.run("train-profile", profile_kernels, torch,
+                      lambda: step_fn(state, batches[1]),
+                      f"{cfg.name} train step", 12, False)
+    with torch.no_grad():
+        seen = record_launches({"flash": fk}, lambda: zoo.forward_logits(
+            params, cfg, ctx, batches[1]["tokens"]))["flash"]
+    (q, k, v), _ = seen[0]
+    del seen
+    torch.cuda.empty_cache()
+    rows_a, vjp_ms = phases.run("train-flash-check", train_flash_check,
+                                torch, fk, q, k, v, dev, args.seed)
+    busy_ms = sum(us for _, us in prof.values()) / 1e3 if prof else None
+    share = (L * vjp_ms / busy_ms) if busy_ms and vjp_ms else None
+    if share is None:
+        log(f"[profile] {cfg.name} train step: the plain attention "
+            "backward's share not measured (the profiler saw no device "
+            "time)")
+    else:
+        log(f"[profile] {cfg.name} train step: the plain attention backward "
+            f"(flash_attention_vjp, its kernels' device time on layer 0's "
+            f"inputs) {vjp_ms:.3f} ms a layer, {L * vjp_ms:.3f} ms a step = "
+            f"{100 * share:.1f}% of the profiled step's device time")
+    log(f"[check] (a) flash Function at (BH, S, d) {tuple(q.shape)} on "
+        "layer 0's inputs against float64, |err| (float32 plain's): "
+        + ", ".join(
+            f"{n} {r['err']:.3g} ({r['plain_err']:.3g})"
+            for n, r in rows_a.items()))
+    del q, k, v
+    worst_b = phases.run("train-layers", train_layer_check, torch, zoo, tf,
+                         cfg, params, batches[1]["tokens"], args.seed)
+    remat = phases.run("train-remat", train_remat_check, torch, zoo, tf,
+                       cfg, params, batches[1]["tokens"])
+    log(f"[train] {cfg.name}: peak device memory at B=1: remat 'none' "
+        f"{remat['peak_none'] / 2**30:.2f} GiB, 'full' "
+        f"{remat['peak_full'] / 2**30:.2f} GiB (the train state "
+        f"{16 * n_par / 2**30:.2f} GiB of it); at B={B} 'full' "
+        f"{peak_full / 2**30:.2f} GiB")
+    del state, params, batches
+    torch.cuda.empty_cache()
+    rows_f, ssd_bwd_ms = phases.run("train-ssd-check", ssd_grad_check, torch,
+                                    dev, args.seed)
+    torch.cuda.empty_cache()
+    launcher = phases.run("train-launcher", train_launcher_check, torch, dev)
+    torch.cuda.empty_cache()
+    return {"launches": sum(n for n, _ in launches), "steps": TRAIN_STEPS,
+            "step_ms": step_ms, "median_ms": med,
+            "tokens_per_s": T / med * 1e3, "bound_ms": bound_ms,
+            "products": prods, "mfu_fp32": mfu, "n_params": n_par,
+            "peak_full_gib": peak_full / 2**30,
+            "peak_b1_none_gib": remat["peak_none"] / 2**30,
+            "peak_b1_full_gib": remat["peak_full"] / 2**30,
+            "losses": losses, "grad_norms": gnorms,
+            "vjp_ms_layer": vjp_ms, "vjp_share": share,
+            "busy_ms": busy_ms, "flash_check": rows_a,
+            "layer_check": worst_b, "ssd_check": rows_f,
+            "ssd_bwd_ms": ssd_bwd_ms, "launcher": launcher}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=4_000_000,
@@ -5188,21 +5984,33 @@ def main():
             return beside_runs[name].result
         return start
     mods = (api, structs, gen, cost_model, planlib, kernel)
+    # phase 3b's split partition and its plans (host work) in a process
+    # of their own from phase 3's oracles on, through the S-V check and
+    # phase 3b's first runs
+    split_run = []
     g, A, pg, launches, algos, runs, rr_algos = main_path(
         torch, np, mods, args, dev, phases, ready=launchers_run.result,
-        beside=beside("sharded-D", sharded_many, torch, args))
+        beside=beside("sharded-D", sharded_many, torch, args),
+        host_side=lambda g, pg: split_run.append(phases.run(
+            "split-partition-start", start_split_partition, np, planlib, g,
+            pg, dev)))
     launchers = launchers_run.result()
     pool.shutdown()
     phases.run("sv-2^24", large_ids, torch, np, api, structs, kernel, dev)
     sharded_row = sharded_one(torch, np, mods, pg, runs, algos + rr_algos,
                               ref_fn, dev, phases)
+    # the balance lines (host tables only) run while phase 9's ranks hold
+    # the card, before phase 3b's timed runs
+    from repro_torch.core import exec as exec_mod
+    balance = {}
     mode_launches, replays, pgs = sharded_modes(
         torch, np, mods, g, pg, runs, algos + rr_algos, ref_fn, dev, phases,
-        beside=beside("service-ranks", service_ranks_run, torch, args))
+        split_run[0],
+        beside=beside("service-ranks", service_ranks_run, torch, args),
+        host_work=lambda pgs: balance.update(phases.run(
+            "balance", balance_lines, np, exec_mod, pg, pgs,
+            planlib.default_nb(dev))))
     del runs
-    from repro_torch.core import exec as exec_mod
-    balance = phases.run("balance", balance_lines, np, exec_mod, pg, pgs,
-                         planlib.default_nb(dev))
     torch.cuda.empty_cache()
     sharded_row.update(modes=mode_launches, replay_split=replays["split"],
                        replay_pipeline=replays["pipeline"], balance=balance)
@@ -5243,6 +6051,7 @@ def main():
     gemma = gemma_path(torch, np, args, dev, phases)
     olmoe = olmoe_path(torch, np, args, dev, phases)
     whisper = whisper_path(torch, np, args, dev, phases)
+    train = train_path(torch, np, args, dev, phases)
     phases.run("gcn-oracles-wait", gcn_oracles.finish)
     service = service_path(torch, np, args, dev, phases,
                            beside_runs["service-ranks"].result())
@@ -5253,9 +6062,10 @@ def main():
     flash["launches_by_model"] = {LM_ARCH: flash["launches"],
                                   GEMMA_ARCH: gemma["launches"],
                                   OLMOE_ARCH: olmoe["launches"],
-                                  WHISPER_ARCH: whisper["launches"]}
+                                  WHISPER_ARCH: whisper["launches"],
+                                  f"{TRAIN_ARCH} train": train["launches"]}
     flash["launches"] += (gemma["launches"] + olmoe["launches"]
-                          + whisper["launches"])
+                          + whisper["launches"] + train["launches"])
     flash["per_launch"] += gemma["rows"] + olmoe["rows"] + whisper["rows"]
     flash["max_abs_err"] = max(
         [flash["max_abs_err"]]
@@ -5267,12 +6077,15 @@ def main():
                       f"global layer's launches, {OLMOE_ARCH}: its layer 0's "
                       f"launch, {WHISPER_ARCH}: layer 0's encoder, decoder "
                       "self, prefill cross and decode cross launches "
-                      "(per_launch rows)")
+                      f"(per_launch rows); {TRAIN_ARCH} train: the "
+                      f"{TRAIN_STEPS} timed steps' launches (untimed one by "
+                      "one; the step's time is in its summary)")
     flash[GEMMA_ARCH] = {k: gemma[k] for k in ("prefill_ms", "decode_ms",
                                                "busy_ms", "peak_gib")}
     flash[OLMOE_ARCH] = {k: olmoe[k] for k in (
         "prefill_ms", "prefill_bound_ms", "decode_ms", "decode_bound_ms",
         "busy_ms", "peak_gib")}
+    flash[f"{TRAIN_ARCH} train"] = train
     flash[WHISPER_ARCH] = {k: whisper[k] for k in (
         "launches_prefill", "launches_decode", "prefill_ms",
         "prefill_bound_ms", "decode_ms", "decode_bound_ms", "busy_ms",

@@ -3,7 +3,7 @@
 // behind flash_attention_bhsd.
 //
 // What it computes.  q is (BH, Sq, d), k and v are (BKV, Sk, d), row-major,
-// float32 or bfloat16; BH = BKV * n_rep and query row bh reads kv row
+// float32, bfloat16 or float16; BH = BKV * n_rep and query row bh reads kv row
 // bh / n_rep (grouped-query attention; the repeat is never materialised).
 // With positions 0.. on both sides (prefill and full forward; and
 // cross-attention, a decoder's Sq queries against an encoder's Sk frames
@@ -47,9 +47,11 @@
 //   - cp.async: K and V tiles are copied 16 bytes a thread straight into
 //     shared memory, each while the other is being used: V(kt) flies
 //     during S = Q K(kt)^T, K(kt+1) during the softmax and P V(kt).  A
-//     bf16 tile lands in a staging area and each thread widens the
-//     16-byte pieces it copied itself, so the float32 path and the bf16
-//     path wait at the same three barriers a tile;
+//     bf16 or float16 tile lands in a staging area and each thread widens
+//     the 16-byte pieces it copied itself (__bfloat162float,
+//     __half2float), so the float32 path and the half paths wait at the
+//     same three barriers a tile; a half output is rounded once
+//     (__float2bfloat16, __float2half_rn);
 //   - heaviest query tiles first: the grid is (BH, query tiles) with the
 //     tile index reversed when causal, so the query tiles that attend to
 //     the most key tiles (a global layer's last ones) start in the first
@@ -60,7 +62,7 @@
 //     quarter-warp hit 8 different 16-byte bank groups (d+4 = 4 mod 32
 //     banks for K, 72 = 8 mod 32 for P's scalar stores).  At d = 256 the
 //     float tiles alone take 175,616 bytes (one block an SM), and two
-//     bf16 staging tiles (65,536 bytes) would pass the 232,448 a block
+//     half staging tiles (65,536 bytes) would pass the 232,448 a block
 //     may have: there K and V share one staging tile and take turns in
 //     it.  V(kt) still flies during S = Q K(kt)^T and the softmax, but
 //     K(kt+1) is issued only once V(kt) has been widened, and flies
@@ -90,6 +92,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -108,14 +111,15 @@ struct Cfg {
   static constexpr int DC = D / 8;              // output columns a thread
   static constexpr int LD = D + 4;              // float row stride of Q, K, V
   static constexpr int MIN_BLOCKS = D >= 128 ? 1 : 2;
-  static constexpr bool BF16 = sizeof(T) == 2;
-  // one bf16 staging tile that K and V take turns in (d = 256), or two
-  static constexpr bool ONE_STAGE = BF16 && D == 256;
+  // bfloat16 and float16: 2-byte values staged and widened
+  static constexpr bool HALF = sizeof(T) == 2;
+  // one half staging tile that K and V take turns in (d = 256), or two
+  static constexpr bool ONE_STAGE = HALF && D == 256;
   static constexpr int EPC = 16 / sizeof(T);    // elements in 16 bytes
   static constexpr size_t FLOATS = static_cast<size_t>(BQ) * LD
                                  + 2 * kBk * LD + static_cast<size_t>(BQ) * kLdp;
   static constexpr size_t STAGE =
-      BF16 ? (ONE_STAGE ? 1 : 2) * kBk * D * sizeof(T) : 0;
+      HALF ? (ONE_STAGE ? 1 : 2) * kBk * D * sizeof(T) : 0;
   static constexpr size_t SMEM = FLOATS * sizeof(float) + STAGE;
 };
 
@@ -123,9 +127,15 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_float(__half v) {
+  return __half2float(v);
+}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half_rn(v);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -143,8 +153,8 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Start the copy of rows [r0, r0 + 64) of a (rows, D) matrix: float32 rows
-// go straight into the (64, D + 4) float tile, bf16 rows into the (64, D)
-// staging tile; rows at or past `rows` are zero-filled.
+// go straight into the (64, D + 4) float tile, bf16 and float16 rows into
+// the (64, D) staging tile; rows at or past `rows` are zero-filled.
 template <typename T, int D>
 __device__ __forceinline__ void issue_tile(float* tile, T* stage,
                                            const T* src, int r0, int rows) {
@@ -156,7 +166,7 @@ __device__ __forceinline__ void issue_tile(float* tile, T* stage,
     const int gr = r0 + r;
     const T* g = src + static_cast<long long>(gr < rows ? gr : 0) * D + c;
     void* dst;
-    if constexpr (C::BF16) {
+    if constexpr (C::HALF) {
       dst = stage + r * D + c;
     } else {
       dst = tile + r * C::LD + c;
@@ -165,12 +175,13 @@ __device__ __forceinline__ void issue_tile(float* tile, T* stage,
   }
 }
 
-// bf16 only: widen the 16-byte pieces this thread copied into the float
-// tile (its own cp.async results are visible to it after the wait)
+// bf16 and float16 only: widen the 16-byte pieces this thread copied into
+// the float tile (its own cp.async results are visible to it after the
+// wait)
 template <typename T, int D>
 __device__ __forceinline__ void widen_tile(float* tile, const T* stage) {
   using C = Cfg<T, D>;
-  if constexpr (C::BF16) {
+  if constexpr (C::HALF) {
     constexpr int PER_ROW = D / C::EPC;
     for (int e = threadIdx.x; e < kBk * PER_ROW; e += kThreads) {
       const int r = e / PER_ROW;
@@ -458,8 +469,8 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
 
 // q, out: device pointers of (BH, Sq, d); k, v: (BKV, Sk, d), contiguous,
 // k and v 16-byte aligned, BH = BKV * n_rep; dtype 0 = float32, 1 =
-// bfloat16; d in {16, 32, 64, 128, 256}; Sq, Sk >= 1 and, when causal or
-// windowed, Sq <= Sk; window 0 = none; scale
+// bfloat16, 2 = float16; d in {16, 32, 64, 128, 256}; Sq, Sk >= 1 and,
+// when causal or windowed, Sq <= Sk; window 0 = none; scale
 // is d^-1/2 rounded to float32 by the caller, as the TPU kernel's Python
 // float is; threads, q_tile, k_tile and smem_bytes are the launch shape
 // from the wrapper's launch_geometry, refused unless they are the
@@ -474,7 +485,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (BH <= 0) return 0;
   if (Sq < 1 || Sk < 1 || (Sq > Sk && (causal || window > 0)) || n_rep < 1
       || BH % n_rep != 0 || window < 0
-      || (dtype != 0 && dtype != 1)
+      || dtype < 0 || dtype > 2
       || reinterpret_cast<uintptr_t>(k) % 16 != 0
       || reinterpret_cast<uintptr_t>(v) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -483,9 +494,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geometry geo{threads, q_tile, k_tile, smem_bytes};
-  err = dtype == 0
-      ? launch_d<float>(d, q, k, v, out, BH, Sq, Sk, n_rep, scale, causal, window, geo, s)
-      : launch_d<__nv_bfloat16>(d, q, k, v, out, BH, Sq, Sk, n_rep, scale, causal, window, geo, s);
+  switch (dtype) {
+    case 0: err = launch_d<float>(d, q, k, v, out, BH, Sq, Sk, n_rep, scale, causal, window, geo, s); break;
+    case 1: err = launch_d<__nv_bfloat16>(d, q, k, v, out, BH, Sq, Sk, n_rep, scale, causal, window, geo, s); break;
+    default: err = launch_d<__half>(d, q, k, v, out, BH, Sq, Sk, n_rep, scale, causal, window, geo, s); break;
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,8 +3,12 @@
 // ssd_scan_bh.
 //
 // What it computes.  In the model's layout x is (b, S, h, P), dt is
-// (b, S, h), A is (h,), B and C are (b, S, g, N), all float32, with head hh
-// reading group hh / (h / g) (the groups are never broadcast).  Per
+// (b, S, h), A is (h,), B and C are (b, S, g, N), with head hh reading
+// group hh / (h / g) (the groups are never broadcast).  x, B and C share
+// one type T, float32, bfloat16 or float16, loaded in T and widened in
+// registers; y is written in T, rounded once from its float32 sum; dt, A,
+// the states and every sum are float32 (the TPU kernel casts x, dt, A, B
+// and C to float32 and writes y in x's dtype).  Per
 // (batch, head) and per chunk c of Q consecutive positions, with the state
 // S_{c-1} (P x N, float32) entering the chunk:
 //     cum[i]  = sum_{j <= i} dt[j] A                 (within the chunk)
@@ -64,7 +68,9 @@
 //     thread straight into shared memory, so a block has all its loads in
 //     flight at once; B, C and the entering state come in as float4 and
 //     are stored transposed; pass 2 issues the loads of 8 chunks before it
-//     walks them;
+//     walks them.  A half type's x, B and C are loaded by the threads and
+//     widened to float as they are stored to shared memory (its bytes are
+//     half of float32's, and operations bound the kernel either way);
 //   - row strides padded so that float4 accesses of a quarter-warp hit
 //     distinct banks; shared memory 71,680 bytes at Q=128, N=16 (3 blocks
 //     an SM) and 218,624 at N=128.
@@ -81,6 +87,8 @@
 // value.
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -111,6 +119,31 @@ __host__ __device__ inline int scan_smem_floats(int Q, int N) {
   const int QP = round_up(Q, 32);
   const int N4 = round_up(N, 4);
   return 2 * QP + 2 * N4 * (QP + 4) + QP * kPT + N4 * kPT + kJ * (QP + 4);
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half_rn(v);
+}
+
+// 4 consecutive values widened to float: one float4 load for float32 (16-
+// byte aligned), 4 loads for a half type
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p) {
+  if constexpr (sizeof(T) == 4) {
+    return *reinterpret_cast<const float4*>(p);
+  } else {
+    return make_float4(to_float(p[0]), to_float(p[1]), to_float(p[2]),
+                       to_float(p[3]));
+  }
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -161,17 +194,18 @@ __device__ __forceinline__ void chunk_cum(const float* __restrict__ dt,
 
 // Rows [0, QP) x columns [p0, p0 + 64) of x for one (batch, head, chunk)
 // into Xs (QP x 64), zero past nq rows and P columns: 16-byte cp.async
-// copies when vec (P % 4 == 0, x 16-byte aligned), else plain loads.
-// The caller waits for the copies.
-__device__ __forceinline__ void load_x(float* Xs, const float* __restrict__ x,
+// copies when vec (P % 4 == 0, x 16-byte aligned) and x is float32, else
+// loads widened to float.  The caller waits for the copies.
+template <typename T>
+__device__ __forceinline__ void load_x(float* Xs, const T* __restrict__ x,
                                        long long row0, int H, int hh, int P,
                                        int p0, int nq, int QP, bool vec) {
-  if (vec) {
+  if (sizeof(T) == 4 && vec) {
     for (int e = threadIdx.x; e < QP * (kPT / 4); e += blockDim.x) {
       const int j = e / (kPT / 4);
       const int c = 4 * (e % (kPT / 4));
       const bool ok = j < nq && p0 + c < P;
-      const float* src = ok ? x + ((row0 + j) * H + hh) * P + p0 + c : x;
+      const T* src = ok ? x + ((row0 + j) * H + hh) * P + p0 + c : x;
       cp_async16(&Xs[j * kPT + c], src, ok ? 16 : 0);
     }
   } else {
@@ -179,7 +213,8 @@ __device__ __forceinline__ void load_x(float* Xs, const float* __restrict__ x,
     for (int e = threadIdx.x; e < QP * kPT; e += blockDim.x) {
       const int j = e / kPT;
       const int p = p0 + e % kPT;
-      Xs[e] = j < nq && p < P ? x[((row0 + j) * H + hh) * P + p] : 0.0f;
+      Xs[e] = j < nq && p < P ? to_float(x[((row0 + j) * H + hh) * P + p])
+                              : 0.0f;
     }
   }
 }
@@ -188,11 +223,12 @@ __device__ __forceinline__ void load_x(float* Xs, const float* __restrict__ x,
 // for 64 columns p of one (batch, head, chunk), and the chunk's decay.
 // 256 threads: thread t sums rows [0, QP/2) (t < 128) or [QP/2, QP) of
 // the 2 p x 4 n tile t % 128, and the first half adds the second's.
+template <typename T>
 __global__ void __launch_bounds__(kStateThreads)
-ssd_chunk_state_kernel(const float* __restrict__ x,
+ssd_chunk_state_kernel(const T* __restrict__ x,
                        const float* __restrict__ dt,
                        const float* __restrict__ A,
-                       const float* __restrict__ B,
+                       const T* __restrict__ B,
                        float* __restrict__ chunk_states,
                        float* __restrict__ chunk_decay, int S, int H, int G,
                        int P, int N, int Q, int nc, int vec_p, int vec_n) {
@@ -218,18 +254,19 @@ ssd_chunk_state_kernel(const float* __restrict__ x,
   const int t = threadIdx.x;
 
   load_x(Xs, x, row0, H, hh, P, p0, nq, QP, vec_p);
-  if (vec_n) {   // N % 4 == 0: B's rows are the shared rows
+  if (sizeof(T) == 4 && vec_n) {   // N % 4 == 0: B's rows are the shared rows
     for (int e = t; e < QP * (N / 4); e += kStateThreads) {
       const int j = e / (N / 4);
       const int n = 4 * (e % (N / 4));
-      const float* src = j < nq ? B + ((row0 + j) * G + grp) * N + n : B;
+      const T* src = j < nq ? B + ((row0 + j) * G + grp) * N + n : B;
       cp_async16(&Bs[j * N + n], src, j < nq ? 16 : 0);
     }
   } else {
     for (int e = t; e < QP * N4; e += kStateThreads) {
       const int j = e / N4;
       const int n = e % N4;
-      Bs[e] = j < nq && n < N ? B[((row0 + j) * G + grp) * N + n] : 0.0f;
+      Bs[e] = j < nq && n < N ? to_float(B[((row0 + j) * G + grp) * N + n])
+                              : 0.0f;
     }
   }
   if (t < 32) chunk_cum(dt, A[hh], row0, H, hh, nq, QP, dts, cum);
@@ -340,15 +377,15 @@ ssd_state_pass_kernel(float* __restrict__ chunk_states,
 // (lane / 8, lane % 8) owns rows 32 b + 8 w + 2 r + {0, 1} of each band b
 // and columns 4 c + {0..3}, 32 + 4 c + {0..3}: 8 rows x 8 columns.  Rows
 // past nq compute zeros (their C and dt are zero) and are not stored.
-template <int NB>
+template <typename T, int NB>
 __global__ void __launch_bounds__(kThreads, 3)
-ssd_chunk_scan_kernel(const float* __restrict__ x,
+ssd_chunk_scan_kernel(const T* __restrict__ x,
                       const float* __restrict__ dt,
                       const float* __restrict__ A,
-                      const float* __restrict__ B,
-                      const float* __restrict__ C,
+                      const T* __restrict__ B,
+                      const T* __restrict__ C,
                       const float* __restrict__ chunk_states,
-                      float* __restrict__ y, int S, int H, int G, int P,
+                      T* __restrict__ y, int S, int H, int G, int P,
                       int N, int Q, int nc, int vec_p, int vec_n) {
   extern __shared__ __align__(16) float smem[];
   constexpr int QP = NB * kJ;
@@ -378,7 +415,7 @@ ssd_chunk_scan_kernel(const float* __restrict__ x,
   load_x(Xs, x, row0, H, hh, P, p0, nq, QP, vec_p);
   if (t < 32) chunk_cum(dt, A[hh], row0, H, hh, nq, QP, dts, cum);
   const float* st = chunk_states + (static_cast<long long>(bh) * nc + c) * P * N;
-  if (vec_n) {   // N % 4 == 0: rows of B, C and the state as float4
+  if (vec_n) {   // N % 4 == 0: rows of B, C and the state 4 at a time
     const int n4 = N / 4;
 #pragma unroll 4
     for (int e = t; e < QP * n4; e += kThreads) {
@@ -388,8 +425,8 @@ ssd_chunk_scan_kernel(const float* __restrict__ x,
       float4 bv = cv;
       if (j < nq) {
         const long long g = ((row0 + j) * G + grp) * N + n;
-        cv = *reinterpret_cast<const float4*>(&C[g]);
-        bv = *reinterpret_cast<const float4*>(&B[g]);
+        cv = load4(&C[g]);
+        bv = load4(&B[g]);
       }
       Ct[n * LQ + j] = cv.x;
       Ct[(n + 1) * LQ + j] = cv.y;
@@ -420,8 +457,8 @@ ssd_chunk_scan_kernel(const float* __restrict__ x,
       const int n = e % N4;
       const bool ok = j < nq && n < N;
       const long long g = ((row0 + j) * G + grp) * N + n;
-      Ct[n * LQ + j] = ok ? C[g] : 0.0f;
-      Bt[n * LQ + j] = ok ? B[g] : 0.0f;
+      Ct[n * LQ + j] = ok ? to_float(C[g]) : 0.0f;
+      Bt[n * LQ + j] = ok ? to_float(B[g]) : 0.0f;
     }
     for (int e = t; e < kPT * N4; e += kThreads) {
       const int p = e / N4;
@@ -556,13 +593,14 @@ ssd_chunk_scan_kernel(const float* __restrict__ x,
     for (int u = 0; u < 2; ++u) {
       const int i = 32 * b + r0 + u;
       if (i >= nq) continue;
-      float* yrow = y + ((row0 + i) * H + hh) * P;
-      if (vec_p) {   // P % 4 == 0: each run of 4 columns is in or out
+      T* yrow = y + ((row0 + i) * H + hh) * P;
+      if (sizeof(T) == 4 && vec_p) {   // P % 4 == 0: runs of 4 in or out
 #pragma unroll
         for (int h2 = 0; h2 < 2; ++h2) {
           const int p = p0 + 32 * h2 + cg;
           if (p < P) {
-            *reinterpret_cast<float4*>(&yrow[p]) = make_float4(
+            float* yf = reinterpret_cast<float*>(yrow) + p;   // T is float
+            *reinterpret_cast<float4*>(yf) = make_float4(
                 acc[b][u][4 * h2], acc[b][u][4 * h2 + 1],
                 acc[b][u][4 * h2 + 2], acc[b][u][4 * h2 + 3]);
           }
@@ -571,14 +609,14 @@ ssd_chunk_scan_kernel(const float* __restrict__ x,
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
           const int p = p0 + (k < 4 ? cg + k : 32 + cg + k - 4);
-          if (p < P) yrow[p] = acc[b][u][k];
+          if (p < P) store(&yrow[p], acc[b][u][k]);
         }
       }
     }
   }
 }
 
-template <int NB>
+template <typename T, int NB>
 cudaError_t launch_scan(dim3 grid, size_t smem, cudaStream_t s,
                         const void* x, const void* dt, const void* A,
                         const void* B, const void* C,
@@ -586,15 +624,55 @@ cudaError_t launch_scan(dim3 grid, size_t smem, cudaStream_t s,
                         int G, int P, int N, int Q, int nc, int vec_p,
                         int vec_n) {
   const cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_scan_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      ssd_chunk_scan_kernel<T, NB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  ssd_chunk_scan_kernel<NB><<<grid, kThreads, smem, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const float*>(B),
-      static_cast<const float*>(C), static_cast<const float*>(chunk_states),
-      static_cast<float*>(y), S, H, G, P, N, Q, nc, vec_p, vec_n);
+  ssd_chunk_scan_kernel<T, NB><<<grid, kThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const T*>(B),
+      static_cast<const T*>(C), static_cast<const float*>(chunk_states),
+      static_cast<T*>(y), S, H, G, P, N, Q, nc, vec_p, vec_n);
   return cudaGetLastError();
+}
+
+// the three passes for x, B, C and y of type T
+template <typename T>
+cudaError_t launch_all(cudaStream_t s, const void* x, const void* dt,
+                       const void* A, const void* B, const void* C,
+                       const void* init_state, void* y, void* state_out,
+                       void* chunk_states, void* chunk_decay, long long BH,
+                       int S, int H, int G, int P, int N, int Q, int nc,
+                       size_t smem1, size_t smem3, int vec_p, int vec_n) {
+  cudaError_t err;
+  if (nc > 0) {
+    err = cudaFuncSetAttribute(ssd_chunk_state_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem1));
+    if (err != cudaSuccess) return err;
+    const dim3 grid(static_cast<unsigned>(BH * nc), (P + kPT - 1) / kPT);
+    ssd_chunk_state_kernel<T><<<grid, kStateThreads, smem1, s>>>(
+        static_cast<const T*>(x), static_cast<const float*>(dt),
+        static_cast<const float*>(A), static_cast<const T*>(B),
+        static_cast<float*>(chunk_states), static_cast<float*>(chunk_decay),
+        S, H, G, P, N, Q, nc, vec_p, vec_n);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const long long elems = BH * P * N;
+  ssd_state_pass_kernel<<<static_cast<unsigned>((elems + kPassThreads - 1) / kPassThreads),
+                          kPassThreads, 0, s>>>(
+      static_cast<float*>(chunk_states), static_cast<const float*>(chunk_decay),
+      static_cast<const float*>(init_state), static_cast<float*>(state_out),
+      BH, P * N, nc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nc == 0) return err;
+  const dim3 grid(static_cast<unsigned>(BH * nc), (P + kPT - 1) / kPT);
+  switch (round_up(Q, kJ) / kJ) {
+    case 1: return launch_scan<T, 1>(grid, smem3, s, x, dt, A, B, C, chunk_states, y, S, H, G, P, N, Q, nc, vec_p, vec_n);
+    case 2: return launch_scan<T, 2>(grid, smem3, s, x, dt, A, B, C, chunk_states, y, S, H, G, P, N, Q, nc, vec_p, vec_n);
+    case 3: return launch_scan<T, 3>(grid, smem3, s, x, dt, A, B, C, chunk_states, y, S, H, G, P, N, Q, nc, vec_p, vec_n);
+    default: return launch_scan<T, 4>(grid, smem3, s, x, dt, A, B, C, chunk_states, y, S, H, G, P, N, Q, nc, vec_p, vec_n);
+  }
 }
 
 }  // namespace
@@ -602,25 +680,26 @@ cudaError_t launch_scan(dim3 grid, size_t smem, cudaStream_t s,
 // x, y: device pointers of (b, S, h, P); dt: (b, S, h); A: (h,); B, C:
 // (b, S, g, N); init_state (or null) and state_out: (b, h, P, N);
 // chunk_states (b, h, n_chunks, P, N) and chunk_decay (b, h, n_chunks)
-// scratch, n_chunks = ceil(S / Q); all float32 and contiguous; h % g == 0;
-// P, N <= 128; 1 <= Q <= 128.  state_threads, scan_threads, pass_threads,
-// p_tile, state_smem and scan_smem are the launch shape from the wrapper's
-// launch_geometry (threads a block of pass 1, 3 and 2, columns of P a
-// block of pass 1 and 3, shared bytes a block of pass 1 and 3), refused
-// unless they are the kernels' own for (P, N, Q).  Returns a cudaError_t
-// (0 on success).
+// scratch, n_chunks = ceil(S / Q); all contiguous; x, B, C and y of the
+// type dtype (0 = float32, 1 = bfloat16, 2 = float16), dt, A, the states
+// and the scratch float32; h % g == 0; P, N <= 128; 1 <= Q <= 128.
+// state_threads, scan_threads, pass_threads, p_tile, state_smem and
+// scan_smem are the launch shape from the wrapper's launch_geometry
+// (threads a block of pass 1, 3 and 2, columns of P a block of pass 1 and
+// 3, shared bytes a block of pass 1 and 3), refused unless they are the
+// kernels' own for (P, N, Q).  Returns a cudaError_t (0 on success).
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
                                const void* B, const void* C,
                                const void* init_state, void* y,
                                void* state_out, void* chunk_states,
                                void* chunk_decay, int b, int S, int H, int G,
-                               int P, int N, int Q, int state_threads,
-                               int scan_threads, int pass_threads,
-                               int p_tile, int state_smem, int scan_smem,
-                               int device, void* stream) {
+                               int P, int N, int Q, int dtype,
+                               int state_threads, int scan_threads,
+                               int pass_threads, int p_tile, int state_smem,
+                               int scan_smem, int device, void* stream) {
   if (b <= 0 || H <= 0) return 0;
   if (S < 0 || G < 1 || H % G != 0 || P < 1 || P > kMaxPN || N < 1
-      || N > kMaxPN || Q < 1 || Q > kMaxQ) {
+      || N > kMaxPN || Q < 1 || Q > kMaxQ || dtype < 0 || dtype > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int smem1_floats = state_smem_floats(Q, N);
@@ -639,43 +718,22 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // 16-byte rows: x's and y's when P % 4 == 0, B's, C's and the states' when
-  // N % 4 == 0, given 16-byte aligned bases (the wrapper's tensors are)
+  // float32 rows 16 bytes at a time: x's and y's when P % 4 == 0, B's and
+  // C's when N % 4 == 0, given 16-byte aligned bases (the wrapper's tensors
+  // are); the states' rows when N % 4 == 0; a half type's B and C rows are
+  // read 4 values at a time whatever their alignment
   const auto al = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   const int vec_p = P % 4 == 0 && al(x) && al(y);
-  const int vec_n = N % 4 == 0 && al(B) && al(C) && al(chunk_states);
+  const int vec_n = N % 4 == 0 && al(chunk_states)
+      && (dtype != 0 || (al(B) && al(C)));
   const size_t smem1 = static_cast<size_t>(smem1_floats) * sizeof(float);
   const size_t smem3 = static_cast<size_t>(smem3_floats) * sizeof(float);
-  if (nc > 0) {
-    err = cudaFuncSetAttribute(ssd_chunk_state_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem1));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(static_cast<unsigned>(BH * nc), (P + kPT - 1) / kPT);
-    ssd_chunk_state_kernel<<<grid, kStateThreads, smem1, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(dt),
-        static_cast<const float*>(A), static_cast<const float*>(B),
-        static_cast<float*>(chunk_states), static_cast<float*>(chunk_decay),
-        S, H, G, P, N, Q, nc, vec_p, vec_n);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const long long elems = BH * P * N;
-  ssd_state_pass_kernel<<<static_cast<unsigned>((elems + kPassThreads - 1) / kPassThreads),
-                          kPassThreads, 0, s>>>(
-      static_cast<float*>(chunk_states), static_cast<const float*>(chunk_decay),
-      static_cast<const float*>(init_state), static_cast<float*>(state_out),
-      BH, P * N, nc);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || nc == 0) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(BH * nc), (P + kPT - 1) / kPT);
-  switch (round_up(Q, kJ) / kJ) {
-    case 1: err = launch_scan<1>(grid, smem3, s, x, dt, A, B, C, chunk_states, y, S, H, G, P, N, Q, nc, vec_p, vec_n); break;
-    case 2: err = launch_scan<2>(grid, smem3, s, x, dt, A, B, C, chunk_states, y, S, H, G, P, N, Q, nc, vec_p, vec_n); break;
-    case 3: err = launch_scan<3>(grid, smem3, s, x, dt, A, B, C, chunk_states, y, S, H, G, P, N, Q, nc, vec_p, vec_n); break;
-    default: err = launch_scan<4>(grid, smem3, s, x, dt, A, B, C, chunk_states, y, S, H, G, P, N, Q, nc, vec_p, vec_n); break;
+  switch (dtype) {
+    case 0: err = launch_all<float>(s, x, dt, A, B, C, init_state, y, state_out, chunk_states, chunk_decay, BH, S, H, G, P, N, Q, nc, smem1, smem3, vec_p, vec_n); break;
+    case 1: err = launch_all<__nv_bfloat16>(s, x, dt, A, B, C, init_state, y, state_out, chunk_states, chunk_decay, BH, S, H, G, P, N, Q, nc, smem1, smem3, vec_p, vec_n); break;
+    default: err = launch_all<__half>(s, x, dt, A, B, C, init_state, y, state_out, chunk_states, chunk_decay, BH, S, H, G, P, N, Q, nc, smem1, smem3, vec_p, vec_n); break;
   }
   return static_cast<int>(err);
 }

@@ -10,6 +10,15 @@ Dispatch: a CPU tensor goes to the plain version (``ref.py``); a CUDA
 tensor goes to the kernel or raises.  ``flash_attention_bhsd.launches``
 counts the kernel's launches.
 
+Gradients: where a gradient is wanted (grad mode on and q, k or v
+requiring one), the call goes through ``FlashAttention``, a
+``torch.autograd.Function`` whose forward is that same dispatch (so a
+forward launches the kernel once, as without a gradient) and whose
+backward is ``ref.flash_attention_vjp``: autograd of the plain function,
+recomputed one query chunk at a time.  The TPU kernel has no backward of
+its own (the reference differentiates the model's plain attention), so
+this backward is plain PyTorch and launches no kernel.
+
 ``check_lengths`` is the rule on the query and key lengths, in plain
 Python so that the CPU tests reach it: any ``Sq`` against ``Sk`` keys
 without a mask (cross-attention: a decoder's queries against an encoder's
@@ -29,12 +38,14 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
+                                                     flash_attention_vjp)
 
 SOURCE = _build.CSRC / "flash_attention.cu"
 LIB_NAME = "flash_attention"
 HEAD_DIMS = (16, 32, 64, 128, 256)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+HALF_TYPES = (torch.bfloat16, torch.float16)
 
 # Launch geometry; flash_attention.cu refuses a launch shape that is not its
 # own.
@@ -66,10 +77,10 @@ def launch_geometry(d: int, dtype: torch.dtype = torch.float32, BH: int = 1,
     a thread (4 at d = 128, 2 at d = 256, so that a thread keeps 64
     outputs), 8 scores of each 64-key tile a thread; shared memory holds Q,
     one K and one V tile (rows padded to d + 4 floats), the probability
-    tile (rows of 72 floats) and, for bfloat16, the staging tiles that the
-    16-byte copies land in: two (K and V in flight together), or one at
-    d = 256, where two would pass ``SMEM_MAX`` and the K and V copies take
-    turns in it."""
+    tile (rows of 72 floats) and, for bfloat16 and float16, the staging
+    tiles that the 16-byte copies land in: two (K and V in flight
+    together), or one at d = 256, where two would pass ``SMEM_MAX`` and
+    the K and V copies take turns in it."""
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if dtype not in _DTYPES:
@@ -78,7 +89,7 @@ def launch_geometry(d: int, dtype: torch.dtype = torch.float32, BH: int = 1,
     q_tile = 16 * rows
     floats = q_tile * (d + 4) + 2 * K_TILE * (d + 4) + q_tile * P_STRIDE
     stage = (staging_tiles(d) * K_TILE * d * 2
-             if dtype == torch.bfloat16 else 0)
+             if dtype in HALF_TYPES else 0)
     return Geometry(THREADS, rows, q_tile, K_TILE, 4 * floats + stage,
                     1 if d >= 128 else 2, (BH, -(-Sq // q_tile)))
 
@@ -102,8 +113,9 @@ def check_lengths(Sq: int, Sk: int, causal: bool, window: int) -> None:
 
 
 def staging_tiles(d: int) -> int:
-    """bfloat16 staging tiles of the kernel at head dim ``d``: one at
-    d = 256 (shared by the K and V copies), else two."""
+    """Staging tiles of the kernel at head dim ``d`` for a half type
+    (bfloat16, float16): one at d = 256 (shared by the K and V copies),
+    else two."""
     return 1 if d == 256 else 2
 
 
@@ -134,9 +146,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"CUDA device, got {q.device}, {k.device}, "
                          f"{v.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("the flash attention kernel takes float32 or "
-                        f"bfloat16 q, k, v of one type, got {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
+        raise TypeError("the flash attention kernel takes float32, "
+                        "bfloat16 or float16 q, k, v of one type, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)} must be (BH, Sq, d) and k, v "
                          f"{tuple(k.shape)}, {tuple(v.shape)} (BKV, Sk, d)")
@@ -179,15 +191,44 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, window: int) -> torch.Tensor:
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    return launch(q, k, v, causal=causal, window=window)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the plain version (CPU), saving only
+    q, k and v; backward: ``flash_attention_vjp``, the plain function's
+    gradient recomputed a query chunk at a time (no kernel)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _forward(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_vjp(q, k, v, do, causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: int = 0) -> torch.Tensor:
     """q: (BH, Sq, d); k/v: (BKV, Sk, d) with BH % BKV == 0 (GQA: query row
     b reads kv row b // (BH / BKV)).  The kernel for CUDA tensors, the
-    plain version for CPU tensors."""
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
-    return launch(q, k, v, causal=causal, window=window)
+    plain version for CPU tensors; through ``FlashAttention`` where a
+    gradient is wanted, so the output is never detached from q, k, v."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window)
 
 
 flash_attention_bhsd.launches = 0

@@ -16,6 +16,22 @@ recurrence); a CUDA tensor goes to the kernel or raises.
 ``ssd_chunk_scan.launches`` counts the wrapper's calls that launch the
 kernel.
 
+Types: the kernel reads x, B and C in their own type, float32, bfloat16
+or float16 (one type for the three), and writes y in it; dt, A and the
+initial state are widened to float32 by the wrapper (exact), and the
+final state is float32, as in the reference, which casts every input to
+float32 and writes y in x's dtype.  Where x, B and C are not of one type
+the wrapper widens the three to float32 and rounds y to x's dtype once
+after the kernel: the same single rounding of the same float32 sums.
+
+Gradients: where a gradient is wanted (grad mode on and an input
+requiring one), the call goes through ``SSDChunkScan``, a
+``torch.autograd.Function`` whose forward is the same dispatch and whose
+backward recomputes the scan through ``models.ssm.ssd_chunked`` (the
+model's own chunked algorithm, at the same chunk) and differentiates it.
+The TPU kernel has no backward of its own, so this backward is plain
+PyTorch and launches no kernel.
+
 ``launch_geometry`` works out the passes' shapes (threads, tiles, shared
 bytes, grids) in plain Python, so the CPU tests hold it to the card's
 limits.  The wrapper passes it to the C entry point, which checks it
@@ -36,6 +52,7 @@ SOURCE = _build.CSRC / "ssd_scan.cu"
 LIB_NAME = "ssd_scan"
 MAX_PN = 128             # head dim P and state dim N
 MAX_CHUNK = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # Launch geometry; ssd_scan.cu refuses a launch shape that is not its own.
 STATE_THREADS = 256      # a block of the chunk state pass (two row halves)
@@ -103,9 +120,9 @@ def build_library() -> dict:
 def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.ssd_scan_launch
     # x, dt, A, B, C, init_state, y, state_out, chunk_states, chunk_decay;
-    # b, S, H, G, P, N, Q; state_threads, scan_threads, pass_threads,
-    # p_tile, state_smem, scan_smem; device; stream
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 14 + [
+    # b, S, H, G, P, N, Q, dtype; state_threads, scan_threads,
+    # pass_threads, p_tile, state_smem, scan_smem; device; stream
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 15 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
@@ -120,9 +137,14 @@ def _check(x, dt, A, B, C, init_state, chunk: int) -> None:
     if not all(t.is_cuda and t.device == x.device for t in ts):
         raise ValueError("the SSD scan kernel takes tensors on one CUDA "
                          f"device, got {[str(t.device) for t in ts]}")
-    if any(t.dtype != torch.float32 for t in ts):
-        raise TypeError("the SSD scan kernel takes float32 only, got "
-                        f"{[str(t.dtype) for t in ts]}")
+    if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise TypeError("the SSD scan kernel takes x, B and C of one type, "
+                        f"one of {tuple(_DTYPES)}, got {x.dtype}, {B.dtype}, "
+                        f"{C.dtype}")
+    rest = [dt, A] + ([] if init_state is None else [init_state])
+    if any(t.dtype != torch.float32 for t in rest):
+        raise TypeError("the SSD scan kernel takes dt, A and init_state in "
+                        f"float32, got {[str(t.dtype) for t in rest]}")
     if x.dim() != 4 or B.dim() != 4 or B.shape != C.shape:
         raise ValueError(f"x {tuple(x.shape)} must be (b, s, h, p) and B, C "
                          f"{tuple(B.shape)}, {tuple(C.shape)} (b, s, g, n)")
@@ -152,9 +174,10 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
            B: torch.Tensor, C: torch.Tensor, *, chunk: int,
            init_state: Optional[torch.Tensor] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the CUDA kernel (model layout, all float32 on one CUDA device).
-    Returns y (b, s, h, p) and the final state (b, h, p, n).  Raises on
-    anything the kernel does not take."""
+    """Run the CUDA kernel (model layout, on one CUDA device: x, B and C of
+    one type among float32, bfloat16 and float16, dt, A and init_state
+    float32).  Returns y (b, s, h, p) in x's type and the final state
+    (b, h, p, n) float32.  Raises on anything the kernel does not take."""
     _check(x, dt, A, B, C, init_state, chunk)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -172,8 +195,9 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         C.data_ptr(), None if init_state is None else init_state.data_ptr(),
         y.data_ptr(), state.data_ptr(), chunk_states.data_ptr() or None,
         chunk_decay.data_ptr() or None, b, s, h, g, p, n, chunk,
-        geo.state_threads, geo.threads, geo.pass_threads, geo.p_tile,
-        geo.state_smem, geo.scan_smem, x.device.index or 0, stream)
+        _DTYPES[x.dtype], geo.state_threads, geo.threads, geo.pass_threads,
+        geo.p_tile, geo.state_smem, geo.scan_smem, x.device.index or 0,
+        stream)
     if rc != 0:
         raise RuntimeError(f"SSD scan kernel launch failed: CUDA error {rc} "
                            f"(x {tuple(x.shape)}, B {tuple(B.shape)}, "
@@ -182,18 +206,76 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, state
 
 
+def _forward(x, dt, A, B, C, init_state, chunk: int):
+    """The kernel for CUDA tensors (dt, A, init_state widened to float32;
+    x, B, C widened too unless they share a type, y then rounded to x's
+    dtype), the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return ssd_scan_ref_model(x, dt, A, B, C, init_state)
+    f32 = torch.float32
+    dt, A = dt.to(f32), A.to(f32)
+    if init_state is not None:
+        init_state = init_state.to(f32)
+    if B.dtype == x.dtype and C.dtype == x.dtype:
+        return launch(x, dt, A, B, C, chunk=chunk, init_state=init_state)
+    y, state = launch(x.to(f32), dt, A, B.to(f32), C.to(f32), chunk=chunk,
+                      init_state=init_state)
+    return y.to(x.dtype), state
+
+
+class SSDChunkScan(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the plain recurrence (CPU), saving the
+    inputs; backward: autograd of ``models.ssm.ssd_chunked`` at the same
+    chunk (one chunk of s when ``chunk`` does not divide s, the same
+    function), recomputed from the saved inputs (no kernel).  The final
+    state's gradient may be None (training never reads it)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, init_state, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B, C, init_state)
+        ctx.chunk = chunk
+        return _forward(x, dt, A, B, C, init_state, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        from repro_torch.models.ssm import ssd_chunked
+        saved = ctx.saved_tensors
+        want = [i for i, t in enumerate(saved)
+                if t is not None and ctx.needs_input_grad[i]]
+        grads = [None] * 7
+        if not want or (dy is None and dstate is None):
+            return tuple(grads)
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_(
+                i in want) for i, t in enumerate(saved)]
+            s = ins[0].shape[1]
+            chunk = ctx.chunk if s % ctx.chunk == 0 else s
+            y, state = ssd_chunked(*ins[:5], chunk, init_state=ins[5])
+            outs, cots = zip(*[(o, g) for o, g in ((y, dy), (state, dstate))
+                               if g is not None])
+            got = torch.autograd.grad(outs, [ins[i] for i in want], cots,
+                                      allow_unused=True)
+        for i, g in zip(want, got):   # C is unused when only dstate is given
+            grads[i] = torch.zeros_like(saved[i]) if g is None else g
+        return tuple(grads)
+
+
 def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128,
                    init_state: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (b, s, h, p); dt: (b, s, h) (softplus'd, > 0); A: (h,) (< 0);
     B, C: (b, s, g, n); init_state: (b, h, p, n) or None.  Returns y
-    (b, s, h, p) and the final state (b, h, p, n) float32: the kernel for
-    CUDA tensors, the plain version (the recurrence, which does not depend
-    on ``chunk``) for CPU tensors."""
-    if x.device.type == "cpu":
-        return ssd_scan_ref_model(x, dt, A, B, C, init_state)
-    return launch(x, dt, A, B, C, chunk=chunk, init_state=init_state)
+    (b, s, h, p) in x's dtype and the final state (b, h, p, n) float32:
+    the kernel for CUDA tensors, the plain version (the recurrence, which
+    does not depend on ``chunk``) for CPU tensors; through
+    ``SSDChunkScan`` where a gradient is wanted, so the outputs are never
+    detached from the inputs."""
+    ts = (x, dt, A, B, C) + (() if init_state is None else (init_state,))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return SSDChunkScan.apply(x, dt, A, B, C, init_state, chunk)
+    return _forward(x, dt, A, B, C, init_state, chunk)
 
 
 ssd_chunk_scan.launches = 0

@@ -14,7 +14,9 @@ and a CPU tensor to the JAX package's own choice of plain attention;
 ``"kernel"`` always goes through the kernel's wrapper (which launches
 the kernel for a CUDA tensor and takes its plain version for a CPU
 tensor, so the CPU tests cover the kernel's route); ``"ref"`` always
-takes the JAX package's choice.
+takes the JAX package's choice.  The kernel's wrapper is differentiable
+(its ``autograd.Function``: the kernel forward, a plain backward), so
+training takes the same routes.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """ArchConfig -> runnable model on one device: parameter shapes and
 initialisation, the weights carried across from the JAX package, the full
-forward, and the serving entry points (cache build, prefill, decode) --
+forward, the training loss (``loss_fn``), and the serving entry points
+(cache build, prefill, decode) --
 the port of ``repro.models.model_zoo`` for every stage kind: ``dense``,
 ``ssm``, ``hybrid``, ``moe``, and the encoder-decoder's ``enc`` and
 ``dec_cross``.
@@ -134,8 +135,11 @@ def _leaves(tree, path=()):
 
 
 def _map(tree, fn, path=()):
+    """``fn(path, leaf)`` over the tree; dicts are built in sorted key
+    order, ``jax.tree``'s, so every walk of the params meets the leaves in
+    the reference's order."""
     if isinstance(tree, dict):
-        return {k: _map(v, fn, path + (k,)) for k, v in tree.items()}
+        return {k: _map(tree[k], fn, path + (k,)) for k in sorted(tree)}
     if isinstance(tree, list):
         return [_map(v, fn, path + (i,)) for i, v in enumerate(tree)]
     return fn(path, tree)
@@ -219,7 +223,7 @@ def n_params(params: Dict[str, Any]) -> int:
 # ---------------------------------------------------------------------------
 
 def _embed_in(params, cfg: ArchConfig, ids, ctx: ModelContext):
-    h = emb.embed_lookup(params["embed"], ids, method="rr")
+    h = emb.embed_lookup(params["embed"], ids, method=ctx.embed_method)
     if cfg.tie_embeddings:
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
     return h
@@ -271,6 +275,23 @@ def forward_logits(params, cfg: ArchConfig, ctx: ModelContext,
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = emb.logits_matmul(h, params["out_embed"])
     return _mask_pad_vocab(logits, cfg.vocab), aux_total
+
+
+def loss_fn(params, cfg: ArchConfig, ctx: ModelContext, batch,
+            aux_weight: float = 0.01):
+    """Next-token cross-entropy (+ the MoE load-balance aux loss): labels
+    are the tokens rolled left by one, the last position masked.
+    ``batch``: {"tokens": (B, S) int, "enc_embeds": (B, enc_seq, D) for an
+    encoder-decoder model}.  Returns (loss, {"nll", "aux"})."""
+    tokens = batch["tokens"]
+    logits, aux = forward_logits(params, cfg, ctx, tokens,
+                                 enc_embeds=batch.get("enc_embeds"))
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = torch.ones(labels.shape, dtype=torch.float32,
+                      device=labels.device)
+    mask[:, -1] = 0.0
+    nll = emb.softmax_xent(logits, labels, mask)
+    return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

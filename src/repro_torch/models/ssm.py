@@ -10,7 +10,9 @@ Kernel dispatch (``kernels``, as in ``layers``): under ``"auto"`` a CUDA
 tensor's prefill scan goes to the SSD chunk scan kernel, which also gives
 the final state; a CPU tensor runs ``ssd_chunked`` with the JAX package's
 chunk rule.  ``"kernel"`` always goes through the kernel's wrapper,
-``"ref"`` always runs ``ssd_chunked``.
+``"ref"`` always runs ``ssd_chunked``.  The wrapper is differentiable (its
+``autograd.Function`` recomputes ``ssd_chunked`` in the backward pass),
+so training takes the same routes.
 """
 from __future__ import annotations
 
@@ -47,7 +49,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     x: (b, s, h, p); dt: (b, s, h) (already softplus'd, > 0);
     A: (h,) (negative); B, C: (b, s, g, n) with h % g == 0.
-    Returns y: (b, s, h, p) and the final state (b, h, p, n), float32.
+    Returns y: (b, s, h, p) and the final state (b, h, p, n), float32
+    (float64 for float64 inputs, for an oracle).
     """
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -55,30 +58,31 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
     nc = s // chunk
     rep = h // g
+    work = torch.float64 if x.dtype == torch.float64 else torch.float32
 
     xc = x.reshape(b, nc, chunk, h, p)
     dtc = dt.reshape(b, nc, chunk, h)
     Bh = torch.repeat_interleave(B.reshape(b, nc, chunk, g, n), rep, dim=3)
     Ch = torch.repeat_interleave(C.reshape(b, nc, chunk, g, n), rep, dim=3)
 
-    dtA = (dtc * A[None, None, None, :]).float()          # (b,c,l,h) <= 0
-    xdt = (xc * dtc[..., None].to(xc.dtype)).float()
+    dtA = (dtc * A[None, None, None, :]).to(work)         # (b,c,l,h) <= 0
+    xdt = (xc * dtc[..., None].to(xc.dtype)).to(work)
 
     # intra-chunk (diagonal) term
     Lmat = torch.exp(segsum(dtA.permute(0, 1, 3, 2)))     # (b,c,h,l,l)
-    scores = torch.einsum("bclhn,bcmhn->bchlm", Ch.float(), Bh.float())
+    scores = torch.einsum("bclhn,bcmhn->bchlm", Ch.to(work), Bh.to(work))
     y_diag = torch.einsum("bchlm,bcmhp->bclhp", scores * Lmat, xdt)
 
     # per-chunk final states
     cum = torch.cumsum(dtA, dim=2)                         # (b,c,l,h)
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)      # (b,c,l,h)
-    states = torch.einsum("bclhn,bclhp->bchpn", Bh.float(),
+    states = torch.einsum("bclhn,bclhp->bchpn", Bh.to(work),
                           decay_to_end[..., None] * xdt)   # (b,c,h,p,n)
 
     # inter-chunk recurrence (a loop over chunks)
     chunk_decay = torch.exp(cum[:, :, -1, :])              # (b,c,h)
-    carry = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
-             if init_state is None else init_state.float())
+    carry = (torch.zeros((b, h, p, n), dtype=work, device=x.device)
+             if init_state is None else init_state.to(work))
     prev = []
     for c in range(nc):
         prev.append(carry)               # the state *entering* chunk c
@@ -87,7 +91,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     # inter-chunk (off-diagonal) output term
     decay_from_start = torch.exp(cum)                      # (b,c,l,h)
-    y_off = torch.einsum("bclhn,bchpn->bclhp", Ch.float(), prev_states) \
+    y_off = torch.einsum("bclhn,bchpn->bclhp", Ch.to(work), prev_states) \
         * decay_from_start[..., None]
 
     y = (y_diag + y_off).reshape(b, s, h, p).to(x.dtype)

@@ -20,6 +20,15 @@ self-attention over the frame embeddings, once a request; each
 self-attention.  The cross K/V are projected from ``enc_out`` again at
 every call, decode steps included, as the reference does.
 
+Training (``apply_stage_seq`` without caches) recomputes each layer in
+the backward pass under ``ModelContext.remat``, as the reference wraps
+each layer in ``jax.checkpoint``: ``"full"`` keeps only each layer's
+input (``torch.utils.checkpoint``, non-reentrant), ``"dots"`` also keeps
+the outputs of the weight products (a selective-checkpoint policy, the
+counterpart of ``dots_with_no_batch_dims_saveable``), ``"none"`` keeps
+every activation.  The recomputation records no MoE routing a second
+time (``moe.record`` is off while it runs).
+
 A ``moe`` stage runs on one device (``moe_ffn_ref``) or, with
 ``ModelContext.moe``, expert-parallel over ``torch.distributed``: every
 rank runs the whole model on all the tokens, and each MoE layer hands
@@ -29,6 +38,7 @@ runs ``moe_ffn_ep`` and gathers the slices back, as the reference's
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, Optional
 
@@ -40,10 +50,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import (KERNEL_MODES, NEG_INF, AttnSpec,
                                        apply_rope, attn_block, rms_norm,
                                        swiglu)
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.moe import MoEContext, moe_ffn_ep, moe_ffn_ref
 from repro_torch.models.ssm import mamba_block
 
 SUPPORTED_KINDS = ("dense", "ssm", "hybrid", "moe", "enc", "dec_cross")
+REMAT_MODES = ("full", "dots", "none")
+EMBED_METHODS = ("gather", "onehot", "rr")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,16 +114,27 @@ def check_supported(cfg: ArchConfig) -> None:
 @dataclasses.dataclass(frozen=True)
 class ModelContext:
     """Implementation knobs: the plain path's query-chunking threshold (the
-    reference's), the kernel mode, and the MoE layers' expert parallelism
-    (``moe``; None: one device)."""
+    reference's), the kernel mode, the MoE layers' expert parallelism
+    (``moe``; None: one device), the token lookup (``embed_method``, the
+    reference's ``gather | onehot | rr``) and the per-layer recomputation
+    of training (``remat``, the reference's ``full | dots | none``;
+    serving builds caches and never recomputes)."""
     q_chunk: int = 1024
     kernels: str = "auto"          # "auto" | "kernel" | "ref" (layers.py)
     moe: Optional[MoEContext] = None
+    embed_method: str = "rr"       # gather | onehot | rr (paper technique)
+    remat: str = "full"            # full | dots | none
 
     def __post_init__(self):
-        if self.kernels not in KERNEL_MODES:
-            raise ValueError(f"unknown kernel mode {self.kernels!r}; use "
-                             f"one of {KERNEL_MODES}")
+        for name, value, allowed in (("kernel mode", self.kernels,
+                                      KERNEL_MODES),
+                                     ("embed method", self.embed_method,
+                                      EMBED_METHODS),
+                                     ("remat mode", self.remat,
+                                      REMAT_MODES)):
+            if value not in allowed:
+                raise ValueError(f"unknown {name} {value!r}; use one of "
+                                 f"{allowed}")
 
     @property
     def n_devices(self) -> int:
@@ -191,19 +215,63 @@ def _stack(per_layer: List[dict]) -> dict:
 # full-sequence stage application (forward / prefill)
 # ---------------------------------------------------------------------------
 
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of products with no batch
+    dimension (``mm``, ``addmm``, and ``bmm`` over a batch of one, which
+    is what the weight einsums lower to), recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _recomputing(inner):
+    """The recomputation's context: ``inner`` (the selective policy's, or
+    none) with ``moe.record`` off, so no layer's routing is recorded
+    twice."""
+    saved = moe_mod.record
+    moe_mod.record = None
+    try:
+        with inner:
+            yield
+    finally:
+        moe_mod.record = saved
+
+
+def _remat(layer, remat: str, *args):
+    """``layer(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    the layer's activations are recomputed in the backward pass ("full"),
+    all but the weight products' outputs ("dots").  The layers draw no
+    random numbers, so the RNG state is not stashed."""
+    from torch.utils import checkpoint as ckpt
+
+    def contexts():
+        if remat == "dots":
+            fwd, rec = ckpt.create_selective_checkpoint_contexts(
+                _save_weight_products)
+        else:
+            fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+        return fwd, _recomputing(rec)
+    return ckpt.checkpoint(layer, *args, use_reentrant=False,
+                           preserve_rng_state=False, context_fn=contexts)
+
+
 def apply_stage_seq(h, sp, stage: StageSpec, cfg: ArchConfig,
                     ctx: ModelContext, positions, enc_out=None,
                     want_cache=False, cache_len=0):
     """Run one stacked stage over the full sequence (``enc_out``: the
-    encoder's output, for a ``dec_cross`` stage).
+    encoder's output, for a ``dec_cross`` stage); without caches each
+    layer runs under ``ctx.remat``, as the reference's.
     Returns (h, stacked layer caches: dict, aux loss: scalar)."""
     check_kind(stage)
     spec = _attn_spec(cfg, stage.window, ctx, causal=stage.kind != "enc")
-    per_layer = []
-    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(stage.n_layers):
-        w = _layer(sp["layers"], i)
-        cache = {}
+
+    def layer(h, w):
+        """One layer: (h, aux loss or None, cache)."""
+        cache, aux = {}, None
         xn = rms_norm(h, w["norm1"], cfg.norm_eps)
         if stage.kind == "ssm":
             y, (cst, sst) = mamba_block(xn, w["ssm"], cfg.ssm, cfg.d_model,
@@ -211,30 +279,42 @@ def apply_stage_seq(h, sp, stage: StageSpec, cfg: ArchConfig,
             h = h + y
             if want_cache:
                 cache = {"conv": cst, "state": sst}
+            return h, aux, cache
+        a = attn_block(xn, w["attn"], spec, positions, return_kv=want_cache)
+        if want_cache:
+            a, (kf, vf) = a
+        if stage.kind == "hybrid":
+            m, (cst, sst) = mamba_block(xn, w["ssm"], cfg.ssm, cfg.d_model,
+                                        kernels=ctx.kernels)
+            h = h + a + m
         else:
-            a = attn_block(xn, w["attn"], spec, positions,
-                           return_kv=want_cache)
-            if want_cache:
-                a, (kf, vf) = a
+            h = h + a
+        if stage.kind == "dec_cross":
+            h = h + _cross_attend(h, w, spec, cfg, positions, enc_out)
+        if stage.kind == "moe":
+            h, aux = _moe_update(h, w, cfg, ctx)
+        else:
+            h = h + swiglu(rms_norm(h, w["norm2"], cfg.norm_eps), w["mlp"])
+        if want_cache:
+            kc, vc = _tail_cache(kf, vf, cache_len)
+            cache = {"k": kc, "v": vc}
             if stage.kind == "hybrid":
-                m, (cst, sst) = mamba_block(xn, w["ssm"], cfg.ssm,
-                                            cfg.d_model, kernels=ctx.kernels)
-                h = h + a + m
-            else:
-                h = h + a
-            if stage.kind == "dec_cross":
-                h = h + _cross_attend(h, w, spec, cfg, positions, enc_out)
-            if stage.kind == "moe":
-                h, aux = _moe_update(h, w, cfg, ctx)
-                aux_total = aux_total + aux
-            else:
-                h = h + swiglu(rms_norm(h, w["norm2"], cfg.norm_eps),
-                               w["mlp"])
-            if want_cache:
-                kc, vc = _tail_cache(kf, vf, cache_len)
-                cache = {"k": kc, "v": vc}
-                if stage.kind == "hybrid":
-                    cache.update(conv=cst, state=sst)
+                cache.update(conv=cst, state=sst)
+        return h, aux, cache
+
+    # nothing to recompute without a backward pass (serving, no_grad)
+    remat = (ctx.remat if not want_cache and torch.is_grad_enabled()
+             and ctx.remat != "none" else None)
+    per_layer = []
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(stage.n_layers):
+        w = _layer(sp["layers"], i)
+        if remat is None:
+            h, aux, cache = layer(h, w)
+        else:
+            h, aux, cache = _remat(layer, remat, h, w)
+        if aux is not None:
+            aux_total = aux_total + aux
         per_layer.append(cache)
     caches = _stack(per_layer) if want_cache else {}
     return h, caches, aux_total

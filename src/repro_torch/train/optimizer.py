@@ -1,16 +1,21 @@
 """AdamW with global-norm clipping and a cosine learning rate (the
-counterpart of ``repro.train.optimizer``), as plain functions on dicts of
-tensors.  Parameters are updated through a float32 master copy carried in
-the optimizer state, as in the reference."""
+counterpart of ``repro.train.optimizer``), as plain functions on trees of
+tensors: dicts, lists and tuples nested to any depth (the GCN's flat dict,
+the LM's params with their stacked per-stage leaves).  Leaves are walked
+in each dict's own key order and each sequence's order; the LM trees that
+``models.model_zoo`` builds and ``train.checkpoint`` restores keep their
+dict keys sorted, ``jax.tree``'s order.  Parameters are updated through a
+float32 master copy carried in the optimizer state, as in the
+reference."""
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
-Params = Dict[str, torch.Tensor]
+Params = Dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,33 +42,58 @@ def lr_at(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cos)
 
 
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and of the trees of the same
+    structure in ``rest``, leaf by leaf; the result has ``tree``'s
+    structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The leaves in the walk's order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
 def _decay_mask(p: torch.Tensor) -> bool:
     return p.dim() >= 2  # no weight decay on biases / per-head vectors
 
 
 def init_opt_state(params: Params) -> dict:
-    """{"master": float32 copies, "m": zeros, "v": zeros, "step": 0}."""
-    device = next(iter(params.values())).device
+    """{"master": float32 copies, "m": zeros, "v": zeros, "step": 0}, each
+    a tree of ``params``' structure."""
+    device = tree_leaves(params)[0].device
+
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     return {
-        "master": {k: p.detach().to(torch.float32).clone()
-                   for k, p in params.items()},
-        "m": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-              for k, p in params.items()},
-        "v": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-              for k, p in params.items()},
+        "master": tree_map(lambda p: p.detach().to(torch.float32).clone(),
+                           params),
+        "m": tree_map(zeros, params),
+        "v": tree_map(zeros, params),
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
 
 
 def global_norm(grads: Params) -> torch.Tensor:
+    """sqrt of the sum of every leaf's sum of squares (float32), summed in
+    the walk's order."""
     return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in grads.values()))
+                          for g in tree_leaves(grads)))
 
 
 @torch.no_grad()
 def adamw_update(params: Params, grads: Params, opt: dict,
                  cfg: OptConfig) -> Tuple[Params, dict, dict]:
-    """Returns (new_params, new_opt_state, metrics)."""
+    """Returns (new_params, new_opt_state, metrics); the new trees have
+    ``params``' structure."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
@@ -75,15 +105,20 @@ def adamw_update(params: Params, grads: Params, opt: dict,
                                        device=stepf.device), stepf)
     bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                        device=stepf.device), stepf)
-    new_params, master, m, v = {}, {}, {}, {}
-    for k, p in params.items():
-        g = grads[k].to(torch.float32) * scale
-        m[k] = b1 * opt["m"][k] + (1 - b1) * g
-        v[k] = b2 * opt["v"][k] + (1 - b2) * torch.square(g)
-        update = (m[k] / bc1) / (torch.sqrt(v[k] / bc2) + cfg.eps)
+
+    def upd(p, g, master, m, v):
+        g = g.to(torch.float32) * scale
+        m2 = b1 * m + (1 - b1) * g
+        v2 = b2 * v + (1 - b2) * torch.square(g)
+        update = (m2 / bc1) / (torch.sqrt(v2 / bc2) + cfg.eps)
         if _decay_mask(p):
-            update = update + cfg.weight_decay * opt["master"][k]
-        master[k] = opt["master"][k] - lr * update
-        new_params[k] = master[k].to(p.dtype)
-    new_opt = {"master": master, "m": m, "v": v, "step": step}
-    return new_params, new_opt, {"grad_norm": gnorm, "lr": lr}
+            update = update + cfg.weight_decay * master
+        new_master = master - lr * update
+        return new_master.to(p.dtype), new_master, m2, v2
+
+    out = tree_map(upd, params, grads, opt["master"], opt["m"], opt["v"])
+
+    def part(i):
+        return tree_map(lambda p, o: o[i], params, out)
+    new_opt = {"master": part(1), "m": part(2), "v": part(3), "step": step}
+    return part(0), new_opt, {"grad_norm": gnorm, "lr": lr}

@@ -8,8 +8,11 @@ mesh, the pipeline and a split partition), the resident graph service
 over such a group against the same service on the CPU, a hybrid model's,
 a head-dim-256 Gemma-3 model's and a small Whisper's prefill and decode
 with the kernels against the plain path).  The segment_combine kernels
-also on float16 and bfloat16 payloads, and the flash kernel on unmasked
-rectangular shapes (cross-attention).
+also on float16 and bfloat16 payloads, the flash kernel on unmasked
+rectangular shapes (cross-attention) and on float16, the SSD scan on
+float16 and bfloat16 inputs, both kernels' ``autograd.Function``s (the
+kernel forward, the plain backward) against float64 autograd, and a small
+LM's train step through them.
 
 Every test here carries the ``cuda`` marker and skips without a GPU.  The
 file imports no JAX, so it runs on a machine with a card and PyTorch only:
@@ -1020,7 +1023,7 @@ def test_lm_entry_points_refuse_a_bad_geometry(cuda):
     dev = cuda.index or 0
     stream = torch.cuda.current_stream().cuda_stream
     for d in fk.HEAD_DIMS:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             q = torch.randn(2, 64, d, device=cuda).to(dtype)
             out = torch.empty_like(q)
             geo = fk.launch_geometry(d, dtype, 2, 64)
@@ -1047,7 +1050,7 @@ def test_lm_entry_points_refuse_a_bad_geometry(cuda):
         cd = torch.empty(b, h, nc, device=cuda)
         args = [x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                 B.data_ptr(), None, y.data_ptr(), st.data_ptr(),
-                cs.data_ptr(), cd.data_ptr(), b, S, h, g, P, N, Q]
+                cs.data_ptr(), cd.data_ptr(), b, S, h, g, P, N, Q, 0]
         geo = sk.launch_geometry(P, N, Q)
         good = [geo.state_threads, geo.threads, geo.pass_threads, geo.p_tile,
                 geo.state_smem, geo.scan_smem]
@@ -1067,7 +1070,7 @@ def test_lm_kernels_reject_what_they_do_not_take(cuda):
     q = torch.randn(4, 64, 64, device=cuda)
     k = torch.randn(2, 64, 64, device=cuda)
     with pytest.raises(TypeError):
-        fk.launch(q.half(), k.half(), k.half())
+        fk.launch(q.half(), k, k)           # one type for q, k and v
     with pytest.raises(TypeError):
         fk.launch(q.double(), k.double(), k.double())
     with pytest.raises(ValueError, match="head dim"):
@@ -1085,6 +1088,10 @@ def test_lm_kernels_reject_what_they_do_not_take(cuda):
     B = torch.randn(1, 16, 1, 16, device=cuda)
     with pytest.raises(TypeError):
         sk.launch(x.double(), dt, A, B, B, chunk=128)
+    with pytest.raises(TypeError):       # x, B, C of one type at the launch
+        sk.launch(x.half(), dt, A, B, B, chunk=128)
+    with pytest.raises(TypeError):       # dt, A float32 at the launch
+        sk.launch(x, dt.half(), A, B, B, chunk=128)
     with pytest.raises(ValueError, match="CUDA"):
         sk.launch(x.cpu(), dt, A, B, B, chunk=128)
     with pytest.raises(ValueError, match="state dim"):
@@ -1205,3 +1212,177 @@ def test_hybrid_model_kernels_against_plain(cuda):
         out[mode] = torch.stack(steps)[..., :cfg.vocab]
     scale = float(out["ref"].abs().max())
     assert float((out["auto"] - out["ref"]).abs().max()) <= 1e-4 * scale
+
+
+# ---------------------------------------------------------------------------
+# half types, the autograd Functions, a train step
+# ---------------------------------------------------------------------------
+
+def _half_bound(want, dtype, vmax):
+    """One rounding of the half output (an ulp at each value) on top of
+    float32's 1e-5 of max|v|."""
+    mant = {torch.float16: 10, torch.bfloat16: 7}[dtype]
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(
+        min=torch.finfo(dtype).tiny))) - mant)
+    return ulp + 1e-5 * vmax
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (100, 100, True, 0), (257, 257, True, 16), (64, 64, False, 0),
+    (300, 100, False, 0), (1, 300, False, 0)])
+def test_flash_kernel_float16(cuda, d, Sq, Sk, causal, window):
+    """float16 at every head dim (the staging of bfloat16, one tile at
+    d = 256), causal, windowed, unmasked and unmasked with Sq > Sk,
+    against the float64 plain version on the same (float16) inputs."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    gen = torch.Generator(cuda).manual_seed(d + Sq)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).half()
+               for shape in [(4, Sq, d), (2, Sk, d), (2, Sk, d)])
+    before = fk.flash_attention_bhsd.launches
+    got = fk.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fk.flash_attention_bhsd.launches == before + 1
+    assert got.dtype == torch.float16
+    want = flash_attention_ref(q.double(), k.double(), v.double(),
+                               causal=causal, window=window)
+    bound = _half_bound(want, torch.float16, float(v.abs().max()))
+    assert ((got.double() - want).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("xt,bt", [(torch.float16, torch.float16),
+                                   (torch.bfloat16, torch.bfloat16),
+                                   (torch.bfloat16, torch.float32),
+                                   (torch.float16, torch.bfloat16)])
+@pytest.mark.parametrize("S,P,N,g", [(256, 64, 16, 1), (200, 17, 3, 2)])
+def test_ssd_kernel_half_inputs(cuda, xt, bt, S, P, N, g):
+    """x, B, C in half types (and mixed: the wrapper widens a mix to
+    float32 and rounds y once), dt and A in float32: y in x's type within
+    one of its ulps plus 1e-4 of max|y| of the float64 recurrence, the
+    final state (float32) within 1e-4 of its max."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref_model
+    gen = torch.Generator(cuda).manual_seed(S + P)
+    b, h = 2, 4
+    x = torch.randn(b, S, h, P, generator=gen, device=cuda).to(xt)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, S, h, generator=gen, device=cuda))
+    A = -torch.exp(0.5 * torch.randn(h, generator=gen, device=cuda))
+    B, C = (torch.randn(b, S, g, N, generator=gen, device=cuda).to(bt)
+            for _ in range(2))
+    before = sk.ssd_chunk_scan.launches
+    y, st = sk.ssd_chunk_scan(x, dt, A, B, C, chunk=128)
+    torch.cuda.synchronize()
+    assert sk.ssd_chunk_scan.launches == before + 1
+    assert y.dtype == xt and st.dtype == torch.float32
+    y64, st64 = ssd_scan_ref_model(x.double(), dt.double(), A.double(),
+                                   B.double(), C.double())
+    mant = {torch.float16: 10, torch.bfloat16: 7}[xt]
+    ulp = torch.exp2(torch.floor(torch.log2(y64.abs().clamp(
+        min=torch.finfo(xt).tiny))) - mant)
+    assert ((y.double() - y64).abs() <= ulp + 1e-4 * y64.abs().max()).all()
+    assert float((st.double() - st64).abs().max()) <= \
+        1e-4 * float(st64.abs().max())
+
+
+@pytest.mark.parametrize("causal,window,Sq,Sk", [
+    (True, 0, 300, 300), (True, 64, 300, 300), (False, 0, 200, 300)])
+def test_flash_function_grads_on_the_card(cuda, causal, window, Sq, Sk):
+    """The Function's o, dq, dk, dv (kernel forward, chunked plain
+    backward) against float64 autograd of the plain version, within 4x
+    the float32 plain path's own error (and 1e-6 of the max); one kernel
+    launch a forward, none in the backward; the output carries the
+    Function's grad_fn."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    gen = torch.Generator(cuda).manual_seed(Sq + window)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               for shape in [(8, Sq, 64), (2, Sk, 64), (2, Sk, 64)])
+    do = torch.randn(8, Sq, 64, generator=gen, device=cuda)
+
+    def run(fn, dtype):
+        ts = [t.to(dtype).requires_grad_(True) for t in (q, k, v)]
+        o = fn(*ts, causal=causal, window=window)
+        return [o] + list(torch.autograd.grad(o, ts, do.to(dtype)))
+    before = fk.flash_attention_bhsd.launches
+    got = run(fk.flash_attention_bhsd, torch.float32)
+    torch.cuda.synchronize()
+    assert fk.flash_attention_bhsd.launches == before + 1
+    want = run(flash_attention_ref, torch.float64)
+    plain = run(flash_attention_ref, torch.float32)
+    for g, w, p in zip(got, want, plain):
+        own = float((p.double() - w).abs().max())
+        err = float((g.double() - w).abs().max())
+        assert err <= 4.0 * own + 1e-6 * float(w.abs().max()), (err, own)
+    o = fk.flash_attention_bhsd(q.requires_grad_(True), k, v, causal=causal,
+                                window=window)
+    assert type(o.grad_fn).__name__ == "FlashAttentionBackward"
+
+
+def test_ssd_function_grads_on_the_card(cuda):
+    """The SSD Function's dx, ddt, dA, dB, dC (kernel forward, backward
+    through ``ssd_chunked``) against float64 autograd of ``ssd_chunked``,
+    within 4x the float32 path's own error; one call a forward."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.models.ssm import ssd_chunked
+    gen = torch.Generator(cuda).manual_seed(0)
+    b, S, h, P, g, N = 2, 256, 4, 64, 1, 16
+    x = torch.randn(b, S, h, P, generator=gen, device=cuda)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, S, h, generator=gen, device=cuda))
+    A = -torch.exp(0.5 * torch.randn(h, generator=gen, device=cuda))
+    B, C = (torch.randn(b, S, g, N, generator=gen, device=cuda)
+            for _ in range(2))
+    dy = torch.randn(b, S, h, P, generator=gen, device=cuda)
+
+    def run(fn, dtype):
+        ts = [t.to(dtype).requires_grad_(True) for t in (x, dt, A, B, C)]
+        y = fn(*ts)
+        return [y] + list(torch.autograd.grad(y, ts, dy.to(dtype)))
+    before = sk.ssd_chunk_scan.launches
+    got = run(lambda *a: sk.ssd_chunk_scan(*a, chunk=128)[0], torch.float32)
+    torch.cuda.synchronize()
+    assert sk.ssd_chunk_scan.launches == before + 1
+    want = run(lambda *a: ssd_chunked(*a, 128)[0], torch.float64)
+    plain = run(lambda *a: ssd_chunked(*a, 128)[0], torch.float32)
+    for gg, w, p in zip(got, want, plain):
+        own = float((p.double() - w).abs().max())
+        err = float((gg.double() - w).abs().max())
+        assert err <= 4.0 * own + 1e-6 * float(w.abs().max()), (err, own)
+
+
+def test_train_step_through_the_kernels(cuda):
+    """A reduced TinyLlama and Hymba train step on the card: the loss and
+    every leaf's gradient with the kernels (under "full" recomputation)
+    against the plain path ("ref"), within 1e-4 of each leaf's max; the
+    flash launches a step (2 a layer: the forward and the recomputed
+    forward), and no leaf left without a gradient."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.transformer import ModelContext
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    from repro_torch.train.train_step import init_train_state
+    for arch in ("tinyllama_1_1b", "hymba_1_5b"):
+        cfg = dataclasses.replace(get_config(arch).reduced(), vocab=250)
+        params = init_train_state(cfg, torch.Generator(cuda).manual_seed(0),
+                                  cuda)["params"]
+        toks = torch.from_numpy(np.random.RandomState(0).randint(
+            0, 250, (2, 64)).astype(np.int32)).to(cuda)
+        out = {}
+        for mode in ("auto", "ref"):
+            p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+            before = fk.flash_attention_bhsd.launches
+            loss, _ = zoo.loss_fn(p, cfg, ModelContext(
+                q_chunk=64, kernels=mode, remat="full"), {"tokens": toks})
+            grads = torch.autograd.grad(loss, tree_leaves(p))
+            torch.cuda.synchronize()
+            out[mode] = (loss, grads, fk.flash_attention_bhsd.launches - before)
+        assert out["auto"][2] == 2 * cfg.n_layers and out["ref"][2] == 0
+        assert abs(float(out["auto"][0] - out["ref"][0])) <= \
+            1e-5 * float(out["ref"][0])
+        for a, b in zip(out["auto"][1], out["ref"][1]):
+            assert float(b.abs().max()) > 0
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

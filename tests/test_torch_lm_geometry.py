@@ -2,8 +2,8 @@
 card's limits.
 
 ``launch_geometry`` of each wrapper is plain Python, so it is checked here
-on the CPU: flash for every head dim in {16, 32, 64, 128, 256} and both
-types,
+on the CPU: flash for every head dim in {16, 32, 64, 128, 256} and its
+three types (float32, bfloat16, float16: the half types stage the same),
 the SSD passes for every P and N in [1, 128] and every chunk in [1, 128].
 Shared memory stays within the 232,448 bytes a block may opt in to, a
 block within 1024 threads, the grids within their axes' limits, and the
@@ -20,7 +20,7 @@ from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
 
 SM_SHARED = 233472       # shared bytes of an SM (228 KB) ...
 BLOCK_RESERVED = 1024    # ... of which the runtime keeps 1 KB a block
-DTYPES = [torch.float32, torch.bfloat16]
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
 def _fits(smem: int, blocks: int) -> bool:
@@ -74,9 +74,25 @@ def test_flash_geometry_refuses_what_the_kernel_does_not_take():
     for d in (0, 8, 48, 96, 512):
         with pytest.raises(ValueError, match="head dim"):
             fk.launch_geometry(d)
-    for dtype in (torch.float16, torch.float64):
+    for dtype in (torch.float64, torch.int32):
         with pytest.raises(TypeError):
             fk.launch_geometry(64, dtype)
+
+
+@pytest.mark.parametrize("d", fk.HEAD_DIMS)
+def test_flash_float16_stages_as_bfloat16(d):
+    """float16 takes bfloat16's staging: the same 2-byte tiles, two of them
+    (K and V in flight together), one at d = 256, where two would pass
+    ``SMEM_MAX``; so the same shared bytes, tiles and grid."""
+    h, bf = (fk.launch_geometry(d, dt, 100, 2048)
+             for dt in (torch.float16, torch.bfloat16))
+    assert h == bf
+    f32 = fk.launch_geometry(d, torch.float32, 100, 2048)
+    stage = fk.staging_tiles(d) * fk.K_TILE * d * 2
+    assert fk.staging_tiles(d) == (1 if d == 256 else 2)
+    assert h.smem_bytes == f32.smem_bytes + stage <= fk.SMEM_MAX
+    if d == 256:
+        assert f32.smem_bytes + 2 * fk.K_TILE * d * 2 > fk.SMEM_MAX
 
 
 @pytest.mark.parametrize("Sq,Sk", [(1, 1500), (384, 1500), (1600, 1500),
@@ -118,13 +134,14 @@ def test_flash_whisper_geometry():
 def test_flash_geometry_at_head_dim_256(dtype):
     """Gemma-3-4B's prefill: 32 (batch, head) rows of 2048 queries at
     d=256: 64 query tiles of 32 (2 rows a thread), one block an SM.  The
-    float tiles take 43,904 floats; bfloat16 adds ONE staging tile of 64
-    keys, since a second would pass the 232,448 bytes a block may have."""
+    float tiles take 43,904 floats; bfloat16 and float16 add ONE staging
+    tile of 64 keys, since a second would pass the 232,448 bytes a block
+    may have."""
     geo = fk.launch_geometry(256, dtype, 32, 2048)
     assert geo.grid == (32, 64) and geo.q_tile == 32 and geo.rows == 2
     floats = 32 * 260 + 2 * 64 * 260 + 32 * 72
     assert floats == 43904
-    stage = 64 * 256 * 2 if dtype == torch.bfloat16 else 0
+    stage = 64 * 256 * 2 if dtype != torch.float32 else 0
     assert geo.smem_bytes == 4 * floats + stage
     assert geo.smem_bytes == (208384 if stage else 175616) <= fk.SMEM_MAX
     assert 4 * floats + 2 * stage > fk.SMEM_MAX or not stage
