@@ -278,6 +278,28 @@ Phases; any failure exits non-zero and prints no result:
    share and top device ops, and the plain attention backward's share
    (its kernels' device time on layer 0's inputs under torch.profiler,
    times 22).
+17. (inside phase 16, after gate (c)) the training mesh: phase 16's
+   state and batches through ``make_train_step`` under
+   ``ModelContext(mesh=make_mesh((1, 1), ("data", "model")))`` over an
+   in-process NCCL group of world size 1 (a ``HashStore``).  Gate (h):
+   the mesh step from that state against the step without a mesh (each as
+   its ``grads`` then its ``update``): the loss bitwise, every gradient
+   leaf bitwise but the embedding's (gate (c)'s atomics bound), grad_norm
+   within ``MESH_GNORM_RTOL``, the new state bitwise where grad_norm is
+   equal (else within ``MESH_STATE_RTOL``), the embedding's params and
+   master within AdamW's sign-flip bound.  Then one warm-up step and
+   ``MESH_STEPS`` steps between CUDA events; gate (i): 44 flash launches
+   a step; gate (j): U of each worker's sharded lookup (its distinct ids)
+   equals ``token_stats`` of its slice.  ``[mesh-train]`` lines: each
+   worker's T, U, U/T and the response bytes (U x D x 4) beside the
+   all-gathered table's (V x D x 4); ms a step beside phase 16's, flash
+   launches, peak memory.  And, in the launchers' thread after phase 14,
+   the (2, 2) mesh on 4 spawned ranks (gloo on cuda:0 on a one-card
+   machine, NCCL with a card a rank on four): TinyLlama at full width
+   with its depth cut to 2, one step from one state on the global batch;
+   rank 0 holds every rank's loss equal, and the gathered loss, grad_norm
+   and every gathered leaf to the one-device step (``MESH_RANK_SHAPE``'s
+   comment has the tolerances); ``[mesh-ranks]`` lines.
 Phases 10, 11 and 14 run in processes of their own beside phase 3's
 host set-up (graph build and partition), started once the kernels are
 built and waited for before phase 3's first timed run; phase 13 runs
@@ -351,19 +373,26 @@ process of their own (no GIL shared with the main thread) from phase
    lines: occupied rows against E*cap with and without mirroring, the
    bytes an all_to_all moves (static: the same mirrored), and
    ``moe_mirror_threshold`` at these shapes with the card's float32 ratio
-   beside the hottest expert's load.
+   beside the hottest expert's load.  Then one backward on each rank
+   (``moe_rank_backward``): ``EP_GRAD_TOKENS`` tokens a rank, unmirrored,
+   at the largest expert load of any rank as the capacity (no drops); x's
+   gradient, each of the rank's expert rows' and the router's (summed over
+   the ranks, without the aux term) against ``moe_ffn_ref``'s autograd on
+   one device within ``EP_GRAD_RTOL``, the other ranks' expert rows zero.
 
 One JSON line ``{"kernels": [...]}`` with all four kernels (the flash
 and SSD entries carry ``half_types``, phase 7's step-0 timings on
 float32, bfloat16 and float16 inputs beside their bounds, and the flash
 entry phase 16's summary and its timed steps' launches under
-``launches_by_model["tinyllama_1_1b train"]``; the scalar
+``launches_by_model["tinyllama_1_1b train"]``, phase 17's under
+``"tinyllama_1_1b mesh train"``; the scalar
 kernel's entry carries ``sharded``: phase 3b's launches, each mode's, the
 replays' times and the static balance figures; the vector kernel's the
 sharded GCN's launches, ms an epoch and peak memory by mode, and phase
 3c's GCN runs; the flash entry's ``launches`` counts the models'
 counted runs (the prefills of Hymba, Gemma and OLMoE; Whisper's prefill
-and decode steps; TinyLlama's timed training steps),
+and decode steps; TinyLlama's timed training steps, with and without the
+mesh),
 ``launches_by_model`` each, and its sums
 the Hymba prefill's timed launches, ``timed`` says so; the scalar
 entry's ``launches`` also counts rank 0's launches in phases 10 and 11
@@ -555,6 +584,49 @@ LAYER_GRAD_RTOL = 1e-4
 # (g): the launcher at full width with the depth cut to 2 layers (a
 # checkpoint of 3.5 GB), 4 steps straight, cut after 2 and resumed
 TRAIN_LAUNCHER_LAYERS, TRAIN_LAUNCHER_STEPS, TRAIN_CUT = 2, 4, 2
+# Phase 17: the training mesh.  TinyLlama-1.1B on the (1, 1) mesh over an
+# in-process NCCL group of world size 1: one warm-up step, MESH_STEPS
+# timed.  Gate (h), the mesh step against the one-device step from one
+# state: the loss bitwise (the same forward: the collectives of groups of
+# one rank are skipped), every gradient leaf bitwise but the embedding's
+# (gate (c)'s atomics bound); grad_norm within MESH_GNORM_RTOL (the
+# embedding's sum of squares takes the atomics' order: 2 (n-1) 2^-24 of
+# a row's squares at most, far inside 1e-6), and then the clip scale too:
+# each state leaf equal bitwise when grad_norm is, else within
+# MESH_STATE_RTOL of its max (a scale off by rtol r moves an AdamW
+# update by about r; m and v by r and 2r), the embedding's params and
+# master within AdamW's sign-flip bound (4 lr + 1e-6 of the max: an entry
+# whose gradient is float32 noise moves by +-lr either way)
+MESH_STEPS = 2
+MESH_GNORM_RTOL = 1e-6
+MESH_STATE_RTOL = 1e-5
+# the (2, 2) mesh on the card: MESH_RANKS spawned ranks, TinyLlama at full
+# width with the depth cut to MESH_RANK_LAYERS, one step from one state on
+# the global batch of TRAIN_BATCH x TRAIN_SEQ, gathered and held to the
+# one-device step on rank 0 at tests/test_torch_train_step.py's
+# tolerances: loss rtol 1e-5 and grad_norm 1e-3 (float32 sums over the
+# data slices, the vocab shards and the token slices in another order), m
+# and v within the larger of 3e-3 and 6e-3 of their max and PLAIN_FACTOR
+# times the distance between two one-device orders of the same step (the
+# whole batch, and 2 microbatches: the same function, its sums split as
+# the data slices split them; at full width a leaf such as layer 0's wq
+# has gradients that cancel to float32 noise, where 3e-3 of the max alone
+# is below the noise of any second order), params and master within the
+# sign-flip bound and their change within 0.1 of the one-device change
+MESH_RANK_SHAPE = (2, 2)
+MESH_RANKS = 4
+MESH_RANK_LAYERS = 2
+MESH_JOIN_S = 600
+MESH_LOSS_RTOL, MESH_RANK_GNORM_RTOL = 1e-5, 1e-3
+MESH_M_RTOL, MESH_V_RTOL = 3e-3, 6e-3
+MESH_UPDATE_MAX, MESH_CHANGE_RTOL = 2.0, 0.1
+# phase 14's backward: EP_GRAD_TOKENS tokens a rank at a capacity with no
+# drops; x's and each expert leaf's gradient, and the router's without the
+# aux term, against moe_ffn_ref's autograd on one device within
+# EP_GRAD_RTOL of the leaf's max (each side sums the expert products in
+# cuBLAS's order for its own batch shapes; MOE_RTOL)
+EP_GRAD_TOKENS = 1024
+EP_GRAD_RTOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -4451,17 +4523,79 @@ def moe_rank(rank, D, backend, init_method, seed, out_path):
                 finally:
                     moe.record = None
                 want = moe_rank_reference(torch, moe, xs, w, mcfg)
-                res = {"err": rel_max(torch, y, want), "aux": float(aux),
-                       "wall_s": wall, "finite": bool(torch.isfinite(y).all()),
-                       **{k: (v.cpu().tolist() if torch.is_tensor(v) else v)
-                          for k, v in rec.items()}}
+                # the record's aux is the rank's own; "aux" the returned
+                # mean over the ranks
+                res = {**{k: (v.cpu().tolist() if torch.is_tensor(v) else v)
+                          for k, v in rec.items() if k != "aux"},
+                       "err": rel_max(torch, y, want), "aux": float(aux),
+                       "aux_local": float(rec["aux"]), "wall_s": wall,
+                       "finite": bool(torch.isfinite(y).all())}
                 if n_m == 0:
                     res["err_ref"] = rel_max(
                         torch, y, moe.moe_ffn_ref(xs, w, mcfg)[0])
                 out[n_m] = res
+        out["grad"] = moe_rank_backward(torch, dist, moe, cfg, w, x, ctx,
+                                        rank, D, seed, dev)
         Path(f"{out_path}.{rank}").write_bytes(pickle.dumps(out))
     finally:
         meshlib.destroy()
+
+
+def moe_rank_backward(torch, dist, moe, cfg, w, x, ctx, rank, D, seed, dev):
+    """Phase 14's backward: moe_ffn_ep on this rank's first EP_GRAD_TOKENS
+    tokens, unmirrored, at the capacity of the largest expert load of any
+    rank (no drops, so expert parallelism computes moe_ffn_ref's function
+    on all the ranks' tokens); the gradient of sum(y * cot) with respect
+    to x, the router and the experts, against moe_ffn_ref's autograd on
+    the ranks' tokens together on this device.  The rank's expert rows
+    are compared (the others must be zero), the router's gradient after a
+    sum over the ranks (each routed its own tokens).  Returns the errors
+    (of each leaf's max)."""
+    import dataclasses
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    T_loc = x.shape[0] // D
+    Tb = min(EP_GRAD_TOKENS, T_loc)
+    xs = x[rank * T_loc:rank * T_loc + Tb]
+    _, idx, _ = moe.router_probs(xs, w["router"], k)
+    peak = torch.bincount(idx.reshape(-1), minlength=E).max().reshape(1)
+    dist.all_reduce(peak, op=dist.ReduceOp.MAX)
+    mcfg = dataclasses.replace(
+        cfg.moe, n_mirrored_experts=0,
+        capacity_factor=(int(peak) + 0.5) * E / (Tb * k))
+    names = ("router", "w_gate", "w_up", "w_down")
+    g = torch.Generator(dev).manual_seed(seed + 1)
+    cot = torch.randn((D * Tb, x.shape[1]), generator=g, device=dev)
+
+    def grads(x_in, fn):
+        wl = {n: w[n].detach().clone().requires_grad_(True) for n in names}
+        wl.update({n + "_m": w[n + "_m"] for n in names[1:]})
+        xl = x_in.detach().clone().requires_grad_(True)
+        y, c = fn(xl, wl)
+        return torch.autograd.grad((y * c).sum(), [xl] + [wl[n]
+                                                          for n in names])
+    t0 = time.perf_counter()
+    got = grads(xs, lambda xl, wl: (moe.moe_ffn_ep(xl, wl, mcfg, ctx)[0],
+                                    cot[rank * Tb:(rank + 1) * Tb]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    router = got[1].clone()
+    dist.all_reduce(router)
+    x_all = torch.cat([x[r * T_loc:r * T_loc + Tb] for r in range(D)])
+    want = grads(x_all, lambda xl, wl: (moe.moe_ffn_ref(xl, wl, mcfg)[0],
+                                        cot))
+    e_loc = E // D
+    lo = rank * e_loc
+    errs = {"x": rel_max(torch, got[0], want[0][rank * Tb:(rank + 1) * Tb]),
+            "router": rel_max(torch, router, want[1])}
+    outside = 0.0
+    for n, gl, wl in zip(names[1:], got[2:], want[2:]):
+        errs[n] = rel_max(torch, gl[lo:lo + e_loc], wl[lo:lo + e_loc])
+        rest = torch.cat([gl[:lo], gl[lo + e_loc:]])
+        outside = max(outside, float(rest.abs().max()) if rest.numel()
+                      else 0.0)
+    return {"errs": errs, "outside": outside, "tokens": Tb,
+            "cap": int(peak), "wall_s": wall,
+            "nonzero": all(float(t.abs().max()) > 0 for t in got)}
 
 
 def moe_ep_path(seed):
@@ -4535,10 +4669,28 @@ def moe_ep_path(seed):
             "occupied_mirrored": mirr["occupied"],
             "err": max(plain["err"], mirr["err"]), "threshold": thr,
             "hottest": hot})
+    for o in outs:
+        bw = o["grad"]
+        worst = max(bw["errs"].values())
+        if not (worst <= EP_GRAD_RTOL and bw["outside"] == 0.0
+                and bw["nonzero"]):
+            fail(f"[moe-ep] rank {o['rank']}: the backward's gradients "
+                 f"against moe_ffn_ref's autograd {bw['errs']} of each "
+                 f"leaf's max (limit {EP_GRAD_RTOL}), other ranks' expert "
+                 f"rows {bw['outside']} (must be 0), every gradient nonzero "
+                 f"{bw['nonzero']}")
+        log(f"[moe-ep] rank {o['rank']} backward ({bw['tokens']} tokens, cap "
+            f"{bw['cap']}: no drops): |grad - moe_ffn_ref autograd| of each "
+            "leaf's max: " + ", ".join(f"{n} {e:.3g}" for n, e in
+                                       bw["errs"].items())
+            + f" (the router without the aux term, summed over the ranks); "
+            f"forward and backward {bw['wall_s'] * 1e3:.1f} ms host clock")
+        summary["ranks"][outs.index(o)]["grad_err"] = worst
     log(f"[check] moe_ffn_ep on {D} spawned ranks ({backend}) == one device "
         f"under each rank's cap and mirror mask (limit {EP_RTOL}); mirroring "
         "experts 0-1 removes exactly their kept pairs from every send "
-        f"buffer; {wall:.1f} s of spawned program")
+        f"buffer; its backward == moe_ffn_ref's autograd (limit "
+        f"{EP_GRAD_RTOL}); {wall:.1f} s of spawned program")
     return summary
 
 
@@ -5896,7 +6048,11 @@ def train_path(torch, np, args, dev, phases):
         f"{remat['peak_full'] / 2**30:.2f} GiB (the train state "
         f"{16 * n_par / 2**30:.2f} GiB of it); at B={B} 'full' "
         f"{peak_full / 2**30:.2f} GiB")
-    del state, params, batches
+    holder = [state]
+    del state, params
+    mesh = phases.run("mesh-train", mesh_train_path, torch, np, args, dev,
+                      phases, holder, batches, med)
+    del batches
     torch.cuda.empty_cache()
     rows_f, ssd_bwd_ms = phases.run("train-ssd-check", ssd_grad_check, torch,
                                     dev, args.seed)
@@ -5914,7 +6070,362 @@ def train_path(torch, np, args, dev, phases):
             "vjp_ms_layer": vjp_ms, "vjp_share": share,
             "busy_ms": busy_ms, "flash_check": rows_a,
             "layer_check": worst_b, "ssd_check": rows_f,
-            "ssd_bwd_ms": ssd_bwd_ms, "launcher": launcher}
+            "ssd_bwd_ms": ssd_bwd_ms, "launcher": launcher, "mesh": mesh}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the training mesh
+# ---------------------------------------------------------------------------
+
+def flat_state(tree):
+    """(keystr path, leaf) of a train state, in the checkpoint's order."""
+    from repro_torch.train.checkpoint import _leaves_with_paths
+    return _leaves_with_paths(tree)
+
+
+def embed_bound(torch, ids, dh, rows):
+    """Gate (c)'s bound on two index_add_ orders of the embedding's
+    gradient: 2 (n - 1) 2^-24 sum_t |g_t| a row (n its token count, g_t
+    the embedding output's gradient)."""
+    dh = dh.reshape(-1, dh.shape[-1]).double().abs()
+    mass = torch.zeros((rows, dh.shape[1]), dtype=torch.float64,
+                       device=ids.device).index_add_(0, ids, dh)
+    count = torch.bincount(ids, minlength=rows)
+    return 2 * (count - 1).clamp(min=0)[:, None] * 2.0 ** -24 * mass
+
+
+def mesh_gate_h(torch, zoo, tf, ts, cfg, state, batch, step):
+    """Gate (h): the mesh step (``step``) against make_train_step without
+    a mesh from ``state`` on ``batch``, each as its ``grads`` then its
+    ``update``; see MESH_STEPS's comment.  Returns (the mesh step's new
+    state, the gate's figures)."""
+    from repro_torch.train.optimizer import tree_leaves
+    params = state["params"]
+    paths = [p for p, _ in zoo._leaves(params)]
+    n = len(paths)
+    emb_i = paths.index(("embed",))
+    plain = ts.make_train_step(cfg, tf.ModelContext())
+    dh, saved = [], zoo._embed_in
+
+    def spy(*a):       # the embedding output's gradient, for the bound
+        h = saved(*a)
+        h.register_hook(dh.append)
+        return h
+    zoo._embed_in = spy
+    try:
+        got_p = plain.grads(params, batch)
+    finally:
+        zoo._embed_in = saved
+    got_m = step.grads(params, batch)
+    leaves_p, leaves_m = tree_leaves(got_p[2]), tree_leaves(got_m[2])
+    if not torch.equal(got_p[0], got_m[0]):
+        fail(f"(h) the mesh step's loss {float(got_m[0])!r} is not the "
+             f"one-device step's {float(got_p[0])!r}")
+    differ = [paths[i] for i in range(n) if i != emb_i
+              and not torch.equal(leaves_p[i], leaves_m[i])]
+    if differ:
+        fail(f"(h) gradient leaves that differ on the (1, 1) mesh: {differ}")
+    ids = batch["tokens"].reshape(-1).long()
+    bound = embed_bound(torch, ids, dh[0], params["embed"].shape[0])
+    diff = (leaves_p[emb_i].double() - leaves_m[emb_i].double()).abs()
+    if not bool((diff <= bound).all()):
+        fail(f"(h) the embedding's gradient on the mesh differs past its "
+             f"summation-order bound: {float((diff - bound).max()):.3g}")
+    emb_diff, emb_bound = float(diff.max()), float(bound.max())
+    del dh, diff, bound, leaves_p, leaves_m
+    new_p, mp = plain.update(state, got_p)
+    del got_p
+    new_m, mm = step.update(state, got_m)
+    del got_m
+    gp, gm = float(mp["grad_norm"]), float(mm["grad_norm"])
+    if not (torch.equal(mp["loss"], mm["loss"])
+            and abs(gm - gp) <= MESH_GNORM_RTOL * gp):
+        fail(f"(h) the mesh step's loss {float(mm['loss'])!r} / grad_norm "
+             f"{gm!r} against the one-device step's {float(mp['loss'])!r} "
+             f"/ {gp!r} (grad_norm rtol {MESH_GNORM_RTOL})")
+    lr = float(mp["lr"])
+    same_norm = torch.equal(mp["grad_norm"], mm["grad_norm"])
+    worst, bitwise, n_leaves = 0.0, 0, 0
+    for (path, a), (_, b) in zip(flat_state(new_p), flat_state(new_m)):
+        n_leaves += 1
+        if torch.equal(a, b):
+            bitwise += 1
+            continue
+        err = float((a - b).abs().max())
+        top = float(b.abs().max())
+        if "['embed']" in path and ("['params']" in path
+                                    or "['master']" in path):
+            limit = 2 * MESH_UPDATE_MAX * lr + 1e-6 * top
+        elif "['embed']" in path or not same_norm:
+            limit = MESH_STATE_RTOL * top
+        else:
+            limit = 0.0
+        if err > limit:
+            fail(f"(h) state leaf {path}: the mesh step's differs from the "
+                 f"one-device step's by {err:.3g} (limit {limit:.3g}; "
+                 f"grad_norm bitwise equal: {same_norm})")
+        worst = max(worst, err / max(top, 1e-30))
+    del new_p
+    log(f"[check] (h) the (1, 1) mesh step == the one-device step from one "
+        f"state: loss bitwise ({float(mm['loss']):.6f}), {n - 1} of {n} "
+        f"gradient leaves bitwise, the embedding's within the atomics bound "
+        f"(max |diff| {emb_diff:.3g}, bound up to {emb_bound:.3g}); "
+        f"grad_norm {gm!r} / {gp!r}; {bitwise} of {n_leaves} state leaves "
+        f"bitwise, the rest within {worst:.3g} of their max")
+    return new_m, {"embed_max_diff": emb_diff, "state_bitwise": bitwise,
+                   "state_leaves": n_leaves, "grad_norm_equal": same_norm,
+                   "state_worst": worst}
+
+
+def mesh_train_path(torch, np, args, dev, phases, holder, batches,
+                    phase16_ms):
+    """Phase 17: TinyLlama-1.1B (phase 16's state, taken from ``holder``,
+    and batches) through make_train_step on the (1, 1) training mesh over
+    an in-process NCCL group of world size 1 (a HashStore): gate (h)
+    from the state, then one warm-up step and MESH_STEPS steps between
+    CUDA events, each with its flash launches (gate (i): 2L, the forward
+    and the recomputed one) and each worker's request set (gate (j): U,
+    the distinct ids of the sharded lookup, equal to token_stats of the
+    worker's slice).  Returns the phase's summary."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import embedding as emb
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import data as tdata
+    from repro_torch.train import train_step as ts
+    cfg = get_config(TRAIN_ARCH)
+    L, B, S = cfg.n_layers, TRAIN_BATCH, TRAIN_SEQ
+    T = B * S
+    state = holder.pop()
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    try:
+        mesh = meshlib.make_mesh((1, 1), ("data", "model"))
+        setup_s = time.perf_counter() - t0
+        step = ts.make_train_step(cfg, tf.ModelContext(mesh=mesh))
+        state, gate_h = phases.run("mesh-train-gate-h", mesh_gate_h, torch,
+                                   zoo, tf, ts, cfg, state, batches[1], step)
+        torch.cuda.synchronize()
+        # gate (h)'s second state leaves the allocator's cache before the
+        # warm-up, so that the timed steps reuse the warm-up's blocks
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        state, _ = step(state, batches[0])                   # warm-up
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        step_ms, launches, losses, stats = [], [], [], []
+        for i in range(MESH_STEPS):
+            batch = batches[1 + i]
+            fk.flash_attention_bhsd.launches = 0        # the path starts here
+            emb.record = []
+            try:
+                ev[0].record()
+                state, m = step(state, batch)
+                ev[1].record()
+                ev[1].synchronize()
+                recs = emb.record
+            finally:
+                emb.record = None
+            launches.append(fk.flash_attention_bhsd.launches)  # ... ends here
+            step_ms.append(ev[0].elapsed_time(ev[1]))
+            losses.append(float(m["loss"]))
+            if len(recs) != mesh.data_size:
+                fail(f"(j) {len(recs)} sharded lookups in a step, expected "
+                     f"one a worker ({mesh.data_size})")
+            want = tdata.token_stats(batch["tokens"].cpu().numpy())
+            U = int(recs[0]["unique"])
+            if (U, recs[0]["tokens"]) != (want["unique"], want["tokens"]):
+                fail(f"(j) the worker's lookup saw T {recs[0]['tokens']}, U "
+                     f"{U}; token_stats of its slice {want}")
+            stats.append({"T": recs[0]["tokens"], "U": U,
+                          "cap": recs[0]["cap"]})
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        meshlib.destroy()
+    if any(n != 2 * L for n in launches):
+        fail(f"(i) flash launches a mesh step {launches}: expected {2 * L}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"(e) non-finite loss on the mesh: {losses}")
+    med = float(np.median(step_ms))
+    D, V = cfg.d_model, cfg.padded_vocab(1)
+    for st in stats:
+        log(f"[mesh-train] {cfg.name} on the (1, 1) mesh, worker 0: T "
+            f"{st['T']}, U {st['U']} (cap {st['cap']}), U/T "
+            f"{st['U'] / st['T']:.4f}; responses U x D x 4 = "
+            f"{st['U'] * D * 4 / 1e6:.2f} MB against the all-gathered "
+            f"table's V x D x 4 = {V * D * 4 / 1e6:.2f} MB")
+    log(f"[mesh-train] {cfg.name}: {med:.3f} ms a step on the (1, 1) mesh "
+        f"(median of {MESH_STEPS}; each " + ", ".join(
+            f"{x:.3f}" for x in step_ms) + f"), {T / med * 1e3:.0f} "
+        f"tokens/s; phase 16's step without a mesh {phase16_ms:.3f} ms "
+        f"(mesh / none {med / phase16_ms:.4f}); flash launches a step "
+        f"{launches}; loss {', '.join(f'{x:.4f}' for x in losses)}; peak "
+        f"device memory {peak / 2**30:.2f} GiB; the warm-up step "
+        f"{warm_s * 1e3:.3f} ms host clock; NCCL group and mesh "
+        f"{setup_s:.3f} s")
+    return {"launches": sum(launches), "steps": MESH_STEPS,
+            "step_ms": step_ms, "median_ms": med,
+            "tokens_per_s": T / med * 1e3, "phase16_ms": phase16_ms,
+            "peak_gib": peak / 2**30, "losses": losses, "workers": stats,
+            "response_bytes": stats[0]["U"] * D * 4,
+            "table_bytes": V * D * 4, "gate_h": gate_h, "setup_s": setup_s,
+            "warm_ms": warm_s * 1e3}
+
+
+def mesh_spawns(count: int):
+    """The (2, 2) mesh's spawn: (backend, world size): NCCL with a card a
+    rank where the machine has MESH_RANKS cards, else gloo with every rank
+    on cuda:0."""
+    return ("nccl" if count >= MESH_RANKS else "gloo"), MESH_RANKS
+
+
+def mesh_rank(rank, D, backend, init_method, seed, out_path):
+    """One rank of the (2, 2) mesh: TinyLlama at full width, its depth cut
+    to MESH_RANK_LAYERS, the train state from ``seed`` (the same on every
+    rank), this rank's part of it (``placement_specs``), one
+    make_train_step step on the global batch, the new state gathered;
+    rank 0 also takes the one-device step from the whole state and holds
+    the gathered state to it.  Writes its figures."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import dataclasses
+    import datetime
+    import pickle
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models.transformer import ModelContext
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import data as tdata
+    from repro_torch.train import train_step as ts
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method=init_method, world_size=D, rank=rank,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    try:
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                                  n_layers=MESH_RANK_LAYERS)
+        mesh = meshlib.make_mesh(MESH_RANK_SHAPE, ("data", "model"))
+        full = ts.init_train_state(cfg, torch.Generator(dev).manual_seed(
+            seed), dev)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in tdata.SyntheticLM(
+            tdata.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                             global_batch=TRAIN_BATCH, seed=seed)
+        ).batch_at(0).items()}
+        specs = sh.placement_specs(sh.train_state_specs(
+            cfg, mesh, ts.abstract_train_state(cfg, mesh.model_size,
+                                               torch.float32)))
+        local = ckpt.resharded(full, mesh, specs)
+        step = ts.make_train_step(cfg, ModelContext(mesh=mesh))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, m = step(local, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        whole = sh.gather_tree(new, specs, mesh)
+        out = {"rank": rank, "wall_s": wall, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]),
+               "embed_rows": tuple(local["params"]["embed"].shape)}
+        del new, local
+        if rank == 0:
+            one, m1 = ts.make_train_step(cfg, ModelContext())(full, batch)
+            alt, _ = ts.make_train_step(cfg, ModelContext(), ts.StepConfig(
+                n_microbatches=2))(full, batch)
+            lr = float(m1["lr"])
+            out.update(loss_one=float(m1["loss"]),
+                       grad_norm_one=float(m1["grad_norm"]), lr=lr)
+            errs = {}
+            for (path, g), (_, w), (_, s0), (_, a) in zip(
+                    flat_state(whole), flat_state(one), flat_state(full),
+                    flat_state(alt)):
+                if path.endswith("['step']"):
+                    errs[path] = (0.0 if torch.equal(g, w) else 1.0, 0.0)
+                    continue
+                top = float(w.abs().max())
+                err = float((g - w).abs().max())
+                if "['m']" in path or "['v']" in path:
+                    rtol = MESH_M_RTOL if "['m']" in path else MESH_V_RTOL
+                    noise = float((a - w).abs().max())
+                    errs[path] = (err, max(rtol * top, PLAIN_FACTOR * noise))
+                    continue
+                bound = 2 * MESH_UPDATE_MAX * lr + 1e-6 * top
+                dw, dg = (w - s0).double(), (g - s0).double()
+                change = float((dg - dw).norm()) / max(float(dw.norm()),
+                                                       1e-30)
+                errs[path] = (max(err / bound, change / MESH_CHANGE_RTOL),
+                              1.0)
+            out["errs"] = errs
+        Path(f"{out_path}.{rank}").write_bytes(pickle.dumps(out))
+    finally:
+        meshlib.destroy()
+
+
+def mesh_ranks_path(seed):
+    """The (2, 2) training mesh on MESH_RANKS spawned ranks (see
+    MESH_RANK_SHAPE's comment): every rank's loss the same, rank 0's
+    gathered state and metrics held to the one-device step."""
+    import pickle
+    import tempfile
+    import torch
+    from repro_torch.launch.graph_run import rendezvous, spawn_ranks
+    backend, D = mesh_spawns(torch.cuda.device_count())
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn_ranks(mesh_rank, (D, backend, rendezvous(tmp), seed,
+                                str(Path(tmp) / "rank")), D, MESH_JOIN_S)
+        wall = time.perf_counter() - t0
+        outs = [pickle.loads((Path(tmp) / f"rank.{r}").read_bytes())
+                for r in range(D)]
+    r0 = outs[0]
+    if len({o["loss"] for o in outs}) != 1:
+        fail(f"[mesh-ranks] the ranks' losses differ: "
+             f"{[o['loss'] for o in outs]}")
+    dl = abs(r0["loss"] - r0["loss_one"]) / abs(r0["loss_one"])
+    dg = abs(r0["grad_norm"] - r0["grad_norm_one"]) / r0["grad_norm_one"]
+    bad = {p: e for p, e in r0["errs"].items() if not e[0] <= e[1]}
+    for path, (e, b) in sorted(r0["errs"].items(),
+                               key=lambda x: -x[1][0] / max(x[1][1], 1e-30)
+                               )[:4]:
+        log(f"[mesh-ranks] {path}: {e:.3g} against its bound {b:.3g}")
+    if dl > MESH_LOSS_RTOL or dg > MESH_RANK_GNORM_RTOL or bad:
+        fail(f"[mesh-ranks] (2, 2) mesh against one device: loss rtol "
+             f"{dl:.3g} (limit {MESH_LOSS_RTOL}), grad_norm {dg:.3g} (limit "
+             f"{MESH_RANK_GNORM_RTOL}), leaves past their bound: "
+             f"{list(bad.items())[:6]}")
+    worst_m = max(e / b for p, (e, b) in r0["errs"].items()
+                  if "['m']" in p or "['v']" in p)
+    for part in ("['m']", "['v']", "['params']", "['master']"):
+        path, (e, b) = max(((p, eb) for p, eb in r0["errs"].items()
+                            if part in p), key=lambda x: x[1][0] / x[1][1])
+        log(f"[mesh-ranks] worst {part} leaf {path}: {e:.3g} against its "
+            f"bound {b:.3g}")
+    worst_p = max(e for p, (e, b) in r0["errs"].items()
+                  if "['params']" in p or "['master']" in p)
+    log(f"[mesh-ranks] TinyLlama at full width, {MESH_RANK_LAYERS} layers, "
+        f"on the {MESH_RANK_SHAPE} mesh ({backend}, {D} ranks, vocab rows "
+        f"{r0['embed_rows']} a rank), one step on {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens: loss {r0['loss']:.6f} (one device "
+        f"{r0['loss_one']:.6f}, rtol {dl:.3g}), grad_norm {r0['grad_norm']:.6g}"
+        f" ({r0['grad_norm_one']:.6g}, rtol {dg:.3g}); every gathered leaf "
+        f"within its bound: m / v at {worst_m:.3g} of theirs, params / "
+        f"master at {worst_p:.3g} of the sign-flip bound and the change "
+        f"rule; step {r0['wall_s']:.3f} s host clock"
+        + (" (gloo stages through the host)" if backend == "gloo" else "")
+        + f"; {wall:.1f} s of spawned program")
+    return {"backend": backend, "D": D, "wall_s": wall,
+            "loss": r0["loss"], "loss_one": r0["loss_one"],
+            "loss_rtol": dl, "grad_norm_rtol": dg, "mv_worst": worst_m,
+            "params_worst": worst_p, "step_s": r0["wall_s"]}
 
 
 def main():
@@ -5971,7 +6482,8 @@ def main():
     launchers_run = pool.submit(lambda: {
         "shard_check": phases.run("shard-check", shard_check_path),
         "dist_smoke": phases.run("dist-smoke", dist_smoke_path),
-        "moe_ep": phases.run("moe-ep", moe_ep_path, args.seed)})
+        "moe_ep": phases.run("moe-ep", moe_ep_path, args.seed),
+        "mesh_ranks": phases.run("mesh-ranks", mesh_ranks_path, args.seed)})
     # phase 3c's ranks and phase 9's spawned ranks (card work that is not
     # timed) run beside the host-only oracles of phase 3 and the split
     # partition of phase 3b, each waited for at the end of its window
@@ -6063,9 +6575,12 @@ def main():
                                   GEMMA_ARCH: gemma["launches"],
                                   OLMOE_ARCH: olmoe["launches"],
                                   WHISPER_ARCH: whisper["launches"],
-                                  f"{TRAIN_ARCH} train": train["launches"]}
+                                  f"{TRAIN_ARCH} train": train["launches"],
+                                  f"{TRAIN_ARCH} mesh train":
+                                  train["mesh"]["launches"]}
     flash["launches"] += (gemma["launches"] + olmoe["launches"]
-                          + whisper["launches"] + train["launches"])
+                          + whisper["launches"] + train["launches"]
+                          + train["mesh"]["launches"])
     flash["per_launch"] += gemma["rows"] + olmoe["rows"] + whisper["rows"]
     flash["max_abs_err"] = max(
         [flash["max_abs_err"]]
@@ -6079,7 +6594,9 @@ def main():
                       "self, prefill cross and decode cross launches "
                       f"(per_launch rows); {TRAIN_ARCH} train: the "
                       f"{TRAIN_STEPS} timed steps' launches (untimed one by "
-                      "one; the step's time is in its summary)")
+                      "one; the step's time is in its summary); "
+                      f"{TRAIN_ARCH} mesh train: phase 17's {MESH_STEPS} "
+                      "timed steps' launches on the (1, 1) mesh (likewise)")
     flash[GEMMA_ARCH] = {k: gemma[k] for k in ("prefill_ms", "decode_ms",
                                                "busy_ms", "peak_gib")}
     flash[OLMOE_ARCH] = {k: olmoe[k] for k in (
@@ -6169,6 +6686,7 @@ def main():
     log(f"[service] summary {json.dumps(service)}")
     log(f"[launchers] summary {json.dumps(launchers)}")
     log(f"[moe] summary {json.dumps(olmoe['moe'])}")
+    log(f"[mesh-train] summary {json.dumps(train['mesh'])}")
     log(json.dumps({"kernels": [entry, vec_entry] + serve_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}),

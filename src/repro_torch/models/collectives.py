@@ -1,0 +1,154 @@
+"""Collectives with the gradients of an SPMD program (the counterparts of
+``lax.psum``, ``lax.all_to_all`` and the reshards that ``shard_map``'s
+specs imply), as ``torch.autograd.Function``s over a process group.
+
+Every rank runs the same program; a value is either *replicated* over a
+group (every rank holds the same tensor, and its cotangent, the same on
+every rank, is the whole cotangent of that one value) or *split* (each
+rank holds its own part).  The backward of each collective follows from
+which it makes:
+
+* ``psum_replicated``: a sum whose result is replicated.  Each rank's
+  part enters the sum once, so its cotangent is the result's, unchanged:
+  the backward sends nothing.  (``torch.distributed.nn.functional``'s
+  all-reduce sums the cotangents again, which gives the group's size
+  times the gradient.)
+* ``sum_cotangents``: the identity on a replicated value that each rank
+  then uses on its own part of the work (a vocab shard of the logits):
+  the backward sums the ranks' partial cotangents over the group.
+* ``all_to_all``: equal splits exchanged; its transpose is the same
+  exchange.
+* ``gather_slices`` / ``split_slices``: split rows made replicated (all
+  ranks' slices concatenated; the backward keeps this rank's slice of the
+  cotangent) and a replicated value split (this rank's slice; the
+  backward concatenates every rank's slice of the cotangent).
+
+On a group of one rank each is the identity, and none is called.  Values
+are those of the plain ``torch.distributed`` calls, so a forward under
+``torch.no_grad`` is unchanged.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+
+def group_size(group) -> int:
+    """A process group's size (1 for None: no group, one rank)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+class _PsumReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, op):
+        y = x.clone()
+        dist.all_reduce(y, op=op, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SumCotangents(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g, group=ctx.group)
+        return out, None
+
+
+def _all_gather_cat(x, group):
+    parts = [torch.empty_like(x) for _ in range(group_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts)
+
+
+class _GatherSlices(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.rows = group, x.shape[0]
+        return _all_gather_cat(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        return g[r * ctx.rows:(r + 1) * ctx.rows], None
+
+
+class _SplitSlices(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n = group_size(group)
+        rows = x.shape[0] // n
+        r = dist.get_rank(group)
+        return x[r * rows:(r + 1) * rows]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_cat(g.contiguous(), ctx.group), None
+
+
+def psum_replicated(x: torch.Tensor, group,
+                    op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """All-reduce over ``group`` (``op``, a sum by default), the result
+    replicated: the backward passes the cotangent through."""
+    if group_size(group) == 1:
+        return x
+    return _PsumReplicated.apply(x, group, op)
+
+
+def sum_cotangents(x: torch.Tensor, group) -> torch.Tensor:
+    """The identity forward; the backward sums the cotangent over
+    ``group``."""
+    if group_size(group) == 1:
+        return x
+    return _SumCotangents.apply(x, group)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``all_to_all_single`` of equal splits over ``group`` (the leading
+    dimension in ``group``'s size parts), differentiable."""
+    if group_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, group)
+
+
+def gather_slices(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` (equal leading sizes) concatenated in rank
+    order, replicated; the backward keeps this rank's rows."""
+    if group_size(group) == 1:
+        return x
+    return _GatherSlices.apply(x, group)
+
+
+def split_slices(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's slice of the replicated ``x``'s rows (a multiple of
+    ``group``'s size); the backward gathers every rank's slice of the
+    cotangent."""
+    if group_size(group) == 1:
+        return x
+    return _SplitSlices.apply(x, group)

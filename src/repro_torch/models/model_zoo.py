@@ -1,7 +1,8 @@
-"""ArchConfig -> runnable model on one device: parameter shapes and
-initialisation, the weights carried across from the JAX package, the full
-forward, the training loss (``loss_fn``), and the serving entry points
-(cache build, prefill, decode) --
+"""ArchConfig -> runnable model: parameter shapes and initialisation (real
+or abstract, on the ``meta`` device), the weights carried across from the
+JAX package, the full forward and the training loss (``loss_fn``), on one
+device or on the training mesh (``ModelContext.mesh``), and the serving
+entry points on one device (cache build, prefill, decode) --
 the port of ``repro.models.model_zoo`` for every stage kind: ``dense``,
 ``ssm``, ``hybrid``, ``moe``, and the encoder-decoder's ``enc`` and
 ``dec_cross``.
@@ -103,9 +104,9 @@ def stage_param_shapes(cfg: ArchConfig, stage: StageSpec) -> Dict[str, Any]:
     return out
 
 
-def param_shapes(cfg: ArchConfig) -> Dict[str, Any]:
+def param_shapes(cfg: ArchConfig, model_parallel: int = 1) -> Dict[str, Any]:
     check_supported(cfg)
-    V = cfg.padded_vocab(1)
+    V = cfg.padded_vocab(model_parallel)
     D = cfg.d_model
     shapes: Dict[str, Any] = {
         "embed": (V, D),
@@ -145,8 +146,13 @@ def _map(tree, fn, path=()):
     return fn(path, tree)
 
 
+_NO_INIT_SCALE = {"norm1", "norm2", "norm_cross", "final_norm", "norm",
+                  "A_log", "D_skip", "dt_bias"}
+
+
 def init_params(cfg: ArchConfig, generator: torch.Generator, device="cuda",
-                dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+                dtype: torch.dtype = torch.float32,
+                model_parallel: int = 1) -> Dict[str, Any]:
     """Random initialisation by the JAX package's recipe: zero norms
     (RMSNorm scales by 1 + gamma), ``A_log = log(1..h)``, ``D_skip = 1``,
     ``dt_bias = log(expm1(0.01))``, every other leaf ``normal /
@@ -179,7 +185,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device="cuda",
         w *= 1.0 / math.sqrt(max(fan_in, 1))
         return w.to(device=device, dtype=dtype)
 
-    shapes = param_shapes(cfg)
+    shapes = param_shapes(cfg, model_parallel)
     leaves = {path: make(path, shape) for path, shape in _leaves(shapes)}
     params = _map(shapes, lambda path, _: leaves[path])
     if cfg.tie_embeddings:
@@ -187,12 +193,25 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device="cuda",
     return params
 
 
+def abstract_params(cfg: ArchConfig, model_parallel: int = 1,
+                    dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
+    """The parameter tree as tensors on the ``meta`` device (shapes and
+    dtypes, no storage): ``dtype``, but float32 for the norms and the SSM
+    scalars (the reference's ``_NO_INIT_SCALE`` leaves), as the reference's
+    ``abstract_params`` gives them."""
+    def make(path, shape):
+        dt = torch.float32 if path[-1] in _NO_INIT_SCALE else dtype
+        return torch.empty(shape, dtype=dt, device="meta")
+    return _map(param_shapes(cfg, model_parallel), make)
+
+
 def params_from_reference(tree: Dict[str, Any], cfg: ArchConfig,
-                          device="cuda") -> Dict[str, Any]:
+                          device="cuda",
+                          model_parallel: int = 1) -> Dict[str, Any]:
     """The port's parameters from the JAX package's, as numpy arrays
     (``jax.tree.map(np.asarray, repro.models.model_zoo.init_params(...))``):
     the same tree, each leaf the same values on ``device``."""
-    shapes = param_shapes(cfg)
+    shapes = param_shapes(cfg, model_parallel)
 
     def take(path, shape):
         leaf = tree
@@ -223,18 +242,27 @@ def n_params(params: Dict[str, Any]) -> int:
 # ---------------------------------------------------------------------------
 
 def _embed_in(params, cfg: ArchConfig, ids, ctx: ModelContext):
-    h = emb.embed_lookup(params["embed"], ids, method=ctx.embed_method)
+    if ctx.mesh is not None and ctx.embed_method == "rr" and ids.dim() == 2:
+        h = emb.embed_lookup_sharded(params["embed"], ids, ctx.mesh)
+    elif ctx.mesh is not None:
+        raise NotImplementedError(
+            f"the vocab-sharded table is looked up by 'rr' on (B, S) ids; "
+            f"got {ctx.embed_method!r} on ids of shape {tuple(ids.shape)}")
+    else:
+        h = emb.embed_lookup(params["embed"], ids, method=ctx.embed_method)
     if cfg.tie_embeddings:
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
     return h
 
 
-def _mask_pad_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
-    """The padded vocabulary's columns set to -2^30."""
+def _mask_pad_vocab(logits: torch.Tensor, vocab: int,
+                    first: int = 0) -> torch.Tensor:
+    """The padded vocabulary's columns set to -2^30; the logits' columns
+    are ``first, first + 1, ...`` (a vocab shard's, on the mesh)."""
     V = logits.shape[-1]
-    if V == vocab:
+    if first + V <= vocab:
         return logits
-    iota = torch.arange(V, device=logits.device)
+    iota = torch.arange(first, first + V, device=logits.device)
     return torch.where(iota < vocab, logits, NEG_INF_F32)
 
 
@@ -260,9 +288,18 @@ def _run_encoder(params, cfg: ArchConfig, ctx: ModelContext,
     return rms_norm(h, params["enc"]["final_norm"], cfg.norm_eps)
 
 
+def _no_mesh(ctx: ModelContext, what: str) -> None:
+    if ctx.mesh is not None:
+        raise NotImplementedError(f"{what} on the mesh (the cache_specs "
+                                  "placement) is not ported yet: serve with "
+                                  "mesh=None")
+
+
 def forward_logits(params, cfg: ArchConfig, ctx: ModelContext,
                    tokens: torch.Tensor, enc_embeds=None):
-    """tokens: (B, S) -> (logits (B, S, V_pad) float32, aux loss)."""
+    """tokens: (B, S) -> (logits (B, S, V_pad) float32, aux loss).  On the
+    mesh (``ctx.mesh``) ``tokens`` is this rank's data slice and the
+    logits its vocab columns (B_loc, S, V_pad / mp)."""
     B, S = tokens.shape
     pos = _positions(B, S, tokens.device)
     h = _embed_in(params, cfg, tokens, ctx)
@@ -273,8 +310,10 @@ def forward_logits(params, cfg: ArchConfig, ctx: ModelContext,
                                     enc_out=enc_out)
         aux_total = aux_total + aux
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = emb.logits_matmul(h, params["out_embed"])
-    return _mask_pad_vocab(logits, cfg.vocab), aux_total
+    logits = emb.logits_matmul(h, params["out_embed"], ctx.mesh)
+    first = 0 if ctx.mesh is None else (ctx.mesh.model_rank
+                                        * logits.shape[-1])
+    return _mask_pad_vocab(logits, cfg.vocab, first), aux_total
 
 
 def loss_fn(params, cfg: ArchConfig, ctx: ModelContext, batch,
@@ -282,7 +321,13 @@ def loss_fn(params, cfg: ArchConfig, ctx: ModelContext, batch,
     """Next-token cross-entropy (+ the MoE load-balance aux loss): labels
     are the tokens rolled left by one, the last position masked.
     ``batch``: {"tokens": (B, S) int, "enc_embeds": (B, enc_seq, D) for an
-    encoder-decoder model}.  Returns (loss, {"nll", "aux"})."""
+    encoder-decoder model}.  Returns (loss, {"nll", "aux"}).
+
+    On the mesh ``batch`` is this rank's data slice and the loss the
+    global one: the masked mean over every slice's tokens (its numerator
+    and count summed over the data group), and the aux loss the mean of
+    every rank's (``moe_ffn_ep``); each is replicated, and a rank's
+    gradient is its own slice's part of the whole."""
     tokens = batch["tokens"]
     logits, aux = forward_logits(params, cfg, ctx, tokens,
                                  enc_embeds=batch.get("enc_embeds"))
@@ -290,7 +335,7 @@ def loss_fn(params, cfg: ArchConfig, ctx: ModelContext, batch,
     mask = torch.ones(labels.shape, dtype=torch.float32,
                       device=labels.device)
     mask[:, -1] = 0.0
-    nll = emb.softmax_xent(logits, labels, mask)
+    nll = emb.softmax_xent(logits, labels, mask, ctx.mesh)
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
 
@@ -342,6 +387,7 @@ def prefill(params, cfg: ArchConfig, ctx: ModelContext, tokens: torch.Tensor,
 
     ``max_len`` sets the global-attention cache capacity (>= S + the
     decode steps to come); window stages always hold ``window`` slots."""
+    _no_mesh(ctx, "prefill")
     B, S = tokens.shape
     max_len = max(max_len, S)
     pos = _positions(B, S, tokens.device)
@@ -371,6 +417,7 @@ def decode_step(params, cfg: ArchConfig, ctx: ModelContext,
     """token: (B, 1) int; cache from prefill/build_cache.  Returns (logits
     (B, V_pad), new cache).  The K/V ring buffers are written in place
     (see ``apply_stage_decode``)."""
+    _no_mesh(ctx, "decode_step")
     pos = cache["pos"]
     h = _embed_in(params, cfg, token, ctx)
     enc_out = cache.get("enc_out")

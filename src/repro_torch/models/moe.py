@@ -22,7 +22,13 @@ Switch/GShard semantics.  Two implementations with the same math:
 * ``moe_ffn_ep``  -- expert parallelism over ``torch.distributed``: each
   rank holds a slice of the tokens and a shard of the experts of its EP
   group (``MoEContext``), and the combined buffers travel in one
-  ``all_to_all_single`` each way.
+  ``all_to_all_single`` each way.  It is differentiable as the
+  reference's ``shard_map`` is: the exchanges' backward is the reverse
+  exchange, and the aux loss's mean over the ranks (a replicated sum)
+  passes its cotangent through (``models.collectives``).  A rank's
+  gradient of the router, the mirrored experts and its own expert rows
+  covers its tokens only: summed over the ranks that split the tokens,
+  they are the reference's.
 
 Routing statistics: while ``record`` is a list, every MoE call appends a
 dict of device tensors (no host sync) describing its dispatch.
@@ -36,6 +42,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.models import collectives as coll
 from repro_torch.models.layers import silu
 
 record: Optional[list] = None
@@ -210,23 +217,21 @@ def moe_ffn_ep(x: torch.Tensor, w: dict, cfg: MoEConfig,
     mirrored = torch.arange(E, device=x.device) < n_m   # hottest first
     buf, bg, bt = _pack(x, idx, gates, E, cap, mirrored)
     # ---- network path: one combined message per (dst rank, expert) ----
-    recv = torch.empty_like(buf)
-    dist.all_to_all_single(recv, buf, group=group)
+    recv = coll.all_to_all(buf, group)
     # recv: (ep_size senders * e_loc, cap, D) -> per local expert
     recv = recv.view(ep_size, e_loc, cap, D).transpose(0, 1).reshape(
         e_loc, ep_size * cap, D)
     y = _expert_mlp(recv, w["w_gate"][lo:lo + e_loc],
                     w["w_up"][lo:lo + e_loc], w["w_down"][lo:lo + e_loc])
     y = y.view(e_loc, ep_size, cap, D).transpose(0, 1).contiguous()
-    back = torch.empty_like(y)
-    dist.all_to_all_single(back, y, group=group)
+    back = coll.all_to_all(y, group)
     out = _unpack(back.view(E, cap, D), bg, bt, T_loc, D)
     # ---- mirrored path: local compute, zero messages ----
     for j in range(n_m):
         g = ((idx == j) * gates).sum(-1)
         out = out + _expert_mlp(x, w["w_gate_m"][j], w["w_up_m"][j],
                                 w["w_down_m"][j]) * g[:, None]
-    aux = load_balance_loss(probs, idx, E).reshape(1)
-    _record(idx, E, cap, mirrored, bt, aux[0])
-    dist.all_reduce(aux)
+    aux = load_balance_loss(probs, idx, E)
+    _record(idx, E, cap, mirrored, bt, aux)
+    aux = coll.psum_replicated(aux.reshape(1), dist.group.WORLD)
     return out, aux[0] / dist.get_world_size()

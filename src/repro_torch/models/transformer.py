@@ -34,7 +34,9 @@ A ``moe`` stage runs on one device (``moe_ffn_ref``) or, with
 rank runs the whole model on all the tokens, and each MoE layer hands
 each rank its slice of the tokens (padded to a multiple of the ranks),
 runs ``moe_ffn_ep`` and gathers the slices back, as the reference's
-``shard_map`` does.  The stage's aux loss is the sum of its layers'.
+``shard_map`` does.  Under ``ModelContext.mesh`` the same happens within
+each data slice over the mesh's model group.  The stage's aux loss is the
+sum of its layers'.
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import (KERNEL_MODES, NEG_INF, AttnSpec,
                                        apply_rope, attn_block, rms_norm,
                                        swiglu)
+from repro_torch.models import collectives as coll
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.moe import MoEContext, moe_ffn_ep, moe_ffn_ref
 from repro_torch.models.ssm import mamba_block
@@ -118,14 +121,32 @@ class ModelContext:
     (``moe``; None: one device), the token lookup (``embed_method``, the
     reference's ``gather | onehot | rr``) and the per-layer recomputation
     of training (``remat``, the reference's ``full | dots | none``;
-    serving builds caches and never recomputes)."""
+    serving builds caches and never recomputes).
+
+    ``mesh`` (a ``launch.mesh.Mesh``; None: no mesh) is the reference's
+    training mesh, with its ``dp_axes`` and ``ep_axis``: each rank runs its
+    data slice, ``embed`` and ``out_embed`` hold this rank's vocab rows,
+    and the MoE layers split the slice's tokens over the model group,
+    which is also their EP group (``moe`` must then be None)."""
     q_chunk: int = 1024
     kernels: str = "auto"          # "auto" | "kernel" | "ref" (layers.py)
     moe: Optional[MoEContext] = None
     embed_method: str = "rr"       # gather | onehot | rr (paper technique)
     remat: str = "full"            # full | dots | none
+    mesh: Optional[object] = None
+    dp_axes: tuple = ("data",)
+    ep_axis: str = "model"
 
     def __post_init__(self):
+        if self.mesh is not None:
+            if self.moe is not None:
+                raise ValueError("under a mesh the MoE layers take their EP "
+                                 "group from the mesh: leave moe None")
+            if self.ep_axis != "model" or tuple(self.dp_axes) != tuple(
+                    a for a in self.mesh.axis_names if a in ("pod", "data")):
+                raise ValueError(f"dp_axes {self.dp_axes} and ep_axis "
+                                 f"{self.ep_axis!r} are not the mesh's "
+                                 f"{self.mesh.axis_names}")
         for name, value, allowed in (("kernel mode", self.kernels,
                                       KERNEL_MODES),
                                      ("embed method", self.embed_method,
@@ -138,33 +159,55 @@ class ModelContext:
 
     @property
     def n_devices(self) -> int:
-        """The ranks that shard the MoE layers' tokens (1 on one device)."""
+        """The mesh's size; without a mesh the ranks that shard the MoE
+        layers' tokens (1 on one device)."""
+        if self.mesh is not None:
+            return self.mesh.size
         return 1 if self.moe is None else dist.get_world_size()
+
+    @property
+    def token_group(self):
+        """The process group whose ranks split an MoE layer's tokens (the
+        model group under a mesh, the default group under ``moe``; None
+        on one device)."""
+        if self.mesh is not None:
+            return self.mesh.model_group
+        return None if self.moe is None else dist.group.WORLD
+
+    @property
+    def moe_context(self) -> Optional[MoEContext]:
+        """The MoE layers' expert parallelism: the mesh's model group as
+        the EP group, as the reference's ``_moe_call`` builds its
+        ``MoEContext`` from ``ctx.mesh``; else ``moe``."""
+        if self.mesh is not None:
+            return MoEContext(ep_group=self.mesh.model_group)
+        return self.moe
 
 
 def _moe_call(x2d, w, cfg: ArchConfig, ctx: ModelContext):
-    """The MoE FFN over (T, D) tokens, T a multiple of ``n_devices``: on one
-    device ``moe_ffn_ref``; under expert parallelism this rank's slice
-    through ``moe_ffn_ep``, the slices then gathered on every rank."""
-    if ctx.moe is None:
+    """The MoE FFN over (T, D) tokens, T a multiple of the token group's
+    size: on one device ``moe_ffn_ref``; under expert parallelism this
+    rank's slice (the reference's token spec ``P((*dp, ep))``) through
+    ``moe_ffn_ep``, the slices then gathered on every rank of the group.
+    Differentiable: the slice's backward gathers the cotangent's slices,
+    the gather's keeps this rank's (``models.collectives``)."""
+    mctx = ctx.moe_context
+    if mctx is None:
         return moe_ffn_ref(x2d, w, cfg.moe)
-    n = ctx.n_devices
-    T_loc = x2d.shape[0] // n
-    r = dist.get_rank()
-    y, aux = moe_ffn_ep(x2d[r * T_loc:(r + 1) * T_loc], w, cfg.moe, ctx.moe)
-    parts = [torch.empty_like(y) for _ in range(n)]
-    dist.all_gather(parts, y.contiguous())
-    return torch.cat(parts), aux
+    group = ctx.token_group
+    xs = coll.split_slices(x2d, group)
+    y, aux = moe_ffn_ep(xs, w, cfg.moe, mctx)
+    return coll.gather_slices(y, group), aux
 
 
 def _moe_update(h, w, cfg: ArchConfig, ctx: ModelContext):
     """h + the MoE FFN of rms_norm(h, norm2), over the tokens flattened to
-    (T, D) and padded with zero rows to a multiple of ``n_devices``.
-    Returns (h, aux)."""
+    (T, D) and padded with zero rows to a multiple of the ranks that split
+    them.  Returns (h, aux)."""
     xm = rms_norm(h, w["norm2"], cfg.norm_eps)
     x2 = xm.reshape(-1, xm.shape[-1])
     T = x2.shape[0]
-    pad = -T % ctx.n_devices
+    pad = -T % coll.group_size(ctx.token_group)
     if pad:
         x2 = F.pad(x2, (0, 0, 0, pad))
     y, aux = _moe_call(x2, w["moe"], cfg, ctx)

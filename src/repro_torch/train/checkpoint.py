@@ -16,8 +16,15 @@ checkpoints.
 Fault-tolerance contract: ``save`` is atomic (a temporary directory, then
 a rename, then the ``LATEST`` flip), ``restore`` reads ``LATEST``,
 ``restore_or_init`` is the restart entry point after a preemption, and a
-half-written step directory (no manifest) counts as absent.  A leaf whose
-dtype numpy cannot hold (bfloat16) is refused.
+half-written step directory (no manifest) counts as absent.  A bfloat16
+leaf is written as the reference writes one (numpy has no bfloat16: the
+manifest says ``"bfloat16"`` and the ``.npy`` holds the bits as ``|V2``
+voids) and read back bit for bit.
+
+On the training mesh a checkpoint holds the whole state
+(``save_gathered``: rank 0 writes ``gather_tree``'s leaves), so it does
+not depend on the mesh; ``resharded`` cuts a restored state for this
+rank of any mesh.
 """
 from __future__ import annotations
 
@@ -59,26 +66,41 @@ def _unflatten(like, leaves):
     return next(leaves)
 
 
-def _to_numpy(path: str, leaf) -> np.ndarray:
+BF16_BITS = np.dtype("V2")
+
+
+def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
+    """(the array to write, the manifest's dtype)."""
     if isinstance(leaf, torch.Tensor):
-        if leaf.dtype == torch.bfloat16:
-            raise TypeError(f"checkpoint leaf {path}: bfloat16 has no numpy "
-                            "dtype; cast it to float32 before saving")
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(BF16_BITS), "bfloat16"
+        arr = t.numpy()
+    else:
+        arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    if dtype == "bfloat16":
+        if arr.dtype.itemsize != 2:
+            raise ValueError(f"a bfloat16 leaf of {arr.dtype} items")
+        return torch.from_numpy(np.ascontiguousarray(arr).view(
+            np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def save(ckpt_dir: str, step: int, tree: Any, keep: int = 3) -> str:
     """Atomically write a checkpoint for ``step``; prunes old steps."""
     d = Path(ckpt_dir)
     d.mkdir(parents=True, exist_ok=True)
-    flat = [(p, _to_numpy(p, leaf)) for p, leaf in _leaves_with_paths(tree)]
+    flat = [(p, *_to_numpy(leaf)) for p, leaf in _leaves_with_paths(tree)]
     tmp = Path(tempfile.mkdtemp(dir=d, prefix=".tmp_"))
     manifest = {"step": step, "leaves": []}
-    for i, (path, arr) in enumerate(flat):
+    for i, (path, arr, dtype) in enumerate(flat):
         np.save(tmp / f"arr_{i}.npy", arr)
         manifest["leaves"].append({"path": path, "shape": list(arr.shape),
-                                   "dtype": str(arr.dtype)})
+                                   "dtype": dtype})
     (tmp / "manifest.json").write_text(json.dumps(manifest))
     final = d / f"step_{step}"
     if final.exists():
@@ -131,7 +153,7 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None):
         if list(arr.shape) != meta["shape"] or tuple(arr.shape) != want:
             raise ValueError(f"checkpoint leaf {path}: shape {arr.shape}, "
                              f"manifest {meta['shape']}, tree {want}")
-        t = torch.from_numpy(arr)
+        t = _from_numpy(arr, meta["dtype"])
         if isinstance(leaf, torch.Tensor):
             t = t.to(device=leaf.device, dtype=leaf.dtype)
         leaves.append(t)
@@ -148,9 +170,29 @@ def restore_or_init(ckpt_dir: str, init_fn: Callable[[], Any]):
     return restore(ckpt_dir, template, step)
 
 
-def resharded(tree: Any, sg, is_sharded: Optional[Callable] = None):
-    """Place a restored (global, host) tree on this rank of the sharded
-    executor (``sg`` the rank's ShardedGraph, of any world size): the
+def resharded(tree: Any, mesh, spec_tree=None):
+    """Place a restored (global, host) tree on this rank of a mesh: the
     elastic-scaling path, since checkpoints do not depend on the mesh.
-    ``is_sharded`` is ``exec.place_args``'s rule."""
-    return exec_mod.place_args(sg, tree, is_sharded)
+    ``mesh`` is a ``launch.mesh.Mesh`` and ``spec_tree`` the tree's specs
+    (the reference's form; ``launch.shardings.shard_tree``), or the rank's
+    ``ShardedGraph`` of the sharded executor (of any world size) and
+    ``spec_tree`` ``exec.place_args``'s ``is_sharded`` rule."""
+    if hasattr(mesh, "axis_names"):
+        from repro_torch.launch import shardings
+        return shardings.shard_tree(tree, spec_tree, mesh)
+    return exec_mod.place_args(mesh, tree, spec_tree)
+
+
+def save_gathered(ckpt_dir: str, step: int, tree: Any, specs, mesh,
+                  keep: int = 3) -> Optional[str]:
+    """A checkpoint of a state on the mesh: every rank gathers its leaves
+    whole (``gather_tree``), rank 0 writes them with ``save``, and every
+    rank waits for the write.  Returns the step directory on rank 0, None
+    elsewhere."""
+    import torch.distributed as dist
+    from repro_torch.launch import shardings
+    whole = shardings.gather_tree(tree, specs, mesh)
+    path = save(ckpt_dir, step, whole, keep) if mesh.rank == 0 else None
+    if mesh.size > 1:
+        dist.barrier()
+    return path

@@ -82,19 +82,35 @@ def init_opt_state(params: Params) -> dict:
     }
 
 
-def global_norm(grads: Params) -> torch.Tensor:
+def abstract_opt_state(params: Params) -> dict:
+    """``init_opt_state``'s tree on the ``meta`` device: float32 master, m
+    and v of ``params``' shapes, an int32 step."""
+    def f32(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+    return {"master": tree_map(f32, params), "m": tree_map(f32, params),
+            "v": tree_map(f32, params),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def global_norm(grads: Params, sum_squares=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares (float32), summed in
-    the walk's order."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in tree_leaves(grads)))
+    the walk's order.  ``sum_squares``, if given, maps the list of the
+    leaves' sums of squares to the list to add up (the mesh trainer sums a
+    vocab shard's over the model group there)."""
+    sq = [torch.sum(torch.square(g.to(torch.float32)))
+          for g in tree_leaves(grads)]
+    if sum_squares is not None:
+        sq = sum_squares(sq)
+    return torch.sqrt(sum(sq))
 
 
 @torch.no_grad()
 def adamw_update(params: Params, grads: Params, opt: dict,
-                 cfg: OptConfig) -> Tuple[Params, dict, dict]:
+                 cfg: OptConfig, sum_squares=None
+                 ) -> Tuple[Params, dict, dict]:
     """Returns (new_params, new_opt_state, metrics); the new trees have
-    ``params``' structure."""
-    gnorm = global_norm(grads)
+    ``params``' structure.  ``sum_squares``: ``global_norm``'s."""
+    gnorm = global_norm(grads, sum_squares)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     step = opt["step"] + 1

@@ -16,8 +16,20 @@ in the reference's layout, its dicts keyed in sorted order.  Every leaf is
 its own tensor: with tied embeddings (``gemma3_4b``) ``out_embed`` starts
 as a copy of ``embed`` and from then on takes its own gradient and its own
 AdamW update, as the reference's two pytree leaves do (one shared tensor
-would sum the two gradients).  ``abstract_train_state`` comes with the
-dry-run's counterpart.
+would sum the two gradients).  ``abstract_train_state`` gives the tree
+on the ``meta`` device, for the sharding rules.
+
+On the training mesh (``ModelContext.mesh``) each rank holds its state
+(the vocab rows of ``embed`` / ``out_embed`` that
+``launch.shardings.placement_specs`` gives it, every other leaf whole) and
+takes the global batch; it runs microbatch i's rows of its data slice, as
+the reference's sharded batch splits under microbatches (which decides
+the MoE layers' capacity).  Its gradients are its slice's part of the
+global loss's: those of the leaves used only in the token-split MoE region
+(router, experts, mirrored experts) are summed over the model group, then
+every one over the data group, which gives each rank the reference's
+gradient of its leaves.  The grad norm counts each vocab shard once, and
+AdamW runs on each rank's leaves.
 """
 from __future__ import annotations
 
@@ -26,12 +38,16 @@ from typing import Any, Dict
 
 import torch
 
+import torch.distributed as dist
+
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.shardings import VOCAB_LEAVES
+from repro_torch.models import embedding as emb
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models.transformer import ModelContext
-from repro_torch.train.optimizer import (OptConfig, adamw_update,
-                                         init_opt_state, tree_leaves,
-                                         tree_map)
+from repro_torch.train.optimizer import (OptConfig, abstract_opt_state,
+                                         adamw_update, init_opt_state,
+                                         tree_leaves, tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,15 +58,24 @@ class StepConfig:
 
 
 def init_train_state(cfg: ArchConfig, generator: torch.Generator,
-                     device="cuda", dtype: torch.dtype = torch.float32
-                     ) -> Dict[str, Any]:
+                     device="cuda", dtype: torch.dtype = torch.float32,
+                     model_parallel: int = 1) -> Dict[str, Any]:
     """Fresh params (``model_zoo.init_params``'s recipe, drawn from
     ``generator``) and their optimizer state; a tied ``out_embed`` becomes
     a leaf of its own."""
-    params = zoo.init_params(cfg, generator, device, dtype)
+    params = zoo.init_params(cfg, generator, device, dtype, model_parallel)
     if cfg.tie_embeddings:
         params["out_embed"] = params["embed"].clone()
     return {"params": params, "opt": init_opt_state(params)}
+
+
+def abstract_train_state(cfg: ArchConfig, model_parallel: int = 1,
+                         dtype: torch.dtype = torch.bfloat16
+                         ) -> Dict[str, Any]:
+    """The train state's tree on the ``meta`` device (the reference's
+    ``abstract_train_state``)."""
+    params = zoo.abstract_params(cfg, model_parallel, dtype)
+    return {"params": params, "opt": abstract_opt_state(params)}
 
 
 def _grads(cfg: ArchConfig, ctx: ModelContext, step_cfg: StepConfig,
@@ -72,26 +97,94 @@ def _grads(cfg: ArchConfig, ctx: ModelContext, step_cfg: StepConfig,
             grads)
 
 
+def _paths(tree, path=()):
+    """The key path of each leaf, in the walk's order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _paths(v, path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in _paths(v, path + (i,))]
+    return [path]
+
+
+def _all_reduce(ts, group) -> None:
+    """Sum each tensor of ``ts`` over ``group`` in place, in one flat
+    buffer a dtype."""
+    for dt in {t.dtype for t in ts}:
+        part = [t for t in ts if t.dtype == dt]
+        flat = torch.cat([t.reshape(-1) for t in part])
+        dist.all_reduce(flat, group=group)
+        for t, v in zip(part, flat.split([t.numel() for t in part])):
+            t.copy_(v.view_as(t))
+
+
+def _mesh_reduce(mesh, grads) -> None:
+    """Complete each rank's gradients in place: the MoE leaves' over the
+    model group (each rank routed its own tokens), then every leaf's over
+    the data group (each rank ran its own rows)."""
+    leaves = tree_leaves(grads)
+    paths = _paths(grads)
+    if mesh.model_size > 1:
+        moe = [g for g, p in zip(leaves, paths) if "moe" in p]
+        if moe:
+            _all_reduce(moe, mesh.model_group)
+    if mesh.data_size > 1:
+        _all_reduce(leaves, mesh.data_group)
+
+
+def _vocab_squares(mesh, grads):
+    """``global_norm``'s hook on the mesh: each vocab shard's sum of
+    squares summed over the model group, so each row counts once."""
+    vocab = [i for i, p in enumerate(_paths(grads))
+             if p[-1] in VOCAB_LEAVES]
+
+    def fn(sq):
+        if mesh.model_size == 1 or not vocab:
+            return sq
+        both = torch.stack([sq[i] for i in vocab])
+        dist.all_reduce(both, group=mesh.model_group)
+        sq = list(sq)
+        for j, i in enumerate(vocab):
+            sq[i] = both[j]
+        return sq
+    return fn
+
+
 def make_train_step(cfg: ArchConfig, ctx: ModelContext,
                     step_cfg: StepConfig = StepConfig()):
     """``train_step(state, batch) -> (new_state, metrics)``; ``batch``
     holds tensors on the params' device ({"tokens": (B, S) int,
-    "enc_embeds": ...}); metrics: loss, nll, aux, grad_norm, lr (0-d
-    tensors)."""
+    "enc_embeds": ...}), the global batch on the mesh; metrics: loss, nll,
+    aux, grad_norm, lr (0-d tensors).  The step is ``train_step.update(
+    state, train_step.grads(params, batch))``: ``grads`` gives (loss,
+    metrics, gradients) complete on each rank, ``update`` the clip and
+    AdamW."""
+    mesh = ctx.mesh
+    n = step_cfg.n_microbatches
+
+    def rows(batch, i):
+        """Microbatch i of the global batch, then this rank's data slice."""
+        B = batch["tokens"].shape[0]
+        if B % n:
+            raise ValueError(f"batch {B} does not split into {n} "
+                             "microbatches")
+        b = B // n
+        lo, hi = i * b, (i + 1) * b
+        if mesh is not None:
+            emb.check_shardable(b, cfg.padded_vocab(mesh.model_size), mesh)
+            b //= mesh.data_size
+            lo += mesh.data_rank * b
+            hi = lo + b
+        return {k: v[lo:hi] for k, v in batch.items()}
 
     def single(params, batch):
         return _grads(cfg, ctx, step_cfg, params, batch)
 
     def accumulated(params, batch):
-        n = step_cfg.n_microbatches
-        micro = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])
-                 for k, v in batch.items()}
         acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                              device=p.device), params)
         losses, metrics = [], []
         for i in range(n):
-            loss, m, grads = single(params, {k: v[i] for k, v in
-                                             micro.items()})
+            loss, m, grads = single(params, rows(batch, i))
             acc = tree_map(lambda a, g: a + g.to(torch.float32) / n, acc,
                            grads)
             losses.append(loss)
@@ -100,14 +193,27 @@ def make_train_step(cfg: ArchConfig, ctx: ModelContext,
                 for k in metrics[0]}
         return torch.stack(losses).mean(), mean, acc
 
-    def train_step(state, batch):
-        fn = single if step_cfg.n_microbatches == 1 else accumulated
-        loss, metrics, grads = fn(state["params"], batch)
+    def grads(params, batch):
+        if n == 1:
+            loss, metrics, g = single(params, rows(batch, 0))
+        else:
+            loss, metrics, g = accumulated(params, batch)
+        if mesh is not None:
+            _mesh_reduce(mesh, g)
+        return loss, metrics, g
+
+    def update(state, got):
+        loss, metrics, g = got
         new_params, new_opt, opt_metrics = adamw_update(
-            state["params"], grads, state["opt"], step_cfg.opt)
+            state["params"], g, state["opt"], step_cfg.opt,
+            None if mesh is None else _vocab_squares(mesh, g))
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return {"params": new_params, "opt": new_opt}, metrics
 
+    def train_step(state, batch):
+        return update(state, grads(state["params"], batch))
+
+    train_step.grads, train_step.update = grads, update
     return train_step
 
 

@@ -201,10 +201,22 @@ def test_torn_latest_is_no_checkpoint(tmp_path):
 
 
 def test_bfloat16_leaf_is_refused(tmp_path):
+    """A bfloat16 leaf is saved in the reference's format (manifest dtype
+    "bfloat16", its bits as 2-byte voids) and restored bit for bit; a
+    manifest that calls a leaf of other items bfloat16 is refused."""
+    import json
     tree = {"ok": torch.ones(2), "w": [torch.ones(3, dtype=torch.bfloat16)]}
-    with pytest.raises(TypeError, match=r"\['w'\]\[0\].*bfloat16"):
-        ckpt.save(str(tmp_path), 1, tree)
-    assert ckpt.latest_step(str(tmp_path)) is None
+    ckpt.save(str(tmp_path), 1, tree)
+    got, _ = ckpt.restore(str(tmp_path), tree)
+    assert got["w"][0].dtype == torch.bfloat16
+    assert torch.equal(got["w"][0], tree["w"][0])
+    man = tmp_path / "step_1" / "manifest.json"
+    meta = json.loads(man.read_text())
+    assert [m["dtype"] for m in meta["leaves"]] == ["float32", "bfloat16"]
+    meta["leaves"][0]["dtype"] = "bfloat16"      # float32 items
+    man.write_text(json.dumps(meta))
+    with pytest.raises(ValueError, match="bfloat16"):
+        ckpt.restore(str(tmp_path), tree)
 
 
 def test_restore_checks_paths_and_shapes(tmp_path):

@@ -24,13 +24,17 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         (ROOT / "tests").glob("_torch_*worker.py")) + sorted(
             (ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
-# the launchers, fault tolerance, the MoE layer and LM training: each a
-# module of its own that must stay free of JAX, also when imported alone
+# the launchers, fault tolerance, the MoE layer, LM training and its mesh:
+# each a module of its own that must stay free of JAX, also when imported
+# alone
 STANDALONE = ("repro_torch.launch.shard_check",
               "repro_torch.launch.dist_smoke",
               "repro_torch.train.checkpoint", "repro_torch.train.fault",
               "repro_torch.models.moe", "repro_torch.train.data",
-              "repro_torch.train.train_step", "repro_torch.launch.train")
+              "repro_torch.train.train_step", "repro_torch.launch.train",
+              "repro_torch.launch.shardings", "repro_torch.launch.mesh",
+              "repro_torch.models.collectives",
+              "repro_torch.models.embedding")
 
 
 def _imported_roots(path: Path):
