@@ -304,11 +304,11 @@ Phases 10, 11 and 14 run in processes of their own beside phase 3's
 host set-up (graph build and partition), started once the kernels are
 built and waited for before phase 3's first timed run; phase 13 runs
 after phase 8.  Two more spawns whose card work is not timed run beside
-host-only phases of the main thread, each waited for at the end of its
-window: phase 3c's ranks beside phase 3's scipy oracles (through the
-dense-parity check), phase 9's spawned ranks beside the wait for phase
-3b's split partition (its comparison with world size 1 comes in phase
-9) and the ``[balance]`` lines (host tables only) that follow it.  That
+host-only phases of the main thread: phase 3c's ranks and phase 9's
+spawned ranks (its comparison with world size 1 comes in phase 9), side
+by side, beside phase 3's scipy oracles (through the dense-parity
+check), both waited for at the end of that window.  Phase 18's ranks run
+in the launchers' thread after phase 17's.  That
 partition and its plans are made on the CPU (no card use) in a spawned
 process of their own (no GIL shared with the main thread) from phase
 3's oracles on, beside them, the profiles, the S-V 2^24 check and phase
@@ -379,13 +379,33 @@ process of their own (no GIL shared with the main thread) from phase
    gradient, each of the rank's expert rows' and the router's (summed over
    the ranks, without the aux term) against ``moe_ffn_ref``'s autograd on
    one device within ``EP_GRAD_RTOL``, the other ranks' expert rows zero.
+18. serving on the (1, 2) mesh (tensor parallelism and the cache's
+   sequence split), on 2 spawned ranks in the launchers' thread after
+   phase 17's (gloo on cuda:0 on a one-card machine; NCCL with a card a
+   rank on two): TinyLlama-1.1B at full width and depth (16 of 32 query
+   heads and 2 of 4 kv heads a rank, d_ff 2816 a rank) and Hymba-1.5B at
+   full width with its depth cut to a window, a global and a window
+   layer (its 25 heads whole on each rank, d_ff 2752 and 25 of 50 SSM
+   heads a rank), each through ``model_zoo.prefill`` / ``decode_step`` on
+   the mesh: B=2 prompts of 1024 tokens, then 16 greedy decode steps at
+   max_len 1040.  Each rank's flash and SSD launches are counted (one a
+   prefill's attention or SSM layer, none in decode) and held against
+   their float64 plain version on the rank's own inputs (phase 7's rule);
+   rank 0 gathers the logits and the cache and holds them, and the first
+   ``SERVE_MESH_CHECK_LAYERS`` layers one by one on the same input, to
+   the same params served on one device (``SERVE_MESH_FLOOR``'s
+   comment), and the greedy tokens wherever the one-device top-2 margin
+   clears that bound.  ``[serve-mesh]`` lines: each rank's launches and
+   their shapes, ms a prefill and a decode step (gloo staging through the
+   host on one card: not a speed of the port), the gates' figures.
 
 One JSON line ``{"kernels": [...]}`` with all four kernels (the flash
 and SSD entries carry ``half_types``, phase 7's step-0 timings on
 float32, bfloat16 and float16 inputs beside their bounds, and the flash
 entry phase 16's summary and its timed steps' launches under
 ``launches_by_model["tinyllama_1_1b train"]``, phase 17's under
-``"tinyllama_1_1b mesh train"``; the scalar
+``"tinyllama_1_1b mesh train"``, and both phase 18's launches of each
+rank under ``launches_mesh_serve``, outside ``launches``; the scalar
 kernel's entry carries ``sharded``: phase 3b's launches, each mode's, the
 replays' times and the static balance figures; the vector kernel's the
 sharded GCN's launches, ms an epoch and peak memory by mode, and phase
@@ -627,6 +647,35 @@ MESH_UPDATE_MAX, MESH_CHANGE_RTOL = 2.0, 0.1
 # cuBLAS's order for its own batch shapes; MOE_RTOL)
 EP_GRAD_TOKENS = 1024
 EP_GRAD_RTOL = 1e-4
+# phase 18: serving on the (1, 2) mesh, SERVE_MESH_RANKS spawned ranks
+# (gloo on cuda:0 on a one-card machine; NCCL refuses two ranks on one
+# card): TinyLlama-1.1B at full width and depth, then Hymba-1.5B at full
+# width with its depth cut to a window, a global and a window layer; B x S
+# prompts, then SERVE_MESH_GEN greedy decode steps at max_len S + GEN
+# (every stage's cache length splits over the model axis).  Rank 0 holds
+# the gathered logits and cache to the same params served on one device
+# ("auto"): each within the larger of SERVE_MESH_FLOOR and PLAIN_FACTOR
+# times the distance between two one-device orders ("auto" and "ref":
+# the kernels and the plain attention / scan) of the same quantity; the
+# first SERVE_MESH_CHECK_LAYERS layers one by one on the same input
+# likewise, the first layers also through prefill and decode on the
+# served tokens (teacher forcing).  The floors are tests/test_torch_lm.py's
+# tolerances: 1e-4 of the max for the prefill's logits, the cache and a
+# layer on the same input, 1e-3 (its chained steps') for the logits of
+# the decode steps, each step's input the mesh's own cache: the float32
+# reorderings of the row-parallel sums compound there (on an H100 at
+# 700 W Hymba's steps 10 and 16 reached 3.9e-4 and 6.3e-4 of the max,
+# where the two one-device orders differ by 3.9e-5 and 5.2e-5).  The greedy tokens equal
+# wherever the one-device top-2 margin exceeds the step's bound
+SERVE_MESH_SHAPE = (1, 2)
+SERVE_MESH_RANKS = 2
+SERVE_MESH_BATCH, SERVE_MESH_PROMPT, SERVE_MESH_GEN = 2, 1024, 16
+SERVE_MESH_ARCHS = (("tinyllama_1_1b", {}),
+                    ("hymba_1_5b", {"n_layers": 3, "global_every": 2}))
+SERVE_MESH_CHECK_LAYERS = 2
+SERVE_MESH_FLOOR = 1e-4
+SERVE_MESH_CHAIN_FLOOR = 1e-3
+SERVE_MESH_JOIN_S = 600
 
 
 def fail(msg: str) -> None:
@@ -1762,7 +1811,7 @@ def split_to_device(structs, fields, plans, dev):
 
 
 def sharded_modes(torch, np, mods, g, pg, runs, algos, ref_fn, dev, phases,
-                  split_wait, beside=None, host_work=None):
+                  split_wait, host_work=None):
     """Phase 3b, continued: the (1, 1) mesh (the hierarchical exchanges
     through subgroups of one rank), the pipeline (``PIPELINE_CHUNKS``
     chunks a join, forced) and a ``balance="split"`` partition of the
@@ -1774,9 +1823,8 @@ def sharded_modes(torch, np, mods, g, pg, runs, algos, ref_fn, dev, phases,
     plain version under split and under the pipeline's chunks.  The split
     partition comes from ``split_wait`` (``split_partition``'s host
     result, made in a spawned process from phase 3's oracles on, moved to
-    the card here); ``beside()`` starts work whose card use is not timed while it
-    is waited for, and ``host_work(pgs)`` (host-only, untimed) runs on
-    this thread in that window, before the wait for ``beside``.  Returns
+    the card here); ``host_work(pgs)`` (host-only, untimed) runs on
+    this thread after the wait.  Returns
     (the modes' launches, the two replay rows, the split partition)."""
     import datetime
     import torch.distributed as dist
@@ -1786,15 +1834,12 @@ def sharded_modes(torch, np, mods, g, pg, runs, algos, ref_fn, dev, phases,
     kinds = ("eg", "mir", "all")
     eng_s = api.Engine(backend="pallas", layout="csr", balance="split",
                        split_factor=SPLIT_FACTOR, device=dev)
-    wait_beside = beside() if beside is not None else None
     fields, plans, split_s = phases.run("split-partition-wait", split_wait)
     pgs = phases.run("split-partition-upload", split_to_device, mods[1],
                      fields, plans, dev)
     del fields, plans
     if host_work is not None:
         host_work(pgs)
-    if wait_beside is not None:
-        phases.run("beside-split-wait", wait_beside)
     log(f"[sharded] split partition (split_factor {SPLIT_FACTOR}) of the "
         f"n={g.n} graph and its plans: {split_s:.3f} s on the host (no "
         f"card) in a process from phase 3's oracles on, M={pgs.M} -> "
@@ -6428,6 +6473,314 @@ def mesh_ranks_path(seed):
             "params_worst": worst_p, "step_s": r0["wall_s"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: serving on the (1, 2) mesh (tensor parallelism, the cache's
+# sequence split)
+# ---------------------------------------------------------------------------
+
+def serve_mesh_spawns(count: int):
+    """Phase 18's spawn: (backend, world size): NCCL with a card a rank
+    where the machine has SERVE_MESH_RANKS cards, else gloo on cuda:0."""
+    return ("nccl" if count >= SERVE_MESH_RANKS else "gloo"), SERVE_MESH_RANKS
+
+
+def serve_mesh_bound(torch, got, auto, ref, floor=SERVE_MESH_FLOOR):
+    """(distance of ``got`` from ``auto``, its bound): relative to
+    max|auto|, the bound the larger of ``floor`` and PLAIN_FACTOR times
+    ``ref``'s distance from ``auto``."""
+    return (rel_max(torch, got, auto),
+            max(floor, PLAIN_FACTOR * rel_max(torch, ref, auto)))
+
+
+def serve_mesh_arch(torch, np, arch, over, mesh, dev, seed, rank):
+    """One model served on this rank of the mesh; on rank 0 also on one
+    device, and the gates.  Returns this rank's figures."""
+    import dataclasses
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref_model
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_config(arch), **over)
+    B, S, G = SERVE_MESH_BATCH, SERVE_MESH_PROMPT, SERVE_MESH_GEN
+    L = S + G
+    params = zoo.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    pspecs = sh.placement_specs(sh.param_specs(
+        cfg, mesh, zoo.abstract_params(cfg, mesh.model_size)))
+    local = sh.shard_tree(params, pspecs, mesh)
+    prompts = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
+    ctx = tf.ModelContext(q_chunk=max(S, 64), mesh=mesh)
+    lspec = sh.logits_spec(cfg, ShapeConfig("serve", 1, B, "decode"), mesh)
+    cspecs = zoo.cache_placement(cfg, B, L, mesh)
+    stages = tf.build_stages(cfg)
+    n_attn = sum(s.n_layers for s in stages if s.kind != "ssm")
+    n_ssm = sum(s.n_layers for s in stages if s.kind in ("ssm", "hybrid"))
+
+    def whole(lg):
+        return sh.gather_tree({"x": lg}, {"x": lspec}, mesh)["x"]
+
+    def served(prefill_ms=None):
+        """Prefill and G greedy decode steps on the mesh: (logits, tokens,
+        this rank's cache); ``prefill_ms`` (a list) gets the prefill's and
+        each step's device ms."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(G + 2)]
+        with torch.no_grad():
+            ev[0].record()
+            lg, cache = zoo.prefill(local, cfg, ctx, prompts, max_len=L)
+            logits = [whole(lg)]
+            ev[1].record()
+            toks = [zoo.greedy(logits[-1])]
+            for i in range(G):
+                lg, cache = zoo.decode_step(local, cfg, ctx, toks[-1], cache,
+                                            max_len=L)
+                logits.append(whole(lg))
+                ev[i + 2].record()
+                toks.append(zoo.greedy(logits[-1]))
+        torch.cuda.synchronize()
+        if prefill_ms is not None:
+            prefill_ms += [ev[i].elapsed_time(ev[i + 1])
+                           for i in range(G + 1)]
+        return logits, toks, cache
+
+    served()                                  # warm (allocator, cuBLAS)
+    torch.cuda.synchronize()
+    fk.flash_attention_bhsd.launches = 0      # the counted run starts here
+    sk.ssd_chunk_scan.launches = 0
+    ms = []
+    t0 = time.perf_counter()
+    logits, toks, cache = served(ms)
+    host_s = time.perf_counter() - t0
+    launches = (fk.flash_attention_bhsd.launches,   # ... and ends here
+                sk.ssd_chunk_scan.launches)
+    if launches != (n_attn, n_ssm):
+        fail(f"[serve-mesh] {arch} rank {rank}: launches (flash, SSD) "
+             f"{launches} in the prefill and {G} decode steps, expected "
+             f"({n_attn}, {n_ssm}): the path did not go through the kernels")
+    # each rank's kernel launches against the plain version on its inputs
+    seen = record_launches({"flash": fk, "ssd": sk}, lambda: zoo.prefill(
+        local, cfg, ctx, prompts, max_len=L))
+    f_rows = flash_rows(torch, seen["flash"], fk, flash_attention_ref)
+    s_rows = ssd_rows(torch, seen["ssd"], sk, ssd_scan_ref_model)
+    del seen
+    shapes = sorted({(r["BH"], r["S"], r["d"], r["n_rep"], r["window"])
+                     for r in f_rows})
+    out = {"launches": launches, "flash_shapes": shapes,
+           "ssd_shapes": sorted({(r["b"], r["S"], r["h"], r["P"], r["N"])
+                                 for r in s_rows}),
+           "flash_rel_err": max((r["rel_err"] for r in f_rows), default=0.0),
+           "ssd_rel_err": max((r["rel_err"] for r in s_rows), default=0.0),
+           "flash_ms": sum(r["ms"] for r in f_rows),
+           "ssd_ms": sum(r["ms"] for r in s_rows),
+           "prefill_ms": ms[0], "decode_ms": float(np.median(ms[1:])),
+           "host_s": host_s, "local_k": [
+               tuple(c["k"].shape) for c in cache["stages"] if "k" in c]}
+    # the first layers one by one on the same input, teacher-forced on the
+    # served tokens: the no-cache forward over S + G positions, and the
+    # prefill of the first S and G decode steps (the mesh's forward output
+    # is the next layer's input on both sides)
+    one = tf.ModelContext(q_chunk=max(S, 64))
+    ref = tf.ModelContext(q_chunk=max(S, 64), kernels="ref")
+    seq = torch.cat([prompts] + toks[:-1], dim=1)            # (B, S + G)
+    pos = torch.arange(S + G, dtype=torch.int32, device=dev).expand(B, S + G)
+    stage_of = [i for i, st in enumerate(stages) for _ in range(st.n_layers)]
+
+    def decoded(h, stage, w, c, si):
+        """The layer's prefill of h's first S positions, then its decode
+        of the next G one at a time: (B, G, D)."""
+        clen = zoo._stage_cache_len(stage, L)
+        _, kv, _ = tf.apply_stage_seq(h[:, :S], w, stage, cfg, c,
+                                      pos[:, :S], want_cache=True,
+                                      cache_len=clen)
+        seq_group = None
+        if stage.kind != "ssm":
+            kv["k_pos"] = tf.stage_kpos(B, S, clen, dev)
+        if c.mesh is not None:
+            kv = zoo._place_stage_cache(kv, cspecs["stages"][si], cfg, mesh)
+            if "k" in kv:
+                seq_group = zoo._seq_group(cspecs["stages"][si]["k"], mesh)
+        p = torch.full((B,), S, dtype=torch.int32, device=dev)
+        outs = []
+        for i in range(G):
+            o, kv = tf.apply_stage_decode(h[:, S + i:S + i + 1], w, stage,
+                                          cfg, c, p + i, kv,
+                                          seq_group=seq_group)
+            outs.append(o)
+        return torch.cat(outs, dim=1)
+    layer_errs, decode_errs = [], []
+    with torch.no_grad():
+        h = zoo._embed_in(params, cfg, seq, one)
+        mine = one_layer_stages(local, cfg)[:SERVE_MESH_CHECK_LAYERS]
+        whole_layers = one_layer_stages(params, cfg)[:SERVE_MESH_CHECK_LAYERS]
+        for li, ((stage, sp), (_, wp)) in enumerate(zip(mine, whole_layers)):
+            si = stage_of[li]
+            h_m = tf.apply_stage_seq(h, sp, stage, cfg, ctx, pos)[0]
+            d_m = decoded(h, stage, sp, ctx, si)
+            if rank == 0:
+                h_a = tf.apply_stage_seq(h, wp, stage, cfg, one, pos)[0]
+                h_r = tf.apply_stage_seq(h, wp, stage, cfg, ref, pos)[0]
+                layer_errs.append(serve_mesh_bound(torch, h_m - h, h_a - h,
+                                                   h_r - h))
+                base = h[:, S:]
+                decode_errs.append(serve_mesh_bound(
+                    torch, d_m - base, decoded(h, stage, wp, one, si) - base,
+                    decoded(h, stage, wp, ref, si) - base))
+            h = h_m
+    gathered = sh.gather_tree(cache, cspecs, mesh)
+    del cache
+    if rank != 0:
+        return out
+
+    def one_device(c):
+        """The one-device prefill and decode steps fed the mesh's
+        tokens."""
+        with torch.no_grad():
+            lg, kv = zoo.prefill(params, cfg, c, prompts, max_len=L)
+            got = [lg]
+            for t in toks[:-1]:
+                lg, kv = zoo.decode_step(params, cfg, c, t, kv)
+                got.append(lg)
+        return got, kv
+    auto, auto_cache = one_device(one)
+    plain, plain_cache = one_device(ref)
+    V = cfg.vocab
+    step_errs = [serve_mesh_bound(torch, m[:, :V], a[:, :V], p[:, :V],
+                                  SERVE_MESH_FLOOR if i == 0
+                                  else SERVE_MESH_CHAIN_FLOOR)
+                 for i, (m, a, p) in enumerate(zip(logits, auto, plain))]
+    # the greedy tokens where the one-device top-2 margin clears the bound
+    tok_bad = tok_checked = 0
+    for (e, b), a, t in zip(step_errs, auto, toks):
+        top2 = torch.topk(a[:, :V], 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > b * float(a[:, :V].abs().max())
+        want = zoo.greedy(a)[:, 0]
+        tok_checked += int(clear.sum())
+        tok_bad += int(((want != t[:, 0]) & clear).sum())
+    cache_errs = {}
+    flat_m = dict(flat_state(gathered))
+    for (path, a), (_, p) in zip(flat_state(auto_cache),
+                                 flat_state(plain_cache)):
+        m = flat_m[path]
+        if path.endswith("['k_pos']") or path == "['pos']":
+            cache_errs[path] = (0.0 if torch.equal(m, a) else 1.0, 0.0)
+        else:
+            cache_errs[path] = serve_mesh_bound(torch, m.float(), a.float(),
+                                                p.float())
+    bad = ([f"layer {i}: {e:.3g} > {b:.3g}" for i, (e, b) in
+            enumerate(layer_errs) if not e <= b]
+           + [f"decode layer {i}: {e:.3g} > {b:.3g}" for i, (e, b) in
+              enumerate(decode_errs) if not e <= b]
+           + [f"logits {i}: {e:.3g} > {b:.3g}" for i, (e, b) in
+              enumerate(step_errs) if not e <= b]
+           + [f"cache {p}: {e:.3g} > {b:.3g}" for p, (e, b) in
+              cache_errs.items() if not e <= b])
+    if tok_bad:
+        bad.append(f"{tok_bad} of {tok_checked} clear greedy tokens differ")
+    if bad:
+        fail(f"[serve-mesh] {arch} on the {SERVE_MESH_SHAPE} mesh against one "
+             f"device: {bad[:8]}")
+    out.update(layer_errs=layer_errs, decode_errs=decode_errs,
+               step_errs=step_errs,
+               cache_worst=max(cache_errs.items(),
+                               key=lambda x: x[1][0] / max(x[1][1], 1e-30)),
+               tokens_checked=tok_checked, tokens_total=B * (G + 1))
+    return out
+
+
+def serve_mesh_rank(rank, D, backend, init_method, seed, out_path):
+    """One rank of phase 18: each model of SERVE_MESH_ARCHS served on the
+    (1, 2) mesh (``serve_mesh_arch``); writes its figures."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import datetime
+    import pickle
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as meshlib
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method=init_method, world_size=D, rank=rank,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    try:
+        mesh = meshlib.make_mesh(SERVE_MESH_SHAPE, ("data", "model"))
+        out = {arch: serve_mesh_arch(torch, np, arch, over, mesh, dev, seed,
+                                     rank)
+               for arch, over in SERVE_MESH_ARCHS}
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        Path(f"{out_path}.{rank}").write_bytes(pickle.dumps(out))
+    finally:
+        meshlib.destroy()
+
+
+def serve_mesh_path(seed):
+    """Phase 18 on SERVE_MESH_RANKS spawned ranks: the gates run on rank 0
+    (``serve_mesh_arch``); prints the ``[serve-mesh]`` lines and returns
+    the figures of every rank."""
+    import pickle
+    import tempfile
+    import torch
+    from repro_torch.launch.graph_run import rendezvous, spawn_ranks
+    backend, D = serve_mesh_spawns(torch.cuda.device_count())
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn_ranks(serve_mesh_rank, (D, backend, rendezvous(tmp), seed,
+                                      str(Path(tmp) / "rank")), D,
+                    SERVE_MESH_JOIN_S)
+        wall = time.perf_counter() - t0
+        outs = [pickle.loads((Path(tmp) / f"rank.{r}").read_bytes())
+                for r in range(D)]
+    B, S, G = SERVE_MESH_BATCH, SERVE_MESH_PROMPT, SERVE_MESH_GEN
+    summary = {"backend": backend, "D": D, "wall_s": wall,
+               "peak_gib": [o["peak_gib"] for o in outs]}
+    for arch, _ in SERVE_MESH_ARCHS:
+        r0 = outs[0][arch]
+        for r, o in enumerate(outs):
+            a = o[arch]
+            log(f"[serve-mesh] {arch} rank {r}: {a['launches'][0]} flash "
+                f"launches at (BH, S, d, n_rep, window) {a['flash_shapes']}, "
+                f"{a['launches'][1]} SSD at (b, S, h, P, N) "
+                f"{a['ssd_shapes']}; against the float64 plain version: "
+                f"flash {a['flash_rel_err']:.3g}, SSD {a['ssd_rel_err']:.3g}"
+                f" of max; kernel time flash {a['flash_ms']:.3f} ms, SSD "
+                f"{a['ssd_ms']:.3f} ms a prefill; cache blocks (k) "
+                f"{a['local_k']}")
+        log(f"[serve-mesh] {arch} on the {SERVE_MESH_SHAPE} mesh ({backend}, "
+            f"{D} ranks): B={B} prompt={S} gen={G}: prefill "
+            f"{r0['prefill_ms']:.3f} ms, decode {r0['decode_ms']:.3f} ms a "
+            f"step (median; device clock of rank 0, "
+            + ("gloo staging every collective through the host, "
+               if backend == "gloo" else "")
+            + f"both ranks on one card), {r0['host_s']:.3f} s host for the "
+            "request")
+        log(f"[serve-mesh] {arch} against one device: layers (forward) "
+            + ", ".join(f"{e:.3g} (bound {b:.3g})" for e, b in
+                        r0["layer_errs"])
+            + "; layers (prefill + decode, teacher-forced) "
+            + ", ".join(f"{e:.3g} (bound {b:.3g})" for e, b in
+                        r0["decode_errs"])
+            + "; logits of the prefill and each step, worst "
+            + "{:.3g} (bound {:.3g})".format(*max(
+                r0["step_errs"], key=lambda x: x[0] / x[1]))
+            + f"; cache worst {r0['cache_worst'][0]} "
+            + "{:.3g} (bound {:.3g})".format(*r0["cache_worst"][1])
+            + f"; greedy tokens equal at {r0['tokens_checked']} of "
+            f"{r0['tokens_total']} with a clear one-device margin")
+        summary[arch] = {
+            "launches_per_rank": [o[arch]["launches"] for o in outs],
+            "flash_shapes": r0["flash_shapes"],
+            "ssd_shapes": r0["ssd_shapes"],
+            "prefill_ms": r0["prefill_ms"], "decode_ms": r0["decode_ms"],
+            "host_s": r0["host_s"],
+            "logit_err": max(e for e, _ in r0["step_errs"]),
+            "tokens_checked": r0["tokens_checked"]}
+    log(f"[serve-mesh] {wall:.1f} s of spawned program")
+    return summary
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=4_000_000,
@@ -6483,18 +6836,21 @@ def main():
         "shard_check": phases.run("shard-check", shard_check_path),
         "dist_smoke": phases.run("dist-smoke", dist_smoke_path),
         "moe_ep": phases.run("moe-ep", moe_ep_path, args.seed),
-        "mesh_ranks": phases.run("mesh-ranks", mesh_ranks_path, args.seed)})
+        "mesh_ranks": phases.run("mesh-ranks", mesh_ranks_path, args.seed),
+        "serve_mesh": phases.run("serve-mesh", serve_mesh_path, args.seed)})
     # phase 3c's ranks and phase 9's spawned ranks (card work that is not
-    # timed) run beside the host-only oracles of phase 3 and the split
-    # partition of phase 3b, each waited for at the end of its window
-    side = ThreadPoolExecutor(max_workers=1)
+    # timed) run side by side, each from a thread of its own, beside the
+    # host-only oracles of phase 3, and are both waited for at the end of
+    # that window
+    side = ThreadPoolExecutor(max_workers=2)
     beside_runs = {}
 
-    def beside(name, fn, *a):
-        def start():
-            beside_runs[name] = side.submit(phases.run, name, fn, *a)
-            return beside_runs[name].result
-        return start
+    def beside_3c():
+        for name, fn in (("sharded-D", sharded_many),
+                         ("service-ranks", service_ranks_run)):
+            beside_runs[name] = side.submit(phases.run, name, fn, torch,
+                                            args)
+        return lambda: [beside_runs[n].result() for n in beside_runs]
     mods = (api, structs, gen, cost_model, planlib, kernel)
     # phase 3b's split partition and its plans (host work) in a process
     # of their own from phase 3's oracles on, through the S-V check and
@@ -6502,7 +6858,7 @@ def main():
     split_run = []
     g, A, pg, launches, algos, runs, rr_algos = main_path(
         torch, np, mods, args, dev, phases, ready=launchers_run.result,
-        beside=beside("sharded-D", sharded_many, torch, args),
+        beside=beside_3c,
         host_side=lambda g, pg: split_run.append(phases.run(
             "split-partition-start", start_split_partition, np, planlib, g,
             pg, dev)))
@@ -6511,14 +6867,12 @@ def main():
     phases.run("sv-2^24", large_ids, torch, np, api, structs, kernel, dev)
     sharded_row = sharded_one(torch, np, mods, pg, runs, algos + rr_algos,
                               ref_fn, dev, phases)
-    # the balance lines (host tables only) run while phase 9's ranks hold
-    # the card, before phase 3b's timed runs
+    # the balance lines (host tables only) run before phase 3b's timed runs
     from repro_torch.core import exec as exec_mod
     balance = {}
     mode_launches, replays, pgs = sharded_modes(
         torch, np, mods, g, pg, runs, algos + rr_algos, ref_fn, dev, phases,
         split_run[0],
-        beside=beside("service-ranks", service_ranks_run, torch, args),
         host_work=lambda pgs: balance.update(phases.run(
             "balance", balance_lines, np, exec_mod, pg, pgs,
             planlib.default_nb(dev))))
@@ -6582,6 +6936,12 @@ def main():
                           + whisper["launches"] + train["launches"]
                           + train["mesh"]["launches"])
     flash["per_launch"] += gemma["rows"] + olmoe["rows"] + whisper["rows"]
+    # phase 18's launches, each rank's, beside the count
+    mesh_serve = launchers["serve_mesh"]
+    for i, e in enumerate(serve_entries[:2]):
+        e["launches_mesh_serve"] = {
+            arch: [n[i] for n in mesh_serve[arch]["launches_per_rank"]]
+            for arch, _ in SERVE_MESH_ARCHS}
     flash["max_abs_err"] = max(
         [flash["max_abs_err"]]
         + [r["max_abs_err"]
@@ -6687,6 +7047,7 @@ def main():
     log(f"[launchers] summary {json.dumps(launchers)}")
     log(f"[moe] summary {json.dumps(olmoe['moe'])}")
     log(f"[mesh-train] summary {json.dumps(train['mesh'])}")
+    log(f"[serve-mesh] summary {json.dumps(mesh_serve)}")
     log(json.dumps({"kernels": [entry, vec_entry] + serve_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}),

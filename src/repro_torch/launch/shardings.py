@@ -18,11 +18,14 @@ reference's, rule by rule:
   axes (ZeRO-1); ``fsdp=True`` the parameters too.
 
 Every rule answers from ``mesh.shape`` and ``mesh.axis_names`` alone.  The
-trainer of this port executes a part of them: ``placement_specs`` keeps
-the batch's data axes and the vocab rows of ``embed`` / ``out_embed`` on
-the model axis, and replicates every other leaf (the tensor-parallel
-attention, MLP and SSM shards, the stored expert shards and ZeRO-1 /
-fsdp are not executed yet).  ``shard_tree`` cuts this rank's block of
+trainer and the serving steps of this port execute a part of them:
+``placement_specs`` keeps the batch's data axes, the vocab rows of
+``embed`` / ``out_embed`` and the ``model`` entries of the attention
+(self and cross), MLP and SSM leaves (the tensor-parallel shards: heads,
+d_ff columns and rows, d_inner columns and SSM heads), and replicates every
+other leaf (the stored expert shards and ZeRO-1 / fsdp are not executed
+yet).  A serving cache is placed by ``cache_specs`` as it is, both axes
+and the sequence axis included.  ``shard_tree`` cuts this rank's block of
 each leaf, ``gather_tree`` puts the whole leaf back together.
 """
 from __future__ import annotations
@@ -38,6 +41,7 @@ from repro_torch.launch.mesh import coords_of
 
 VOCAB_LEAVES = ("embed", "out_embed")
 BATCH_LEAVES = ("tokens", "enc_embeds", "token")
+TP_BLOCKS = ("attn", "cross", "mlp", "ssm")
 
 
 def _axsize(mesh, name) -> int:
@@ -240,12 +244,14 @@ def cache_specs(cfg: ArchConfig, shape: ShapeConfig, mesh,
 
 
 def placement_specs(specs) -> Any:
-    """The part of a spec tree that this port's trainer executes: the data
-    axes of the batch's leaves and the model axis of ``embed`` /
-    ``out_embed`` (their vocab rows); every other entry None (replicated).
+    """The part of a spec tree that this port executes: the data axes of
+    the batch's leaves, the model axis of ``embed`` / ``out_embed`` (their
+    vocab rows) and of the leaves under ``attn``, ``cross``, ``mlp`` and
+    ``ssm`` (tensor parallelism); every other entry None (replicated).
     Walks a tree of specs (dicts and lists of spec tuples)."""
     def keep(names, spec):
-        if names and names[-1] in VOCAB_LEAVES:
+        if names and (names[-1] in VOCAB_LEAVES or (
+                len(names) >= 2 and names[-2] in TP_BLOCKS)):
             allowed = ("model",)
         elif names and names[-1] in BATCH_LEAVES:
             allowed = ("pod", "data")
@@ -265,6 +271,40 @@ def placement_specs(specs) -> Any:
             return [walk(v, path + (str(i),)) for i, v in enumerate(tree)]
         return keep(path, tree)
     return walk(specs)
+
+
+def model_leaves(specs) -> tuple:
+    """(the key paths of the leaves split over the model axis, those of
+    the leaves that stay whole but that each rank uses for its own shard
+    only: a whole leaf of an ``attn``, ``cross`` or ``ssm`` block with a
+    split sibling, ``wk`` / ``wv`` beside split query heads, the SSM's
+    ``wB`` / ``wC`` / ``conv_B`` / ``conv_C``) under a placed spec tree;
+    names and list indices as strings.  The second set's gradients must
+    be summed over the model group."""
+    split, partial = set(), set()
+
+    def walk(tree, path=()):
+        if isinstance(tree, list):
+            for i, v in enumerate(tree):
+                walk(v, path + (str(i),))
+        elif isinstance(tree, dict):
+            shared = path and path[-1] in ("attn", "cross", "ssm") and any(
+                "model" in spec for spec in tree.values())
+            for k, v in tree.items():
+                if shared and "model" not in v:
+                    partial.add(path + (k,))
+                walk(v, path + (k,))
+        elif "model" in tree:
+            split.add(path)
+    walk(specs)
+    return split, partial
+
+
+def local_shape(spec, shape, mesh) -> tuple:
+    """The shape of the block that each mesh device holds of a leaf of
+    ``shape`` under ``spec``."""
+    return tuple(s.stop - s.start for s in _blocks(spec, tuple(shape), mesh,
+                                                    mesh.coords))
 
 
 def _blocks(spec, shape, mesh, coords):

@@ -22,6 +22,13 @@ which it makes:
   ranks' slices concatenated; the backward keeps this rank's slice of the
   cotangent) and a replicated value split (this rank's slice; the
   backward concatenates every rank's slice of the cotangent).
+  Along another dimension ``gather_slices`` makes a tensor-parallel
+  rank's head block whole (the decode step's new query, key and value,
+  the prefill's cache heads).
+
+A sum whose replicated result each rank then uses for its own shard only
+(the gated norm's sum of squares over a split d_inner) is
+``sum_cotangents(psum_replicated(x))``: both directions sum.
 
 On a group of one rank each is the identity, and none is called.  Values
 are those of the plain ``torch.distributed`` calls, so a forward under
@@ -80,22 +87,22 @@ class _AllToAll(torch.autograd.Function):
         return out, None
 
 
-def _all_gather_cat(x, group):
+def _all_gather_cat(x, group, dim=0):
     parts = [torch.empty_like(x) for _ in range(group_size(group))]
     dist.all_gather(parts, x, group=group)
-    return torch.cat(parts)
+    return torch.cat(parts, dim=dim)
 
 
 class _GatherSlices(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group, ctx.rows = group, x.shape[0]
-        return _all_gather_cat(x.contiguous(), group)
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.width = group, dim, x.shape[dim]
+        return _all_gather_cat(x.contiguous(), group, dim)
 
     @staticmethod
     def backward(ctx, g):
         r = dist.get_rank(ctx.group)
-        return g[r * ctx.rows:(r + 1) * ctx.rows], None
+        return g.narrow(ctx.dim, r * ctx.width, ctx.width), None, None
 
 
 class _SplitSlices(torch.autograd.Function):
@@ -137,12 +144,13 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return _AllToAll.apply(x, group)
 
 
-def gather_slices(x: torch.Tensor, group) -> torch.Tensor:
-    """Every rank's ``x`` (equal leading sizes) concatenated in rank
-    order, replicated; the backward keeps this rank's rows."""
+def gather_slices(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` (equal sizes) concatenated along ``dim`` in rank
+    order, replicated; the backward keeps this rank's block.  Along the
+    heads axis it makes a tensor-parallel rank's head block whole."""
     if group_size(group) == 1:
         return x
-    return _GatherSlices.apply(x, group)
+    return _GatherSlices.apply(x, group, dim)
 
 
 def split_slices(x: torch.Tensor, group) -> torch.Tensor:

@@ -17,14 +17,27 @@ tensor, so the CPU tests cover the kernel's route); ``"ref"`` always
 takes the JAX package's choice.  The kernel's wrapper is differentiable
 (its ``autograd.Function``: the kernel forward, a plain backward), so
 training takes the same routes.
+
+Tensor parallelism (``group``: the mesh's model group, given where the
+block's leaves are split): each rank holds its heads of ``wq`` / ``wo``
+(and of ``wk`` / ``wv`` where the kv heads split too, else the whole
+leaves, of which it takes the kv heads its query heads read), or its d_ff
+columns of ``w_gate`` / ``w_up`` and rows of ``w_down``.  The block's
+input enters through ``sum_cotangents`` (each rank's products give only
+part of its gradient) and the row-parallel output through
+``psum_replicated``.  A block whose leaves stay whole gets no group and
+computes the replicated result, not summed.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models import collectives as coll
 
 NEG_INF = -2.0 ** 30  # large-but-finite: keeps softmax NaN-free on masked rows
 KERNEL_MODES = ("auto", "kernel", "ref")
@@ -94,6 +107,46 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     b, s, kh, hd = k.shape
     return k[:, :, :, None, :].expand(b, s, kh, n_rep, hd).reshape(
         b, s, kh * n_rep, hd)
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadShard:
+    """A rank's part of an attention block under tensor parallelism:
+    ``spec`` with the rank's head counts, the first of its query heads
+    (``h0``), and the run of kv heads its query heads read from whole
+    ``wk`` / ``wv`` leaves (``kv``, a slice; None where the kv heads split
+    too or nothing splits)."""
+    spec: AttnSpec
+    group: object = None
+    h0: int = 0
+    kv: Optional[slice] = None
+
+    def take_kv(self, t: torch.Tensor) -> torch.Tensor:
+        """The kv heads of a (B, S, K, hd) tensor that this rank reads."""
+        return t if self.kv is None else t[:, :, self.kv]
+
+
+def head_shard(w: dict, spec: AttnSpec, group=None) -> HeadShard:
+    """The rank's heads from its ``wq`` / ``wk`` leaves against the whole
+    counts of ``spec``.  Query head h reads kv head h // (H / K): where the
+    kv heads stay whole, a rank's query heads read a contiguous run of
+    them, H / mp / (H / K) heads, or one kv head shared with other ranks
+    when H / mp divides H / K."""
+    H, K = spec.n_heads, spec.n_kv_heads
+    h_loc, k_loc = w["wq"].shape[-2], w["wk"].shape[-2]
+    if group is None or coll.group_size(group) == 1 or h_loc == H:
+        return HeadShard(spec)
+    h0 = dist.get_rank(group) * h_loc
+    kv = None
+    if k_loc == K:
+        n_rep = H // K
+        if h_loc % n_rep and n_rep % h_loc:
+            raise NotImplementedError(f"{h_loc} query heads a rank over kv "
+                                      f"groups of {n_rep}")
+        kv = slice(h0 // n_rep, -(-(h0 + h_loc) // n_rep))
+        k_loc = kv.stop - kv.start
+    return HeadShard(dataclasses.replace(spec, n_heads=h_loc,
+                                         n_kv_heads=k_loc), group, h0, kv)
 
 
 def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
@@ -169,7 +222,7 @@ def attn_qkv(x: torch.Tensor, w: dict, spec: AttnSpec,
 
 def attn_block(x: torch.Tensor, w: dict, spec: AttnSpec,
                positions: torch.Tensor, cross_kv=None, cross_pos=None,
-               return_kv: bool = False):
+               return_kv: bool = False, group=None):
     """Full attention sub-block (no cache): qkv + attn + out-proj.
 
     Self-attention: ``positions`` are 0..S-1 in every row (prefill, the
@@ -179,7 +232,15 @@ def attn_block(x: torch.Tensor, w: dict, spec: AttnSpec,
     ``positions``, and ``spec`` must be unmasked (``causal=False,
     window=0``), so the kernel takes any query positions, one decode
     token's among them.  return_kv=True also returns the rotated (k, v)
-    so prefill can build the KV cache."""
+    as projected (this rank's kv heads, or all of them where ``wk`` is
+    whole) so prefill can build the KV cache.
+
+    ``group``: the model group where ``wq`` / ``wo`` hold this rank's
+    heads (module docstring); ``cross_kv`` then holds the kv heads of
+    this rank's ``wk`` / ``wv``."""
+    tp = head_shard(w, spec, group)
+    if tp.group is not None:
+        x = coll.sum_cotangents(x, tp.group)
     if cross_kv is None:
         q, k, v = attn_qkv(x, w, spec, positions)
         k_pos = positions
@@ -188,12 +249,16 @@ def attn_block(x: torch.Tensor, w: dict, spec: AttnSpec,
                        spec.rope_theta)
         k, v = cross_kv
         k_pos = cross_pos
+    ka, va, spec = tp.take_kv(k), tp.take_kv(v), tp.spec
     if use_kernel(spec.kernels, x):
-        o = flash_attention(q, k, v, causal=spec.causal, window=spec.window)
+        o = flash_attention(q, ka, va, causal=spec.causal,
+                            window=spec.window)
     else:
         impl = attention if x.shape[1] <= spec.q_chunk else chunked_attention
-        o = impl(q, k, v, spec, positions, k_pos)
+        o = impl(q, ka, va, spec, positions, k_pos)
     out = torch.einsum("bshk,hkd->bsd", o, w["wo"])
+    if tp.group is not None:
+        out = coll.psum_replicated(out, tp.group)
     if return_kv:
         return out, (k, v)
     return out
@@ -224,6 +289,30 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.to(q.dtype)
 
 
+def decode_attention_split(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, valid: torch.Tensor,
+                           scale: float,
+                           seq_group: Optional[object]) -> torch.Tensor:
+    """One-token decode against this rank's block of a cache whose
+    sequence axis is split over ``seq_group`` (flash-decode): q (B, 1, H,
+    hd) all heads; k / v (B, Sc_loc, H, hd), the kv heads already repeated
+    to the query heads; valid (B, Sc_loc).  Each rank scores its slots
+    (invalid ones the finite NEG_INF), the row max is all-reduced (max)
+    over the group, and each rank's exp-weighted value sum and weight
+    sum, taken against that max, are all-reduced (sum) together: a block
+    with no valid slot weighs exp(NEG_INF - max) = 0.  Returns (B, 1, H,
+    hd), replicated over the group."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    m = coll.psum_replicated(torch.amax(scores, dim=-1, keepdim=True),
+                             seq_group, dist.ReduceOp.MAX)
+    p = torch.exp(scores - m)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v).float()
+    l_ = torch.sum(p, dim=-1).transpose(1, 2)[..., None]    # (B, 1, H, 1)
+    both = coll.psum_replicated(torch.cat([o, l_], dim=-1), seq_group)
+    return (both[..., :-1] / both[..., -1:]).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
@@ -232,8 +321,12 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
-def swiglu(x: torch.Tensor, w: dict) -> torch.Tensor:
-    """w['w_gate'/'w_up']: (D,F), w['w_down']: (F,D)."""
+def swiglu(x: torch.Tensor, w: dict, group=None) -> torch.Tensor:
+    """w['w_gate'/'w_up']: (D,F), w['w_down']: (F,D); ``group``: the
+    model group where they hold this rank's d_ff columns and rows."""
+    if group is not None:
+        x = coll.sum_cotangents(x, group)
     g = torch.einsum("bsd,df->bsf", x, w["w_gate"])
     u = torch.einsum("bsd,df->bsf", x, w["w_up"])
-    return torch.einsum("bsf,fd->bsd", silu(g) * u, w["w_down"])
+    out = torch.einsum("bsf,fd->bsd", silu(g) * u, w["w_down"])
+    return out if group is None else coll.psum_replicated(out, group)

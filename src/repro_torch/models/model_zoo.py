@@ -2,7 +2,8 @@
 or abstract, on the ``meta`` device), the weights carried across from the
 JAX package, the full forward and the training loss (``loss_fn``), on one
 device or on the training mesh (``ModelContext.mesh``), and the serving
-entry points on one device (cache build, prefill, decode) --
+entry points (cache build, prefill, decode), on one device or on the mesh
+(the cache placed as ``launch.shardings.cache_specs`` places it) --
 the port of ``repro.models.model_zoo`` for every stage kind: ``dense``,
 ``ssm``, ``hybrid``, ``moe``, and the encoder-decoder's ``enc`` and
 ``dec_cross``.
@@ -32,8 +33,11 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.launch import shardings as sh
+from repro_torch.models import collectives as coll
 from repro_torch.models import embedding as emb
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.transformer import (ModelContext, StageSpec,
@@ -266,6 +270,11 @@ def _mask_pad_vocab(logits: torch.Tensor, vocab: int,
     return torch.where(iota < vocab, logits, NEG_INF_F32)
 
 
+def _vocab_first(logits: torch.Tensor, mesh) -> int:
+    """The first vocab column of this rank's logits."""
+    return 0 if mesh is None else mesh.model_rank * logits.shape[-1]
+
+
 def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
@@ -288,13 +297,6 @@ def _run_encoder(params, cfg: ArchConfig, ctx: ModelContext,
     return rms_norm(h, params["enc"]["final_norm"], cfg.norm_eps)
 
 
-def _no_mesh(ctx: ModelContext, what: str) -> None:
-    if ctx.mesh is not None:
-        raise NotImplementedError(f"{what} on the mesh (the cache_specs "
-                                  "placement) is not ported yet: serve with "
-                                  "mesh=None")
-
-
 def forward_logits(params, cfg: ArchConfig, ctx: ModelContext,
                    tokens: torch.Tensor, enc_embeds=None):
     """tokens: (B, S) -> (logits (B, S, V_pad) float32, aux loss).  On the
@@ -311,9 +313,8 @@ def forward_logits(params, cfg: ArchConfig, ctx: ModelContext,
         aux_total = aux_total + aux
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = emb.logits_matmul(h, params["out_embed"], ctx.mesh)
-    first = 0 if ctx.mesh is None else (ctx.mesh.model_rank
-                                        * logits.shape[-1])
-    return _mask_pad_vocab(logits, cfg.vocab, first), aux_total
+    return (_mask_pad_vocab(logits, cfg.vocab, _vocab_first(logits, ctx.mesh)),
+            aux_total)
 
 
 def loss_fn(params, cfg: ArchConfig, ctx: ModelContext, batch,
@@ -347,36 +348,119 @@ def _stage_cache_len(stage: StageSpec, seq_len: int) -> int:
     return min(stage.window, seq_len) if stage.window else seq_len
 
 
-def build_cache(cfg: ArchConfig, B: int, seq_len: int, ctx: ModelContext,
-                dtype: torch.dtype = torch.bfloat16, device="cuda"):
-    """An empty cache for decode at context ``seq_len`` (zeros; the JAX
-    package's layout)."""
-    check_supported(cfg)
+def _build_cache(cfg: ArchConfig, B: int, seq_len: int, mk):
+    """The cache tree of ``mk(shape, dtype key)`` leaves (the JAX package's
+    layout)."""
     K, hd = cfg.n_kv_heads, cfg.hd
-
-    def mk(shape, dt):
-        return torch.zeros(shape, dtype=dt, device=device)
     caches = []
     for stage in build_stages(cfg):
         L = stage.n_layers
         c: Dict[str, Any] = {}
         clen = _stage_cache_len(stage, seq_len)
         if stage.kind in ("dense", "hybrid", "moe", "dec_cross"):
-            c["k"] = mk((L, B, clen, K, hd), dtype)
-            c["v"] = mk((L, B, clen, K, hd), dtype)
-            c["k_pos"] = mk((B, clen), torch.int32)
+            c["k"] = mk((L, B, clen, K, hd), "act")
+            c["v"] = mk((L, B, clen, K, hd), "act")
+            c["k_pos"] = mk((B, clen), "int")
         if stage.kind in ("ssm", "hybrid"):
             di, gn = cfg.d_inner, cfg.ssm.n_groups * cfg.ssm.d_state
             w = cfg.ssm.conv_width
-            c["conv"] = (mk((L, B, w - 1, di), dtype),
-                         mk((L, B, w - 1, gn), dtype),
-                         mk((L, B, w - 1, gn), dtype))
+            c["conv"] = (mk((L, B, w - 1, di), "act"),
+                         mk((L, B, w - 1, gn), "act"),
+                         mk((L, B, w - 1, gn), "act"))
             c["state"] = mk((L, B, cfg.n_ssm_heads, cfg.ssm.head_dim,
-                             cfg.ssm.d_state), torch.float32)
+                             cfg.ssm.d_state), "f32")
         caches.append(c)
-    out = {"stages": caches, "pos": mk((B,), torch.int32)}
+    out = {"stages": caches, "pos": mk((B,), "int")}
     if cfg.enc_dec:
-        out["enc_out"] = mk((B, cfg.enc_seq, cfg.d_model), dtype)
+        out["enc_out"] = mk((B, cfg.enc_seq, cfg.d_model), "act")
+    return out
+
+
+def cache_placement(cfg: ArchConfig, B: int, seq_len: int, mesh):
+    """``cache_specs`` of the cache for a global batch ``B`` at context
+    ``seq_len`` on ``mesh``."""
+    shape = ShapeConfig("serve", seq_len, B, "decode")
+    return sh.cache_specs(cfg, shape, mesh, _build_cache(
+        cfg, B, seq_len, lambda s, _: torch.empty(s, device="meta")))
+
+
+def build_cache(cfg: ArchConfig, B: int, seq_len: int, ctx: ModelContext,
+                dtype: torch.dtype = torch.bfloat16, device="cuda"):
+    """An empty cache for decode at context ``seq_len`` (zeros; the JAX
+    package's layout); on the mesh this rank's block of ``cache_specs``
+    for the global batch ``B``."""
+    check_supported(cfg)
+    types = {"act": dtype, "int": torch.int32, "f32": torch.float32}
+    if ctx.mesh is None:
+        return _build_cache(cfg, B, seq_len, lambda s, t: torch.zeros(
+            s, dtype=types[t], device=device))
+    specs = cache_placement(cfg, B, seq_len, ctx.mesh)
+    whole = _build_cache(cfg, B, seq_len, lambda s, t: torch.empty(
+        s, dtype=types[t], device="meta"))
+    return sh._zip(whole, specs, lambda _, t, spec: torch.zeros(
+        sh.local_shape(spec, t.shape, ctx.mesh), dtype=t.dtype,
+        device=device))
+
+
+def _data_rows(x: torch.Tensor, mesh, batch_split: bool) -> torch.Tensor:
+    """This rank's rows of the global batch ``x`` (all of them where the
+    batch does not split over the data axes)."""
+    if mesh is None or not batch_split:
+        return x
+    b = x.shape[0] // mesh.data_size
+    return x[mesh.data_rank * b:(mesh.data_rank + 1) * b]
+
+
+def _seq_group(spec, mesh):
+    """(process group, block index) of a stage cache's sequence axis under
+    its ``k`` spec (None: whole on each rank)."""
+    e = spec[2]
+    if e is None:
+        return None
+    if e == "model":
+        return mesh.model_group, mesh.model_rank
+    if tuple(e) != tuple(mesh.axis_names):
+        raise NotImplementedError(f"a cache sequence axis over {e}")
+    return dist.group.WORLD, mesh.rank
+
+
+def _block(t: torch.Tensor, dim: int, split, index: int) -> torch.Tensor:
+    """Block ``index`` of ``t`` along ``dim`` in ``split`` parts (``t``
+    itself for one part)."""
+    if split <= 1:
+        return t
+    n = t.shape[dim] // split
+    return t.narrow(dim, index * n, n).contiguous()
+
+
+def _place_stage_cache(cache: dict, specs: dict, cfg: ArchConfig,
+                       mesh) -> dict:
+    """A stage's prefill cache (this rank's rows; its kv heads, or all of
+    them where ``wk`` is whole; its SSM columns and heads, or all) cut to
+    its block of ``specs``: the kv heads gathered over the model group,
+    then the rank's block of slots; where the cache splits a conv block
+    that the weights keep whole (d_inner / mp not a multiple of the SSM
+    head dim: Hymba-1.5B at mp 16), the rank's columns.  The state splits
+    exactly where the SSM's heads do."""
+    mp = mesh.model_size
+    out = dict(cache)
+    if "k" in cache:
+        sg = _seq_group(specs["k"], mesh)
+        parts, index = ((1, 0) if sg is None else
+                        (coll.group_size(sg[0]), sg[1]))
+        for name in ("k", "v"):
+            t = cache[name]
+            if t.shape[3] < cfg.n_kv_heads:
+                t = coll.gather_slices(t, mesh.model_group, dim=3)
+            out[name] = _block(t, 2, parts, index)
+        out["k_pos"] = _block(cache["k_pos"], 1, parts, index)
+    if "conv" in cache:
+        out["conv"] = tuple(
+            _block(c, 3, mp if sp[3] == "model" and c.shape[3] == whole
+                   else 1, mesh.model_rank)
+            for c, sp, whole in zip(cache["conv"], specs["conv"],
+                                    (cfg.d_inner,) + (cfg.ssm.n_groups
+                                                      * cfg.ssm.d_state,) * 2))
     return out
 
 
@@ -386,53 +470,88 @@ def prefill(params, cfg: ArchConfig, ctx: ModelContext, tokens: torch.Tensor,
     encoder-decoder model.  Returns (last-token logits (B, V_pad), cache).
 
     ``max_len`` sets the global-attention cache capacity (>= S + the
-    decode steps to come); window stages always hold ``window`` slots."""
-    _no_mesh(ctx, "prefill")
+    decode steps to come); window stages always hold ``window`` slots.
+
+    On the mesh (``ctx.mesh``) ``tokens`` and ``enc_embeds`` are the
+    global batch, of which the rank runs its data slice (all of it where
+    the batch does not split over the data axes), and the results are
+    its blocks of ``logits_spec`` (its rows, its vocab columns) and of
+    ``cache_specs`` (``cache_placement``)."""
+    mesh = ctx.mesh
     B, S = tokens.shape
     max_len = max(max_len, S)
+    specs = None
+    if mesh is not None:
+        specs = cache_placement(cfg, B, max_len, mesh)
+        split = specs["pos"][0] is not None
+        tokens = _data_rows(tokens, mesh, split)
+        if enc_embeds is not None:
+            enc_embeds = _data_rows(enc_embeds, mesh, split)
+        B = tokens.shape[0]
     pos = _positions(B, S, tokens.device)
     h = _embed_in(params, cfg, tokens, ctx)
     enc_out = _run_encoder(params, cfg, ctx, enc_embeds)
     caches = []
-    for sp, stage in zip(params["stages"], build_stages(cfg)):
+    for i, (sp, stage) in enumerate(zip(params["stages"],
+                                        build_stages(cfg))):
         clen = _stage_cache_len(stage, max_len)
         h, cache, _ = apply_stage_seq(h, sp, stage, cfg, ctx, pos,
                                       enc_out=enc_out, want_cache=True,
                                       cache_len=clen)
         if stage.kind != "ssm":
             cache["k_pos"] = stage_kpos(B, S, clen, tokens.device)
+        if mesh is not None:
+            cache = _place_stage_cache(cache, specs["stages"][i], cfg, mesh)
         caches.append(cache)
     h = rms_norm(h[:, -1:], params["final_norm"], cfg.norm_eps)
-    logits = emb.logits_matmul(h, params["out_embed"])[:, 0]
+    logits = emb.logits_matmul(h, params["out_embed"], mesh)[:, 0]
     out = {"stages": caches,
            "pos": torch.full((B,), S, dtype=torch.int32,
                              device=tokens.device)}
     if cfg.enc_dec:
         out["enc_out"] = enc_out
-    return _mask_pad_vocab(logits, cfg.vocab), out
+    return _mask_pad_vocab(logits, cfg.vocab, _vocab_first(logits, mesh)), out
 
 
 def decode_step(params, cfg: ArchConfig, ctx: ModelContext,
-                token: torch.Tensor, cache: Dict[str, Any]):
+                token: torch.Tensor, cache: Dict[str, Any],
+                max_len: int = 0):
     """token: (B, 1) int; cache from prefill/build_cache.  Returns (logits
     (B, V_pad), new cache).  The K/V ring buffers are written in place
-    (see ``apply_stage_decode``)."""
-    _no_mesh(ctx, "decode_step")
+    (see ``apply_stage_decode``).
+
+    On the mesh ``token`` is the global batch, ``cache`` this rank's block
+    and ``max_len`` the context that ``prefill`` / ``build_cache`` placed
+    it for (``cache_specs`` splits by it); the logits are the rank's block
+    of ``logits_spec``."""
+    mesh = ctx.mesh
+    seq = None
+    if mesh is not None:
+        if max_len <= 0:
+            raise ValueError("decode_step on the mesh needs max_len, the "
+                             "context the cache was placed for")
+        specs = cache_placement(cfg, token.shape[0], max_len, mesh)
+        token = _data_rows(token, mesh, specs["pos"][0] is not None)
+        seq = [_seq_group(s["k"], mesh) if "k" in s else None
+               for s in specs["stages"]]
     pos = cache["pos"]
     h = _embed_in(params, cfg, token, ctx)
     enc_out = cache.get("enc_out")
     new_stages = []
-    for sp, stage, sc in zip(params["stages"], build_stages(cfg),
-                             cache["stages"]):
+    for i, (sp, stage, sc) in enumerate(zip(params["stages"],
+                                            build_stages(cfg),
+                                            cache["stages"])):
         h, nc = apply_stage_decode(h, sp, stage, cfg, ctx, pos, sc,
-                                   enc_out=enc_out)
+                                   enc_out=enc_out,
+                                   seq_group=None if seq is None else seq[i])
         new_stages.append(nc)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = emb.logits_matmul(h, params["out_embed"])[:, 0]
+    logits = emb.logits_matmul(h, params["out_embed"], mesh)[:, 0]
     new_cache = {"stages": new_stages, "pos": pos + 1}
     if cfg.enc_dec:
         new_cache["enc_out"] = enc_out
-    return _mask_pad_vocab(logits, cfg.vocab), new_cache
+    return (_mask_pad_vocab(logits, cfg.vocab, _vocab_first(logits, mesh)),
+            new_cache)
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,15 @@ chunk rule.  ``"kernel"`` always goes through the kernel's wrapper,
 ``"ref"`` always runs ``ssd_chunked``.  The wrapper is differentiable (its
 ``autograd.Function`` recomputes ``ssd_chunked`` in the backward pass),
 so training takes the same routes.
+
+Tensor parallelism (``group``: the mesh's model group, given where the
+block's leaves are split): each rank holds its d_inner columns of ``wz``,
+``wx``, ``conv_x``, ``norm`` and rows of ``out_proj``, and its heads of
+``wdt``, ``A_log``, ``D_skip`` and ``dt_bias``; ``wB``, ``wC``, ``conv_B``
+and ``conv_C`` stay whole (the groups are shared by the heads).  The
+input enters through ``sum_cotangents``, the gated norm's sum of squares
+is summed over the group (an RMS over the whole d_inner), and the
+``out_proj`` product through ``psum_replicated``.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ import torch
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels.ssd_scan.kernel import ssd_chunk_scan
+from repro_torch.models import collectives as coll
 from repro_torch.models.layers import rms_norm, silu, use_kernel
 
 
@@ -134,16 +144,34 @@ def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
     return y, new_state
 
 
+def _split_rms_norm(x: torch.Tensor, gamma: torch.Tensor, group,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """``rms_norm`` over the whole last axis of which each rank of
+    ``group`` holds its columns: the sum of squares summed over the group
+    (both ways: every rank's columns read the mean)."""
+    dt = x.dtype
+    x = x.float()
+    sq = torch.sum(torch.square(x), dim=-1, keepdim=True)
+    sq = coll.sum_cotangents(coll.psum_replicated(sq, group), group)
+    var = sq / (x.shape[-1] * coll.group_size(group))
+    return ((x * torch.rsqrt(var + eps)) * (1.0 + gamma.float())).to(dt)
+
+
 def mamba_block(x: torch.Tensor, w: dict, cfg: SSMConfig, d_model: int,
                 conv_state=None, ssm_state=None, decode: bool = False,
-                kernels: str = "auto"):
+                kernels: str = "auto", group=None):
     """Mamba-2 mixer. x: (b, s, d_model). Weights:
       wz/wx (D, d_inner), wB/wC (D, g*n), wdt (D, h),
       conv_x (width, d_inner), conv_B/conv_C (width, g*n),
       A_log (h,), D_skip (h,), dt_bias (h,), norm (d_inner,),
-      out_proj (d_inner, D).
+      out_proj (d_inner, D)
+    (d_inner and h this rank's under ``group``; the states its too).
     Returns (y, (conv_states, ssm_state)).
     """
+    if group is not None:
+        if w["wB"].shape[1] != cfg.d_state:
+            raise NotImplementedError("a split SSM with several B/C groups")
+        x = coll.sum_cotangents(x, group)
     b, s, _ = x.shape
     d_inner = w["wx"].shape[1]
     h = w["A_log"].shape[0]
@@ -186,6 +214,11 @@ def mamba_block(x: torch.Tensor, w: dict, cfg: SSMConfig, d_model: int,
                                    init_state=ssm_state)
     y = y + xh * w["D_skip"].to(y.dtype)[None, None, :, None]
     y = y.reshape(b, s, d_inner)
-    y = rms_norm(y * silu(z), w["norm"])
+    if group is None:
+        y = rms_norm(y * silu(z), w["norm"])
+    else:
+        y = _split_rms_norm(y * silu(z), w["norm"], group)
     out = torch.einsum("bse,ed->bsd", y, w["out_proj"])
+    if group is not None:
+        out = coll.psum_replicated(out, group)
     return out, ((cx, cb, cc), new_state)

@@ -37,6 +37,20 @@ runs ``moe_ffn_ep`` and gathers the slices back, as the reference's
 ``shard_map`` does.  Under ``ModelContext.mesh`` the same happens within
 each data slice over the mesh's model group.  The stage's aux loss is the
 sum of its layers'.
+
+Under ``ModelContext.mesh`` the attention (self and cross), MLP and SSM
+blocks are tensor-parallel over the model group wherever their leaves
+hold this rank's shard (``launch.shardings.placement_specs``): each rank
+runs its heads or columns and the row-parallel outputs are summed
+(``layers``, ``ssm``); a block whose leaves stay whole runs whole on
+every rank.  A hybrid layer adds the replicated or summed attention and
+the summed SSM output, each once.  The decode step takes the cache as
+``cache_specs`` places it: all kv heads of the rank's block of slots
+(``seq_group``, when the sequence axis is split), so the new token's
+query, key and value are gathered over the model group, the key and
+value written by the rank that owns the slot, and the slots' softmax
+combined over the sequence group (``layers.decode_attention_split``);
+the SSM's conv and state blocks are its columns and heads.
 """
 from __future__ import annotations
 
@@ -50,8 +64,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import (KERNEL_MODES, NEG_INF, AttnSpec,
-                                       apply_rope, attn_block, rms_norm,
-                                       swiglu)
+                                       apply_rope, attn_block,
+                                       decode_attention_split, head_shard,
+                                       rms_norm, swiglu)
 from repro_torch.models import collectives as coll
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.moe import MoEContext, moe_ffn_ep, moe_ffn_ref
@@ -126,8 +141,10 @@ class ModelContext:
     ``mesh`` (a ``launch.mesh.Mesh``; None: no mesh) is the reference's
     training mesh, with its ``dp_axes`` and ``ep_axis``: each rank runs its
     data slice, ``embed`` and ``out_embed`` hold this rank's vocab rows,
-    and the MoE layers split the slice's tokens over the model group,
-    which is also their EP group (``moe`` must then be None)."""
+    the MoE layers split the slice's tokens over the model group,
+    which is also their EP group (``moe`` must then be None), and the
+    attention, MLP and SSM blocks whose leaves hold this rank's shard run
+    tensor-parallel over the same group (``tp_group``)."""
     q_chunk: int = 1024
     kernels: str = "auto"          # "auto" | "kernel" | "ref" (layers.py)
     moe: Optional[MoEContext] = None
@@ -173,6 +190,19 @@ class ModelContext:
         if self.mesh is not None:
             return self.mesh.model_group
         return None if self.moe is None else dist.group.WORLD
+
+    @property
+    def tp_group(self):
+        """The model group of the tensor-parallel blocks (None without a
+        mesh, or on a model axis of one)."""
+        if self.mesh is None or self.mesh.model_size == 1:
+            return None
+        return self.mesh.model_group
+
+    def split(self, local: int, whole: int):
+        """``tp_group`` where a block's leaf holds ``local`` of its
+        ``whole`` heads or columns (this rank's shard), else None."""
+        return self.tp_group if local != whole else None
 
     @property
     def moe_context(self) -> Optional[MoEContext]:
@@ -221,20 +251,39 @@ def _attn_spec(cfg: ArchConfig, window: int, ctx: ModelContext,
                     window=window, q_chunk=ctx.q_chunk, kernels=ctx.kernels)
 
 
-def _cross_attend(h, w, spec: AttnSpec, cfg: ArchConfig, q_pos, enc_out):
+def _cross_attend(h, w, spec: AttnSpec, cfg: ArchConfig, q_pos, enc_out,
+                  ctx: Optional[ModelContext] = None):
     """The ``dec_cross`` layer's cross-attention update: the queries of
     rms_norm(h, norm_cross) at ``q_pos`` against the K/V projected from
     ``enc_out`` (B, Se, D) at the frames' positions 0..Se-1, unmasked
-    (through the flash kernel on the card under "auto")."""
+    (through the flash kernel on the card under "auto"); on this rank's
+    heads where ``cross`` is split (``enc_out`` then enters through
+    ``sum_cotangents``)."""
     B, Se = enc_out.shape[0], enc_out.shape[1]
+    group = (None if ctx is None
+             else ctx.split(w["cross"]["wq"].shape[-2], cfg.n_heads))
     cpos = torch.arange(Se, dtype=torch.int32,
                         device=enc_out.device).expand(B, Se)
-    ck = torch.einsum("bsd,dhk->bshk", enc_out, w["cross"]["wk"])
-    cv = torch.einsum("bsd,dhk->bshk", enc_out, w["cross"]["wv"])
+    enc = enc_out if group is None else coll.sum_cotangents(enc_out, group)
+    ck = torch.einsum("bsd,dhk->bshk", enc, w["cross"]["wk"])
+    cv = torch.einsum("bsd,dhk->bshk", enc, w["cross"]["wv"])
     cspec = dataclasses.replace(spec, causal=False, window=0)
     return attn_block(rms_norm(h, w["norm_cross"], cfg.norm_eps),
                       w["cross"], cspec, q_pos, cross_kv=(ck, cv),
-                      cross_pos=cpos)
+                      cross_pos=cpos, group=group)
+
+
+def _groups(w: dict, cfg: ArchConfig, ctx: ModelContext) -> dict:
+    """The tensor-parallel group of each block of a layer (None where its
+    leaves are whole)."""
+    out = {}
+    if "attn" in w:
+        out["attn"] = ctx.split(w["attn"]["wq"].shape[-2], cfg.n_heads)
+    if "ssm" in w:
+        out["ssm"] = ctx.split(w["ssm"]["wx"].shape[-1], cfg.d_inner)
+    if "mlp" in w:
+        out["mlp"] = ctx.split(w["mlp"]["w_gate"].shape[-1], cfg.d_ff)
+    return out
 
 
 def _layer(sp: dict, i: int) -> dict:
@@ -315,29 +364,34 @@ def apply_stage_seq(h, sp, stage: StageSpec, cfg: ArchConfig,
     def layer(h, w):
         """One layer: (h, aux loss or None, cache)."""
         cache, aux = {}, None
+        groups = _groups(w, cfg, ctx)
         xn = rms_norm(h, w["norm1"], cfg.norm_eps)
         if stage.kind == "ssm":
             y, (cst, sst) = mamba_block(xn, w["ssm"], cfg.ssm, cfg.d_model,
-                                        kernels=ctx.kernels)
+                                        kernels=ctx.kernels,
+                                        group=groups["ssm"])
             h = h + y
             if want_cache:
                 cache = {"conv": cst, "state": sst}
             return h, aux, cache
-        a = attn_block(xn, w["attn"], spec, positions, return_kv=want_cache)
+        a = attn_block(xn, w["attn"], spec, positions, return_kv=want_cache,
+                       group=groups["attn"])
         if want_cache:
             a, (kf, vf) = a
         if stage.kind == "hybrid":
             m, (cst, sst) = mamba_block(xn, w["ssm"], cfg.ssm, cfg.d_model,
-                                        kernels=ctx.kernels)
+                                        kernels=ctx.kernels,
+                                        group=groups["ssm"])
             h = h + a + m
         else:
             h = h + a
         if stage.kind == "dec_cross":
-            h = h + _cross_attend(h, w, spec, cfg, positions, enc_out)
+            h = h + _cross_attend(h, w, spec, cfg, positions, enc_out, ctx)
         if stage.kind == "moe":
             h, aux = _moe_update(h, w, cfg, ctx)
         else:
-            h = h + swiglu(rms_norm(h, w["norm2"], cfg.norm_eps), w["mlp"])
+            h = h + swiglu(rms_norm(h, w["norm2"], cfg.norm_eps), w["mlp"],
+                           groups["mlp"])
         if want_cache:
             kc, vc = _tail_cache(kf, vf, cache_len)
             cache = {"k": kc, "v": vc}
@@ -394,73 +448,142 @@ def stage_kpos(B: int, S: int, clen: int, device=None) -> torch.Tensor:
 # single-token decode stage application
 # ---------------------------------------------------------------------------
 
+def _ssm_decode(xn, w, lc, cfg: ArchConfig, group, ctx: ModelContext):
+    """The SSM's decode step on this rank's cache blocks: a conv block
+    narrower than the columns the rank computes (the cache splits what
+    the weights keep whole) is gathered over the model group first and
+    cut back after."""
+    mg = ctx.tp_group
+    widths = (w["wx"].shape[-1], w["wB"].shape[-1], w["wC"].shape[-1])
+    conv = tuple(c if c.shape[-1] == n else coll.gather_slices(c, mg, dim=-1)
+                 for c, n in zip(lc["conv"], widths))
+    y, (cst, sst) = mamba_block(xn, w, cfg.ssm, cfg.d_model,
+                                conv_state=conv, ssm_state=lc["state"],
+                                decode=True, group=group)
+    cst = tuple(c if c.shape[-1] == old.shape[-1] else
+                c.narrow(-1, dist.get_rank(mg) * old.shape[-1],
+                         old.shape[-1]).contiguous()
+                for c, old in zip(cst, lc["conv"]))
+    return y, cst, sst
+
+
 def apply_stage_decode(h, sp, stage: StageSpec, cfg: ArchConfig,
-                       ctx: ModelContext, pos, cache, enc_out=None):
+                       ctx: ModelContext, pos, cache, enc_out=None,
+                       seq_group=None):
     """h: (B, 1, D); pos: (B,) int; cache: a stage cache {layer leaves...,
     'k_pos'?}; enc_out: the encoder's output, for a ``dec_cross`` stage.
     Returns (h, new_cache).  The K/V ring buffers of ``cache`` are written
     in place (one slot a layer) and shared with the new cache; every other
-    leaf is new."""
+    leaf is new.
+
+    On the mesh ``cache`` is this rank's block of ``cache_specs``: all kv
+    heads, and where ``seq_group`` is a (process group, index) pair, the
+    index-th block of the slots (the sequence axis split over the
+    group)."""
     check_kind(stage)
     spec = _attn_spec(cfg, stage.window, ctx)
     B = h.shape[0]
     bidx = torch.arange(B, device=h.device)
     k_pos = cache.get("k_pos")
     new_k_pos = None
+    sgroup, parts, block = None, 1, 0
+    if seq_group is not None and coll.group_size(seq_group[0]) > 1:
+        sgroup, block = seq_group
+        parts = coll.group_size(sgroup)
     if k_pos is not None:
         clen = k_pos.shape[1]
-        slot = (pos % clen).long()
+        slot = (pos % (clen * parts)).long()
         new_k_pos = k_pos.clone()
-        new_k_pos[bidx, slot] = pos.to(k_pos.dtype)
+        if sgroup is None:
+            new_k_pos[bidx, slot] = pos.to(k_pos.dtype)
+        else:
+            # the rank that owns the slot writes it; the others write back
+            # what they hold
+            mine = slot // clen == block
+            slot = slot % clen
+            new_k_pos[bidx, slot] = torch.where(mine, pos.to(k_pos.dtype),
+                                                k_pos[bidx, slot])
         valid = (new_k_pos >= 0) & (new_k_pos <= pos[:, None])
         if spec.window:
             valid &= new_k_pos > (pos[:, None] - spec.window)
     n_rep = spec.n_heads // max(spec.n_kv_heads, 1)
 
-    def attend_cached(xn, w, kc, vc):
+    def write(c, new):
+        if sgroup is None:
+            c[bidx, slot] = new.to(c.dtype)
+        else:
+            c[bidx, slot] = torch.where(mine[:, None, None], new.to(c.dtype),
+                                        c[bidx, slot])
+
+    def attend_cached(xn, w, kc, vc, group):
+        tp = head_shard(w, spec, group)
         q = torch.einsum("bsd,dhk->bshk", xn, w["wq"])
         q = apply_rope(q, pos[:, None], spec.rope_theta)
         k_new = apply_rope(torch.einsum("bsd,dhk->bshk", xn, w["wk"]),
                            pos[:, None], spec.rope_theta)
         v_new = torch.einsum("bsd,dhk->bshk", xn, w["wv"])
-        kc[bidx, slot] = k_new[:, 0].to(kc.dtype)
-        vc[bidx, slot] = v_new[:, 0].to(vc.dtype)
+        if tp.group is not None:
+            # the new token's heads made whole: q always, k and v where
+            # their heads split too (one gather of the packed blocks)
+            both = [q] + ([k_new, v_new] if k_new.shape[2] < kc.shape[2]
+                          else [])
+            widths = [t.shape[2] for t in both]
+            got = coll.gather_slices(torch.cat(both, dim=2), tp.group,
+                                      dim=2)
+            got = got.view(B, 1, -1, sum(widths), q.shape[-1])
+            whole = [t.reshape(B, 1, -1, q.shape[-1])
+                     for t in got.split(widths, dim=3)]
+            q = whole[0]
+            if len(whole) == 3:
+                k_new, v_new = whole[1], whole[2]
+        write(kc, k_new[:, 0])
+        write(vc, v_new[:, 0])
         kf = torch.repeat_interleave(kc, n_rep, dim=2) if n_rep > 1 else kc
         vf = torch.repeat_interleave(vc, n_rep, dim=2) if n_rep > 1 else vc
-        scores = (torch.einsum("bqhd,bkhd->bhqk", q, kf).float()
-                  * spec.head_dim ** -0.5)
-        scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
-        p = torch.softmax(scores, dim=-1)
-        o = torch.einsum("bhqk,bkhd->bqhd", p.to(vf.dtype), vf).to(xn.dtype)
-        return torch.einsum("bshk,hkd->bsd", o, w["wo"])
+        if sgroup is None:
+            scores = (torch.einsum("bqhd,bkhd->bhqk", q, kf).float()
+                      * spec.head_dim ** -0.5)
+            scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+            p = torch.softmax(scores, dim=-1)
+            o = torch.einsum("bhqk,bkhd->bqhd", p.to(vf.dtype),
+                             vf).to(xn.dtype)
+        else:
+            o = decode_attention_split(q, kf, vf, valid,
+                                       spec.head_dim ** -0.5, sgroup)
+        if tp.group is None:
+            return torch.einsum("bshk,hkd->bsd", o, w["wo"])
+        o = o[:, :, tp.h0:tp.h0 + tp.spec.n_heads]
+        return coll.psum_replicated(
+            torch.einsum("bshk,hkd->bsd", o, w["wo"]), tp.group)
 
     per_layer = []
     for i in range(stage.n_layers):
         w = _layer(sp["layers"], i)
+        groups = _groups(w, cfg, ctx)
         lc = {k: (tuple(c[i] for c in v) if isinstance(v, tuple) else v[i])
               for k, v in cache.items() if k != "k_pos"}
         xn = rms_norm(h, w["norm1"], cfg.norm_eps)
         if stage.kind == "ssm":
-            y, (cst, sst) = mamba_block(xn, w["ssm"], cfg.ssm, cfg.d_model,
-                                        conv_state=lc["conv"],
-                                        ssm_state=lc["state"], decode=True)
+            y, cst, sst = _ssm_decode(xn, w["ssm"], lc, cfg, groups["ssm"],
+                                      ctx)
             h = h + y
             per_layer.append({"conv": cst, "state": sst})
             continue
-        a = attend_cached(xn, w["attn"], lc["k"], lc["v"])
+        a = attend_cached(xn, w["attn"], lc["k"], lc["v"], groups["attn"])
         if stage.kind == "hybrid":
-            m, (cst, sst) = mamba_block(xn, w["ssm"], cfg.ssm, cfg.d_model,
-                                        conv_state=lc["conv"],
-                                        ssm_state=lc["state"], decode=True)
+            m, cst, sst = _ssm_decode(xn, w["ssm"], lc, cfg, groups["ssm"],
+                                      ctx)
             h = h + a + m
         else:
             h = h + a
         if stage.kind == "dec_cross":
-            h = h + _cross_attend(h, w, spec, cfg, pos[:, None], enc_out)
+            h = h + _cross_attend(h, w, spec, cfg, pos[:, None], enc_out,
+                                  ctx)
         if stage.kind == "moe":
             h, _ = _moe_update(h, w, cfg, ctx)
         else:
-            h = h + swiglu(rms_norm(h, w["norm2"], cfg.norm_eps), w["mlp"])
+            h = h + swiglu(rms_norm(h, w["norm2"], cfg.norm_eps), w["mlp"],
+                           groups["mlp"])
         nc = {}
         if stage.kind == "hybrid":
             nc.update(conv=cst, state=sst)

@@ -20,16 +20,22 @@ would sum the two gradients).  ``abstract_train_state`` gives the tree
 on the ``meta`` device, for the sharding rules.
 
 On the training mesh (``ModelContext.mesh``) each rank holds its state
-(the vocab rows of ``embed`` / ``out_embed`` that
-``launch.shardings.placement_specs`` gives it, every other leaf whole) and
-takes the global batch; it runs microbatch i's rows of its data slice, as
-the reference's sharded batch splits under microbatches (which decides
-the MoE layers' capacity).  Its gradients are its slice's part of the
-global loss's: those of the leaves used only in the token-split MoE region
-(router, experts, mirrored experts) are summed over the model group, then
-every one over the data group, which gives each rank the reference's
-gradient of its leaves.  The grad norm counts each vocab shard once, and
-AdamW runs on each rank's leaves.
+as ``launch.shardings.placement_specs`` places it: the vocab rows of
+``embed`` / ``out_embed``, its heads of the attention leaves (``wk`` /
+``wv`` whole where the kv heads do not split), its d_ff columns and rows
+of the MLP, its d_inner columns and SSM heads (``wB`` / ``wC`` /
+``conv_B`` / ``conv_C`` whole), and every other leaf whole; the
+optimizer's master, m and v the same blocks.  It takes the global batch
+and runs microbatch i's rows of its data slice, as the reference's
+sharded batch splits under microbatches (which decides the MoE layers'
+capacity).  Its gradients are its slice's part of the global loss's:
+those of the leaves used only in the token-split MoE region (router,
+experts, mirrored experts) and of the whole leaves of a split block
+(each rank's cotangent covers its own heads) are summed over the model
+group, then every one over the data group, which gives each rank the
+reference's gradient of its leaves (its shard of a split leaf).  The
+grad norm counts each split leaf's shards once, and AdamW runs on each
+rank's leaves.
 """
 from __future__ import annotations
 
@@ -41,7 +47,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.launch.shardings import VOCAB_LEAVES
+from repro_torch.launch import shardings as sh
 from repro_torch.models import embedding as emb
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models.transformer import ModelContext
@@ -117,33 +123,46 @@ def _all_reduce(ts, group) -> None:
             t.copy_(v.view_as(t))
 
 
-def _mesh_reduce(mesh, grads) -> None:
-    """Complete each rank's gradients in place: the MoE leaves' over the
-    model group (each rank routed its own tokens), then every leaf's over
-    the data group (each rank ran its own rows)."""
+def _mesh_paths(cfg: ArchConfig, mesh):
+    """``shardings.model_leaves`` of the placed param specs."""
+    return sh.model_leaves(sh.placement_specs(sh.param_specs(
+        cfg, mesh, zoo.abstract_params(cfg, mesh.model_size))))
+
+
+def _key(path) -> tuple:
+    return tuple(str(k) for k in path)
+
+
+def _mesh_reduce(mesh, grads, partial) -> None:
+    """Complete each rank's gradients in place: over the model group those
+    of the MoE leaves (each rank routed its own tokens) and of the whole
+    leaves of a tensor-parallel block (``partial``: each rank's cotangent
+    covers its own heads), then every leaf's over the data group (each
+    rank ran its own rows)."""
     leaves = tree_leaves(grads)
     paths = _paths(grads)
     if mesh.model_size > 1:
-        moe = [g for g, p in zip(leaves, paths) if "moe" in p]
-        if moe:
-            _all_reduce(moe, mesh.model_group)
+        own = [g for g, p in zip(leaves, paths)
+               if "moe" in p or _key(p) in partial]
+        if own:
+            _all_reduce(own, mesh.model_group)
     if mesh.data_size > 1:
         _all_reduce(leaves, mesh.data_group)
 
 
-def _vocab_squares(mesh, grads):
-    """``global_norm``'s hook on the mesh: each vocab shard's sum of
-    squares summed over the model group, so each row counts once."""
-    vocab = [i for i, p in enumerate(_paths(grads))
-             if p[-1] in VOCAB_LEAVES]
+def _split_squares(mesh, grads, split):
+    """``global_norm``'s hook on the mesh: the sum of squares of each leaf
+    split over the model group (the vocab rows, the tensor-parallel
+    shards) summed over the group, so each element counts once."""
+    idx = [i for i, p in enumerate(_paths(grads)) if _key(p) in split]
 
     def fn(sq):
-        if mesh.model_size == 1 or not vocab:
+        if mesh.model_size == 1 or not idx:
             return sq
-        both = torch.stack([sq[i] for i in vocab])
+        both = torch.stack([sq[i] for i in idx])
         dist.all_reduce(both, group=mesh.model_group)
         sq = list(sq)
-        for j, i in enumerate(vocab):
+        for j, i in enumerate(idx):
             sq[i] = both[j]
         return sq
     return fn
@@ -160,6 +179,8 @@ def make_train_step(cfg: ArchConfig, ctx: ModelContext,
     AdamW."""
     mesh = ctx.mesh
     n = step_cfg.n_microbatches
+    if mesh is not None:
+        split, partial = _mesh_paths(cfg, mesh)
 
     def rows(batch, i):
         """Microbatch i of the global batch, then this rank's data slice."""
@@ -199,14 +220,14 @@ def make_train_step(cfg: ArchConfig, ctx: ModelContext,
         else:
             loss, metrics, g = accumulated(params, batch)
         if mesh is not None:
-            _mesh_reduce(mesh, g)
+            _mesh_reduce(mesh, g, partial)
         return loss, metrics, g
 
     def update(state, got):
         loss, metrics, g = got
         new_params, new_opt, opt_metrics = adamw_update(
             state["params"], g, state["opt"], step_cfg.opt,
-            None if mesh is None else _vocab_squares(mesh, g))
+            None if mesh is None else _split_squares(mesh, g, split))
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return {"params": new_params, "opt": new_opt}, metrics
 
@@ -225,7 +246,10 @@ def make_prefill_step(cfg: ArchConfig, ctx: ModelContext, max_len: int = 0):
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig, ctx: ModelContext):
+def make_decode_step(cfg: ArchConfig, ctx: ModelContext, max_len: int = 0):
+    """On the mesh ``max_len`` is the context the cache was placed for
+    (``make_prefill_step``'s)."""
     def serve_step(params, token, cache):
-        return zoo.decode_step(params, cfg, ctx, token, cache)
+        return zoo.decode_step(params, cfg, ctx, token, cache,
+                               max_len=max_len)
     return serve_step

@@ -877,6 +877,48 @@ def test_ssd_kernel_matches_plain(cuda, S, P, N, g, init):
         assert err <= 1e-4 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("BH,BKV,window", [(32, 4, 0), (50, 10, 1024),
+                                           (50, 10, 0)])
+def test_flash_kernel_at_a_mesh_rank_shape(cuda, BH, BKV, window):
+    """A rank's launches on the (1, 2) serving mesh, B=2 x 1024 tokens at
+    d=64: TinyLlama-1.1B's 16 query and 2 kv heads a rank, Hymba-1.5B's
+    25 / 5 heads whole (window and global layers); float32 within 1e-5 of
+    max|v| of the float64 plain version."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rng = np.random.RandomState(BH + window)
+    q = torch.from_numpy(rng.randn(BH, 1024, 64).astype(np.float32))
+    k = torch.from_numpy(rng.randn(BKV, 1024, 64).astype(np.float32))
+    v = torch.from_numpy(rng.randn(BKV, 1024, 64).astype(np.float32))
+    got = fk.flash_attention_bhsd(q.to(cuda), k.to(cuda), v.to(cuda),
+                                  causal=True, window=window)
+    want = flash_attention_ref(q.double(), k.double(), v.double(),
+                               causal=True, window=window)
+    assert float((got.cpu().double() - want).abs().max()) <= (
+        1e-5 * float(v.abs().max()))
+
+
+def test_ssd_kernel_at_a_mesh_rank_shape(cuda):
+    """Hymba-1.5B's 25 of 50 SSM heads a rank on the (1, 2) serving mesh,
+    B=2 x 1024 tokens, P=64, N=16, chunk 128: y and the final state within
+    1e-4 of their max of the float64 recurrence."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref_model
+    rng = np.random.RandomState(25)
+    b, S, h, P, N = 2, 1024, 25, 64, 16
+    x = rng.randn(b, S, h, P).astype(np.float32)
+    dt = np.log1p(np.exp(rng.randn(b, S, h) - 1.0)).astype(np.float32)
+    A = (-np.exp(0.5 * rng.randn(h))).astype(np.float32)
+    B = rng.randn(b, S, 1, N).astype(np.float32)
+    C = rng.randn(b, S, 1, N).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (x, dt, A, B, C)]
+    y, st = sk.ssd_chunk_scan(*[a.to(cuda) for a in args], chunk=128)
+    y64, st64 = ssd_scan_ref_model(*[a.double() for a in args], None)
+    for got, want in ((y, y64), (st, st64)):
+        err = float((got.cpu().double() - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max())
+
+
 @pytest.mark.parametrize("S", [127, 128, 129, 2112])
 @pytest.mark.parametrize("d", [16, 64, 128])
 @pytest.mark.parametrize("n_rep", [1, 5])

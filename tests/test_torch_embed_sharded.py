@@ -177,7 +177,8 @@ def test_vocab_sharded_loss_and_gradients(both, name):
 def test_refusals():
     """Uneven shardings (the reference's fallback) raise, naming both
     sizes; a lookup the mesh does not shard, a mesh beside an MoE context,
-    unknown axes and a mesh without its process group raise too."""
+    unknown axes, a mesh without its process group and a decode step on
+    the mesh without its cache's context raise too."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import model_zoo as zoo
     from repro_torch.models.moe import MoEContext
@@ -203,5 +204,13 @@ def test_refusals():
     with pytest.raises(NotImplementedError, match="'rr'"):
         zoo.forward_logits(params, cfg, ModelContext(
             mesh=one, embed_method="gather"), toks)
-    with pytest.raises(NotImplementedError, match="mesh=None"):
-        zoo.prefill(params, cfg, ModelContext(mesh=one), toks)
+    # serving on the mesh: decode_step needs the context its cache was
+    # placed for; on the (1, 1) mesh (no collective runs) the prefill is
+    # the one-device prefill, bit for bit
+    logits, cache = zoo.prefill(params, cfg, ModelContext(mesh=one), toks,
+                                max_len=8)
+    want, _ = zoo.prefill(params, cfg, ModelContext(), toks, max_len=8)
+    assert torch.equal(logits, want)
+    with pytest.raises(ValueError, match="needs max_len"):
+        zoo.decode_step(params, cfg, ModelContext(mesh=one), toks[:, :1],
+                        cache)

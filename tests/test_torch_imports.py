@@ -34,7 +34,13 @@ STANDALONE = ("repro_torch.launch.shard_check",
               "repro_torch.train.train_step", "repro_torch.launch.train",
               "repro_torch.launch.shardings", "repro_torch.launch.mesh",
               "repro_torch.models.collectives",
-              "repro_torch.models.embedding")
+              "repro_torch.models.embedding",
+              # tensor parallelism and serving on the mesh, and the ranks
+              # of their tests (tests/_torch_*worker.py)
+              "repro_torch.models.layers", "repro_torch.models.ssm",
+              "repro_torch.models.transformer",
+              "repro_torch.models.model_zoo",
+              "_torch_serve_mesh_worker", "_torch_train_mesh_worker")
 
 
 def _imported_roots(path: Path):
@@ -74,13 +80,15 @@ def test_importing_the_port_loads_no_jax():
 
 @pytest.mark.parametrize("module", STANDALONE)
 def test_launchers_and_fault_tolerance_import_no_jax(module):
-    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    home = ROOT / "tests" if module.startswith("_torch_") else ROOT / "src"
+    path = home / (module.replace(".", "/") + ".py")
     assert path in PORT_FILES
     code = (f"import sys, {module}\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(home)]))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    timeout=120)
 

@@ -7,8 +7,8 @@ three types (float32, bfloat16, float16: the half types stage the same),
 the SSD passes for every P and N in [1, 128] and every chunk in [1, 128].
 Shared memory stays within the 232,448 bytes a block may opt in to, a
 block within 1024 threads, the grids within their axes' limits, and the
-main path's shapes keep the blocks an SM the sources' launch bounds ask
-for.  The wrappers pass this geometry to the C entry points, which refuse
+main path's shapes (and a rank's of the serving mesh) keep the blocks an
+SM the sources' launch bounds ask for.  The wrappers pass this geometry to the C entry points, which refuse
 any other (``tests/test_torch_cuda.py`` checks that on the card).
 """
 import pytest
@@ -68,6 +68,17 @@ def test_flash_main_path_geometry():
     assert geo.grid == (100, 16)
     assert geo.smem_bytes == 106496
     assert _fits(geo.smem_bytes, 2) and not _fits(geo.smem_bytes, 3)
+
+
+@pytest.mark.parametrize("BH", [32, 50])
+def test_flash_mesh_rank_geometry(BH):
+    """A rank of the (1, 2) serving mesh: TinyLlama-1.1B's 16 query heads
+    a rank (BH 32 for B=2; its 2 kv heads a rank, n_rep 8) and Hymba-1.5B's
+    25 heads, whole on each rank (BH 50), over 1024 queries at d=64: 8
+    query tiles of 128, the main path's two blocks an SM."""
+    geo = fk.launch_geometry(64, torch.float32, BH, 1024)
+    assert geo.grid == (BH, 8)
+    assert geo.smem_bytes == 106496 and _fits(geo.smem_bytes, 2)
 
 
 def test_flash_geometry_refuses_what_the_kernel_does_not_take():
@@ -198,6 +209,15 @@ def test_ssd_main_path_geometry():
     assert geo.grids == ((3200, 1), (800, 1), (3200, 1))
     assert geo.scan_smem == 71680 and geo.state_smem == 46592
     assert _fits(geo.scan_smem, 3) and _fits(geo.state_smem, 4)
+
+
+def test_ssd_mesh_rank_geometry():
+    """A rank of the (1, 2) serving mesh: Hymba-1.5B's 25 of 50 SSM heads
+    a rank, B=2 x 1024 tokens: 400 blocks for each chunk pass (8 chunks of
+    50 (batch, head) pairs), the main path's shared memory."""
+    geo = sk.launch_geometry(64, 16, 128, 2, 25, 1024)
+    assert geo.grids == ((400, 1), (200, 1), (400, 1))
+    assert geo.scan_smem == 71680 and geo.state_smem == 46592
 
 
 def test_ssd_geometry_refuses_what_the_kernel_does_not_take():

@@ -11,8 +11,9 @@ allocated (the port's abstract trees live on the ``meta`` device, the
 reference's are ``ShapeDtypeStruct``s).  ``abstract_params`` and
 ``abstract_train_state`` give the reference's shapes and dtypes.  Then
 ``shard_tree`` on every rank of a mesh and ``assemble`` give each leaf
-back, and ``placement_specs`` keeps exactly the batch's data axes and the
-vocab rows.
+back, and ``placement_specs`` keeps exactly the batch's data axes, the
+vocab rows and the tensor-parallel ``model`` entries of the attention,
+MLP and SSM leaves.
 """
 import types
 
@@ -169,18 +170,42 @@ def test_shard_tree_and_assemble_round_trip(shape, axes):
                        ranks[-1])
 
 
-def test_placement_specs_keep_the_batch_and_the_vocab_rows():
-    cfg = tget("olmoe_1b_7b")
-    mesh = stub((2, 16, 16))
-    state = tts.abstract_train_state(cfg, 16)
+@pytest.mark.parametrize("mp", [2, 4, 16])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_placement_specs_keep_the_batch_and_the_vocab_rows(arch, mp):
+    """Every leaf of the zero1 train state on a ("pod", "data", "model")
+    mesh of model size ``mp``: the vocab rows, and the ``model`` entries
+    of the reference's ``param_spec_for`` for the leaves under ``attn``,
+    ``cross``, ``mlp`` and ``ssm`` (params and the optimizer's master, m
+    and v alike); every other entry None (the experts, ZeRO-1's data
+    axes).  The batch keeps its data axes."""
+    cfg = tget(arch)
+    mesh = types.SimpleNamespace(shape={"pod": 2, "data": 2, "model": mp},
+                                 axis_names=("pod", "data", "model"))
+    state = tts.abstract_train_state(cfg, mp)
     specs = tsh.placement_specs(tsh.train_state_specs(cfg, mesh, state,
                                                       zero1=True))
     flat = tflat(specs, state)
+    n_model = 0
     for path, spec in flat.items():
-        if path[-1] in ("embed", "out_embed"):
-            assert spec == ("model", None), path
+        leaf = state
+        for k in path:
+            leaf = leaf[int(k)] if isinstance(leaf, list) else leaf[k]
+        want = tuple(jsh.param_spec_for(path, tuple(leaf.shape), jget(arch),
+                                        mp)) if path != ("opt", "step") \
+            else ()
+        if path[-1] in ("embed", "out_embed") or (
+                len(path) >= 2 and path[-2] in ("attn", "cross", "mlp",
+                                                 "ssm")):
+            want = tuple(e if e == "model" else None for e in want)
         else:
-            assert all(e is None for e in spec), path
+            want = (None,) * len(want)
+        assert spec == want, (path, spec, want)
+        n_model += "model" in spec
+    assert n_model > 0
     batch = tsh.placement_specs(tsh.batch_specs(cfg, TSHAPES["train_4k"],
                                                 mesh))
-    assert batch == {"tokens": (("pod", "data"), None)}
+    want = {"tokens": (("pod", "data"), None)}
+    if cfg.enc_dec:
+        want["enc_embeds"] = (("pod", "data"), None, None)
+    assert batch == want

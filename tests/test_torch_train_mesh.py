@@ -10,9 +10,11 @@ in a subprocess with 4 forced host devices: ``jax.make_mesh`` with Auto
 axis types, the step jitted with ``train_state_specs`` / ``batch_specs``
 shardings under ``with mesh``.  The port runs on 4 spawned gloo ranks
 (``tests/_torch_train_mesh_worker.py``, no JAX) under remat "full" (the
-MoE layers' exchanges rerun in the backward): each rank holds its vocab
-rows of ``embed`` / ``out_embed`` (``placement_specs``) and every other
-leaf whole, and rank 0 gathers the state after the steps.
+MoE layers' exchanges rerun in the backward): each rank holds its state
+as ``placement_specs`` places it (the vocab rows of ``embed`` /
+``out_embed``, its heads and columns of the attention, MLP and SSM
+leaves, every other leaf whole), and rank 0 gathers the state after the
+steps.
 
 Tolerances are ``test_torch_train_step.py``'s: the metrics (loss and nll
 rtol 1e-5, grad norm 1e-3, lr 1e-6) after each step, the states through
@@ -83,18 +85,22 @@ JAX_CODE = textwrap.dedent("""
             cell = ShapeConfig("t", b0["tokens"].shape[1],
                                b0["tokens"].shape[0], "train")
             abstract = jts.abstract_train_state(cfg, shape[1], jnp.float32)
+            placed = sh.named(mesh, sh.train_state_specs(cfg, mesh,
+                                                         abstract))
             step = jax.jit(jts.make_train_step(
                 cfg, ModelContext(mesh=mesh, remat="none", q_chunk=64),
                 jts.StepConfig(n_microbatches=case["micro"],
                                opt=jopt.OptConfig(**case["opt"]))),
-                in_shardings=(
-                    sh.named(mesh, sh.train_state_specs(cfg, mesh,
-                                                        abstract)),
-                    sh.named(mesh, sh.batch_specs(cfg, cell, mesh))))
+                in_shardings=(placed,
+                              sh.named(mesh, sh.batch_specs(cfg, cell,
+                                                            mesh))))
             metrics = []
             with mesh:
                 for b in case["batches"]:
-                    state, m = step(state, jax.tree.map(jnp.asarray, b))
+                    # the step's output placement is GSPMD's choice: put
+                    # the state back where in_shardings says
+                    state, m = step(jax.device_put(state, placed),
+                                    jax.tree.map(jnp.asarray, b))
                     metrics.append({k: float(v) for k, v in m.items()})
             out[case["name"]] = {"metrics": metrics, "state": {
                 jax.tree_util.keystr(p): np.asarray(v) for p, v in

@@ -2,8 +2,10 @@
 package's mesh step (the machinery and tolerances of
 ``test_torch_train_mesh.py``): Gemma-3 reduced (tied embeddings: two
 vocab-sharded leaves, each with its own gradient; window and global
-layers) on (2, 2); TinyLlama reduced on (1, 1), (2, 1) and (1, 2), each a
-gloo group of its own world size, and with 2 microbatches on (2, 2)
+layers) on (2, 2); TinyLlama reduced on (1, 1), (2, 1), (1, 2) and (1, 4)
+(its 4 query heads split one a rank, its 2 kv heads whole: each read by
+two ranks), each a gloo group of its own world size, and with 2
+microbatches on (2, 2)
 (microbatch i's rows of each data slice, as the reference's sharded batch
 splits).  Gemma's state is saved on its mesh through ``save_gathered`` and
 restored whole.  The (1, 1) mesh runs every collective on groups of one rank,
@@ -16,7 +18,8 @@ torch = pytest.importorskip("torch")
 from test_torch_train_mesh import check_case, run_both, train_case  # noqa: E402,E501
 
 CASES = {
-    4: [("gemma3_4b", (2, 2), 1), ("tinyllama_1_1b", (2, 2), 2)],
+    4: [("gemma3_4b", (2, 2), 1), ("tinyllama_1_1b", (2, 2), 2),
+        ("tinyllama_1_1b", (1, 4), 1)],
     2: [("tinyllama_1_1b", (2, 1), 1), ("tinyllama_1_1b", (1, 2), 1)],
     1: [("tinyllama_1_1b", (1, 1), 1)],
 }
