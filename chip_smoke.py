@@ -293,22 +293,34 @@ Phases; any failure exits non-zero and prints no result:
    equals ``token_stats`` of its slice.  ``[mesh-train]`` lines: each
    worker's T, U, U/T and the response bytes (U x D x 4) beside the
    all-gathered table's (V x D x 4); ms a step beside phase 16's, flash
-   launches, peak memory.  And, in the launchers' thread after phase 14,
-   the (2, 2) mesh on 4 spawned ranks (gloo on cuda:0 on a one-card
-   machine, NCCL with a card a rank on four): TinyLlama at full width
-   with its depth cut to 2, one step from one state on the global batch;
-   rank 0 holds every rank's loss equal, and the gathered loss, grad_norm
-   and every gathered leaf to the one-device step (``MESH_RANK_SHAPE``'s
-   comment has the tolerances); ``[mesh-ranks]`` lines.
-Phases 10, 11 and 14 run in processes of their own beside phase 3's
-host set-up (graph build and partition), started once the kernels are
-built and waited for before phase 3's first timed run; phase 13 runs
-after phase 8.  Two more spawns whose card work is not timed run beside
-host-only phases of the main thread: phase 3c's ranks and phase 9's
-spawned ranks (its comparison with world size 1 comes in phase 9), side
-by side, beside phase 3's scipy oracles (through the dense-parity
-check), both waited for at the end of that window.  Phase 18's ranks run
-in the launchers' thread after phase 17's.  That
+   launches, peak memory.  The step's placement is
+   ``train_state_specs(zero1=True, fsdp=True)``'s, which at data size 1
+   splits nothing over the data axis (checked).  And, in the launchers'
+   thread after phase 14, the (2, 2) mesh on 4 spawned ranks (gloo on
+   cuda:0 on a one-card machine, NCCL with a card a rank on four):
+   TinyLlama at full width with its depth cut to 2, one step from one
+   state on the global batch under the tensor-parallel placement, ZeRO-1
+   (the optimizer state over the data axis) and fsdp (the parameters
+   too), then OLMoE-1B-7B at full width cut to 1 layer (32 of 64 experts
+   stored a rank) under fsdp with no pair dropped (``MESH_OLMOE_LAYERS``'
+   comment); for each, rank 0 holds every rank's loss equal, and the
+   gathered loss, grad_norm and every gathered leaf to the one-device
+   step (``MESH_RANK_SHAPE``'s comment has the tolerances), each rank's
+   flash launches (2 a layer) and its bytes of params and optimizer
+   state, placed and after the step, to what the placed specs imply;
+   ``[mesh-ranks]`` lines and ``[mesh-zero]`` lines (each rank's bytes
+   beside the tensor-parallel placement's, its peak device memory and
+   its step's host seconds).
+Two threads run processes of their own beside phase 3's host set-up
+(graph build and partition), started once the kernels are built and
+waited for before phase 3's first timed run: phases 10 and 11, and
+phase 14, phase 17's (2, 2) ranks and phase 18's ranks (the "launchers'
+thread"); phase 13 runs after phase 8.  Two more spawns whose card work
+is not timed run beside host-only phases of the main thread: phase 3c's
+ranks and phase 9's spawned ranks (its comparison with world size 1
+comes in phase 9), side by side, beside phase 3's scipy oracles (through
+the dense-parity check), both waited for at the end of that window.
+That
 partition and its plans are made on the CPU (no card use) in a spawned
 process of their own (no GIL shared with the main thread) from phase
 3's oracles on, beside them, the profiles, the S-V 2^24 check and phase
@@ -405,7 +417,9 @@ float32, bfloat16 and float16 inputs beside their bounds, and the flash
 entry phase 16's summary and its timed steps' launches under
 ``launches_by_model["tinyllama_1_1b train"]``, phase 17's under
 ``"tinyllama_1_1b mesh train"``, and both phase 18's launches of each
-rank under ``launches_mesh_serve``, outside ``launches``; the scalar
+rank under ``launches_mesh_serve``, the flash entry the (2, 2) training
+ranks' of each run under ``launches_mesh_train``, outside ``launches``;
+the scalar
 kernel's entry carries ``sharded``: phase 3b's launches, each mode's, the
 replays' times and the static balance figures; the vector kernel's the
 sharded GCN's launches, ms an epoch and peak memory by mode, and phase
@@ -425,6 +439,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -640,6 +655,19 @@ MESH_JOIN_S = 600
 MESH_LOSS_RTOL, MESH_RANK_GNORM_RTOL = 1e-5, 1e-3
 MESH_M_RTOL, MESH_V_RTOL = 3e-3, 6e-3
 MESH_UPDATE_MAX, MESH_CHANGE_RTOL = 2.0, 0.1
+# In the same spawn, after the tensor-parallel step, the same TinyLlama
+# from the same state and batch under train_state_specs(zero1=True) and
+# (fsdp=True), then OLMoE-1B-7B at full width (64 experts, 32 stored a
+# rank) with its depth cut to MESH_OLMOE_LAYERS under fsdp, one step on
+# MESH_OLMOE_BATCH x MESH_OLMOE_SEQ tokens with aux_weight 0 and a
+# capacity factor of n_experts / top_k (a capacity of every token: no
+# (token, slot) pair is dropped, so the routing of each rank's slice is
+# the routing over the whole batch, and the one-device step is the
+# target); each held to its one-device step under the tolerances above,
+# each rank's bytes of params and optimizer state equal to what the
+# placed specs imply ([mesh-zero] lines)
+MESH_OLMOE_LAYERS = 1
+MESH_OLMOE_BATCH, MESH_OLMOE_SEQ = 2, 1024
 # phase 14's backward: EP_GRAD_TOKENS tokens a rank at a capacity with no
 # drops; x's and each expert leaf's gradient, and the router's without the
 # aux term, against moe_ffn_ref's autograd on one device within
@@ -6237,6 +6265,7 @@ def mesh_train_path(torch, np, args, dev, phases, holder, batches,
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import shardings as sh
     from repro_torch.models import embedding as emb
     from repro_torch.models import model_zoo as zoo
     from repro_torch.models import transformer as tf
@@ -6253,7 +6282,15 @@ def mesh_train_path(torch, np, args, dev, phases, holder, batches,
     try:
         mesh = meshlib.make_mesh((1, 1), ("data", "model"))
         setup_s = time.perf_counter() - t0
-        step = ts.make_train_step(cfg, tf.ModelContext(mesh=mesh))
+        # ZeRO-1 and fsdp's placement: at data size 1 the plain one
+        specs = sh.placement_specs(sh.train_state_specs(
+            cfg, mesh, ts.abstract_train_state(cfg, 1, torch.float32),
+            zero1=True, fsdp=True))
+        if sh.data_leaves(specs):
+            fail(f"(h) leaves split over the data axes of a (1, 1) mesh: "
+                 f"{sorted(sh.data_leaves(specs))[:4]}")
+        step = ts.make_train_step(cfg, tf.ModelContext(mesh=mesh),
+                                  specs=specs)
         state, gate_h = phases.run("mesh-train-gate-h", mesh_gate_h, torch,
                                    zoo, tf, ts, cfg, state, batches[1], step)
         torch.cuda.synchronize()
@@ -6332,25 +6369,208 @@ def mesh_spawns(count: int):
     return ("nccl" if count >= MESH_RANKS else "gloo"), MESH_RANKS
 
 
+def state_bytes(sh, tree, specs, abstract, mesh) -> dict:
+    """{"params" | "opt": (bytes allocated, bytes implied)}: the bytes of
+    the storages behind a train state's tensors on this rank (each storage
+    once a tree), and what ``local_shape`` of each placed spec implies for
+    the state's leaves (``abstract``, on the meta device)."""
+    from repro_torch.train.optimizer import tree_leaves
+    out = {}
+    for part in ("params", "opt"):
+        seen = {}
+        for t in tree_leaves(tree[part]):
+            s = t.untyped_storage()
+            seen[s.data_ptr()] = s.nbytes()
+        implied = []
+        sh._zip(abstract[part], specs[part], lambda path, leaf, spec:
+                implied.append(math.prod(sh.local_shape(
+                    spec, tuple(leaf.shape), mesh)) * leaf.element_size()))
+        out[part] = (sum(seen.values()), sum(implied))
+    return out
+
+
+def experts_whole(sh, specs, path=()):
+    """A placed spec tree with the routed expert stacks whole (the
+    placement before stored expert shards)."""
+    if isinstance(specs, dict):
+        return {k: experts_whole(sh, v, path + (k,))
+                for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [experts_whole(sh, v, path) for v in specs]
+    if path[-2:-1] == ("moe",) and path[-1] in sh.EXPERT_LEAVES:
+        return (None,) * len(specs)
+    return specs
+
+
+def mesh_rank_refs(torch, ts, ModelContext, init_opt_state, cfg, step_cfg,
+                   params, batch):
+    """Rank 0's one-device steps from the whole state: {path: leaf} of
+    the new state on the global batch (``one``) and the m and v of the
+    same step in 2 microbatches (``alt``: another summation order), the
+    one-device loss, grad_norm and lr."""
+    from repro_torch.launch import shardings as sh
+    state = {"params": params, "opt": init_opt_state(params)}
+    one, m1 = ts.make_train_step(cfg, ModelContext(), step_cfg)(state, batch)
+    alt, _ = ts.make_train_step(cfg, ModelContext(), dataclasses.replace(
+        step_cfg, n_microbatches=2))(state, batch)
+    del state
+    flat = {}
+    sh._walk(one, lambda path, t: flat.setdefault(("one",) + path, t))
+    sh._walk(alt["opt"], lambda path, t: flat.setdefault(
+        ("alt", "opt") + path, t) if path[0] in ("m", "v") else None)
+    return flat, {"loss_one": float(m1["loss"]),
+                  "grad_norm_one": float(m1["grad_norm"]),
+                  "lr": float(m1["lr"])}
+
+
+def mesh_rank_errs(torch, sh, new, specs, mesh, params0, refs, lr):
+    """Gather the mesh step's state leaf by leaf (every rank takes part)
+    and, on rank 0, hold each leaf to the one-device step's (``refs``):
+    {path: (err, bound)}, see MESH_RANK_SHAPE's comment (params and
+    master: the sign-flip bound and the change rule, as a ratio against
+    1; m and v: the larger of a fraction of the max and PLAIN_FACTOR times
+    two one-device orders' distance; the step bitwise).  None elsewhere."""
+    leaves = []
+    sh._zip(new, specs, lambda path, leaf, spec: leaves.append(
+        (path, leaf, spec)))
+    errs = {}
+    for path, leaf, spec in leaves:
+        g = sh.gather_tree({"x": leaf}, {"x": spec}, mesh)["x"]
+        if mesh.rank != 0:
+            continue
+        w = refs[("one",) + path]
+        if path[-1] == "step":
+            errs[path] = (0.0 if torch.equal(g, w) else 1.0, 0.0)
+            continue
+        top = float(w.abs().max())
+        err = float((g - w).abs().max())
+        if path[:2] in (("opt", "m"), ("opt", "v")):
+            rtol = MESH_M_RTOL if path[1] == "m" else MESH_V_RTOL
+            noise = float((refs[("alt",) + path] - w).abs().max())
+            errs[path] = (err, max(rtol * top, PLAIN_FACTOR * noise))
+            continue
+        s0 = params0
+        for k in path[1:] if path[0] == "params" else path[2:]:
+            s0 = s0[int(k)] if isinstance(s0, list) else s0[k]
+        bound = 2 * MESH_UPDATE_MAX * lr + 1e-6 * top
+        dw, dg = (w - s0).double(), (g - s0).double()
+        change = float((dg - dw).norm()) / max(float(dw.norm()), 1e-30)
+        errs[path] = (max(err / bound, change / MESH_CHANGE_RTOL), 1.0)
+    return errs if mesh.rank == 0 else None
+
+
+def mesh_rank_arch(torch, cfg, step_cfg, B, S, placements, mesh, dev, seed,
+                   out, warm_up=False):
+    """One arch on the (2, 2) mesh: its whole params drawn from ``seed``
+    (the same on every rank), then for each placement of ``placements``
+    ("tp": ``train_state_specs`` plain; "zero1", "fsdp": that flag) this
+    rank's blocks of the train state, one step of make_train_step on the
+    global batch of B x S with its flash launches, peak memory, host
+    seconds and bytes, and the new state held to the one-device step on
+    rank 0 (``mesh_rank_errs``).  Adds a run a placement to ``out``.
+    ``warm_up``: one step of the tensor-parallel placement first, outside
+    the runs (a process's first step also pays for its CUDA libraries'
+    and gloo's first use: 13.9 s against 2.1-2.3 s a step after it on an
+    H100 at 700 W)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import ModelContext
+    from repro_torch.train import data as tdata
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import init_opt_state
+    params = zoo.init_params(cfg, torch.Generator(dev).manual_seed(seed),
+                             dev)
+    if cfg.tie_embeddings:
+        params["out_embed"] = params["embed"].clone()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in tdata.SyntheticLM(
+        tdata.DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                         seed=seed)).batch_at(0).items()}
+    abstract = ts.abstract_train_state(cfg, mesh.model_size, torch.float32)
+    tp_specs = sh.placement_specs(sh.train_state_specs(cfg, mesh, abstract))
+    empty = {"params": {}, "opt": {}}
+    tp_implied = {k: v[1] for k, v in state_bytes(
+        sh, empty, tp_specs, abstract, mesh).items()}
+    if cfg.is_moe:      # and with the expert stacks whole on every rank
+        tp_implied["experts_whole"] = {k: v[1] for k, v in state_bytes(
+            sh, empty, experts_whole(sh, tp_specs), abstract,
+            mesh).items()}
+    if warm_up:
+        local = {"params": sh.shard_tree(params, tp_specs["params"], mesh),
+                 "opt": init_opt_state(sh.shard_tree(
+                     params, tp_specs["opt"]["master"], mesh))}
+        ts.make_train_step(cfg, ModelContext(mesh=mesh), step_cfg,
+                           tp_specs)(local, batch)
+        del local
+    refs = None
+    for placement in placements:
+        kw = {} if placement == "tp" else {placement: True}
+        specs = sh.placement_specs(sh.train_state_specs(cfg, mesh, abstract,
+                                                        **kw))
+        local = {"params": sh.shard_tree(params, specs["params"], mesh),
+                 "opt": init_opt_state(sh.shard_tree(
+                     params, specs["opt"]["master"], mesh))}
+        placed = state_bytes(sh, local, specs, abstract, mesh)
+        step = ts.make_train_step(cfg, ModelContext(mesh=mesh), step_cfg,
+                                  specs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fk.flash_attention_bhsd.launches = 0        # the path starts here
+        moe.record = [] if cfg.is_moe else None
+        t0 = time.perf_counter()
+        try:
+            new, m = step(local, batch)
+            torch.cuda.synchronize()
+            recs = moe.record
+        finally:
+            moe.record = None
+        wall = time.perf_counter() - t0
+        launches = fk.flash_attention_bhsd.launches    # ... ends here
+        peak = torch.cuda.max_memory_allocated(dev)
+        del local
+        drops = sum(int(r["pairs"]) - int(r["kept"].sum())
+                    for r in recs or ())
+        run = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "wall_s": wall, "peak_gib": peak / 2**30,
+               "launches": launches, "layers": cfg.n_layers,
+               "moe_records": len(recs or ()), "drops": drops,
+               "placed": placed,
+               "new": state_bytes(sh, new, specs, abstract, mesh),
+               "tp_implied": tp_implied,
+               "embed_shape": tuple(new["params"]["embed"].shape)}
+        if cfg.is_moe:
+            run["expert_rows"] = new["params"]["stages"][0]["layers"][
+                "moe"]["w_gate"].shape[1]
+        if refs is None and mesh.rank == 0:
+            refs, figures = mesh_rank_refs(torch, ts, ModelContext,
+                                           init_opt_state, cfg, step_cfg,
+                                           params, batch)
+        if mesh.rank == 0:
+            run.update(figures)
+        run["errs"] = mesh_rank_errs(torch, sh, new, specs, mesh, params,
+                                     refs, run.get("lr", 0.0))
+        del new
+        out["runs"][f"{cfg.name} {placement}"] = run
+    del refs, params
+    torch.cuda.empty_cache()
+
+
 def mesh_rank(rank, D, backend, init_method, seed, out_path):
-    """One rank of the (2, 2) mesh: TinyLlama at full width, its depth cut
-    to MESH_RANK_LAYERS, the train state from ``seed`` (the same on every
-    rank), this rank's part of it (``placement_specs``), one
-    make_train_step step on the global batch, the new state gathered;
-    rank 0 also takes the one-device step from the whole state and holds
-    the gathered state to it.  Writes its figures."""
+    """One rank of the (2, 2) mesh (see MESH_RANK_SHAPE's and
+    MESH_OLMOE's comments): TinyLlama at full width with its depth cut to
+    MESH_RANK_LAYERS under the tensor-parallel placement, ZeRO-1 and fsdp,
+    then OLMoE-1B-7B at full width with its depth cut to
+    MESH_OLMOE_LAYERS under fsdp with its experts stored, a step each
+    (``mesh_rank_arch``); rank 0 holds each run to the one-device step.
+    Writes its figures."""
     sys.path.insert(0, str(ROOT / "src"))
-    import dataclasses
     import datetime
     import pickle
     import torch
     import torch.distributed as dist
     from repro_torch.configs.base import get_config
     from repro_torch.launch import mesh as meshlib
-    from repro_torch.launch import shardings as sh
-    from repro_torch.models.transformer import ModelContext
-    from repro_torch.train import checkpoint as ckpt
-    from repro_torch.train import data as tdata
     from repro_torch.train import train_step as ts
     dev = torch.device("cuda", rank if backend == "nccl" else 0)
     torch.cuda.set_device(dev)
@@ -6358,67 +6578,88 @@ def mesh_rank(rank, D, backend, init_method, seed, out_path):
         backend, init_method=init_method, world_size=D, rank=rank,
         timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
     try:
-        cfg = dataclasses.replace(get_config(TRAIN_ARCH),
-                                  n_layers=MESH_RANK_LAYERS)
         mesh = meshlib.make_mesh(MESH_RANK_SHAPE, ("data", "model"))
-        full = ts.init_train_state(cfg, torch.Generator(dev).manual_seed(
-            seed), dev)
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in tdata.SyntheticLM(
-            tdata.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                             global_batch=TRAIN_BATCH, seed=seed)
-        ).batch_at(0).items()}
-        specs = sh.placement_specs(sh.train_state_specs(
-            cfg, mesh, ts.abstract_train_state(cfg, mesh.model_size,
-                                               torch.float32)))
-        local = ckpt.resharded(full, mesh, specs)
-        step = ts.make_train_step(cfg, ModelContext(mesh=mesh))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        new, m = step(local, batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        whole = sh.gather_tree(new, specs, mesh)
-        out = {"rank": rank, "wall_s": wall, "loss": float(m["loss"]),
-               "grad_norm": float(m["grad_norm"]),
-               "embed_rows": tuple(local["params"]["embed"].shape)}
-        del new, local
-        if rank == 0:
-            one, m1 = ts.make_train_step(cfg, ModelContext())(full, batch)
-            alt, _ = ts.make_train_step(cfg, ModelContext(), ts.StepConfig(
-                n_microbatches=2))(full, batch)
-            lr = float(m1["lr"])
-            out.update(loss_one=float(m1["loss"]),
-                       grad_norm_one=float(m1["grad_norm"]), lr=lr)
-            errs = {}
-            for (path, g), (_, w), (_, s0), (_, a) in zip(
-                    flat_state(whole), flat_state(one), flat_state(full),
-                    flat_state(alt)):
-                if path.endswith("['step']"):
-                    errs[path] = (0.0 if torch.equal(g, w) else 1.0, 0.0)
-                    continue
-                top = float(w.abs().max())
-                err = float((g - w).abs().max())
-                if "['m']" in path or "['v']" in path:
-                    rtol = MESH_M_RTOL if "['m']" in path else MESH_V_RTOL
-                    noise = float((a - w).abs().max())
-                    errs[path] = (err, max(rtol * top, PLAIN_FACTOR * noise))
-                    continue
-                bound = 2 * MESH_UPDATE_MAX * lr + 1e-6 * top
-                dw, dg = (w - s0).double(), (g - s0).double()
-                change = float((dg - dw).norm()) / max(float(dw.norm()),
-                                                       1e-30)
-                errs[path] = (max(err / bound, change / MESH_CHANGE_RTOL),
-                              1.0)
-            out["errs"] = errs
+        out = {"rank": rank, "runs": {}}
+        tiny = dataclasses.replace(get_config(TRAIN_ARCH),
+                                   n_layers=MESH_RANK_LAYERS)
+        mesh_rank_arch(torch, tiny, ts.StepConfig(), TRAIN_BATCH, TRAIN_SEQ,
+                       ("tp", "zero1", "fsdp"), mesh, dev, seed, out,
+                       warm_up=True)
+        olmoe = get_config(OLMOE_ARCH)
+        olmoe = dataclasses.replace(
+            olmoe, n_layers=MESH_OLMOE_LAYERS, moe=dataclasses.replace(
+                olmoe.moe, capacity_factor=olmoe.moe.n_experts
+                / olmoe.moe.top_k))
+        mesh_rank_arch(torch, olmoe, ts.StepConfig(aux_weight=0.0),
+                       MESH_OLMOE_BATCH, MESH_OLMOE_SEQ, ("fsdp",), mesh,
+                       dev, seed, out)
         Path(f"{out_path}.{rank}").write_bytes(pickle.dumps(out))
     finally:
         meshlib.destroy()
 
 
+def mesh_rank_gate(key, outs):
+    """The gates of one run of the (2, 2) ranks (fail on any): the same
+    loss on every rank; rank 0's loss and grad_norm against one device
+    and every gathered leaf within its bound; each rank's flash launches
+    2 a layer (the forward and the recomputed one); no MoE pair dropped;
+    each rank's bytes of params and of optimizer state, placed and after
+    the step, equal to what the placed specs imply.  Returns the figures
+    of its lines."""
+    runs = [o["runs"][key] for o in outs]
+    r0 = runs[0]
+    if len({r["loss"] for r in runs}) != 1:
+        fail(f"[mesh-ranks] {key}: the ranks' losses differ: "
+             f"{[r['loss'] for r in runs]}")
+    dl = abs(r0["loss"] - r0["loss_one"]) / abs(r0["loss_one"])
+    dg = abs(r0["grad_norm"] - r0["grad_norm_one"]) / r0["grad_norm_one"]
+    bad = {p: e for p, e in r0["errs"].items() if not e[0] <= e[1]}
+    if dl > MESH_LOSS_RTOL or dg > MESH_RANK_GNORM_RTOL or bad:
+        fail(f"[mesh-ranks] {key} on the (2, 2) mesh against one device: "
+             f"loss rtol {dl:.3g} (limit {MESH_LOSS_RTOL}), grad_norm "
+             f"{dg:.3g} (limit {MESH_RANK_GNORM_RTOL}), leaves past their "
+             f"bound: {list(bad.items())[:6]}")
+    launches = [r["launches"] for r in runs]
+    if any(n != 2 * r0["layers"] for n in launches):
+        fail(f"[mesh-ranks] {key}: flash launches a rank {launches}, "
+             f"expected {2 * r0['layers']} (the forward and the recomputed "
+             "one, a layer)")
+    moe_layers = r0["layers"] if r0.get("expert_rows") else 0
+    if any(r["drops"] or r["moe_records"] != moe_layers for r in runs):
+        fail(f"[mesh-ranks] {key}: MoE records "
+             f"{[r['moe_records'] for r in runs]}, dropped pairs "
+             f"{[r['drops'] for r in runs]}: expected one record a layer "
+             "and no drop on every rank")
+    for rank, r in enumerate(runs):
+        for when in ("placed", "new"):
+            for part, (got, want) in r[when].items():
+                if got != want:
+                    fail(f"[mesh-zero] {key} rank {rank}: {part} holds "
+                         f"{got} bytes {when}, its placed specs imply "
+                         f"{want}")
+
+    def ratio(part):
+        return max(e / max(b, 1e-30) for p, (e, b) in r0["errs"].items()
+                   if p[:2] in part or p[:1] in part)
+    return {"loss": r0["loss"], "loss_one": r0["loss_one"],
+            "loss_rtol": dl, "grad_norm_rtol": dg,
+            "mv_worst": ratio((("opt", "m"), ("opt", "v"))),
+            "params_worst": ratio((("params",), ("opt", "master"))),
+            "step_s": [r["wall_s"] for r in runs],
+            "peak_gib": [r["peak_gib"] for r in runs],
+            "launches": launches,
+            "bytes": [{p: r["new"][p][0] for p in ("params", "opt")}
+                      for r in runs],
+            "tp_implied": [r["tp_implied"] for r in runs],
+            "embed_shape": r0["embed_shape"],
+            "expert_rows": r0.get("expert_rows")}
+
+
 def mesh_ranks_path(seed):
     """The (2, 2) training mesh on MESH_RANKS spawned ranks (see
-    MESH_RANK_SHAPE's comment): every rank's loss the same, rank 0's
-    gathered state and metrics held to the one-device step."""
+    MESH_RANK_SHAPE's and MESH_OLMOE's comments): every run's gates
+    (``mesh_rank_gate``), its ``[mesh-ranks]`` and ``[mesh-zero]``
+    lines."""
     import pickle
     import tempfile
     import torch
@@ -6431,46 +6672,39 @@ def mesh_ranks_path(seed):
         wall = time.perf_counter() - t0
         outs = [pickle.loads((Path(tmp) / f"rank.{r}").read_bytes())
                 for r in range(D)]
-    r0 = outs[0]
-    if len({o["loss"] for o in outs}) != 1:
-        fail(f"[mesh-ranks] the ranks' losses differ: "
-             f"{[o['loss'] for o in outs]}")
-    dl = abs(r0["loss"] - r0["loss_one"]) / abs(r0["loss_one"])
-    dg = abs(r0["grad_norm"] - r0["grad_norm_one"]) / r0["grad_norm_one"]
-    bad = {p: e for p, e in r0["errs"].items() if not e[0] <= e[1]}
-    for path, (e, b) in sorted(r0["errs"].items(),
-                               key=lambda x: -x[1][0] / max(x[1][1], 1e-30)
-                               )[:4]:
-        log(f"[mesh-ranks] {path}: {e:.3g} against its bound {b:.3g}")
-    if dl > MESH_LOSS_RTOL or dg > MESH_RANK_GNORM_RTOL or bad:
-        fail(f"[mesh-ranks] (2, 2) mesh against one device: loss rtol "
-             f"{dl:.3g} (limit {MESH_LOSS_RTOL}), grad_norm {dg:.3g} (limit "
-             f"{MESH_RANK_GNORM_RTOL}), leaves past their bound: "
-             f"{list(bad.items())[:6]}")
-    worst_m = max(e / b for p, (e, b) in r0["errs"].items()
-                  if "['m']" in p or "['v']" in p)
-    for part in ("['m']", "['v']", "['params']", "['master']"):
-        path, (e, b) = max(((p, eb) for p, eb in r0["errs"].items()
-                            if part in p), key=lambda x: x[1][0] / x[1][1])
-        log(f"[mesh-ranks] worst {part} leaf {path}: {e:.3g} against its "
-            f"bound {b:.3g}")
-    worst_p = max(e for p, (e, b) in r0["errs"].items()
-                  if "['params']" in p or "['master']" in p)
-    log(f"[mesh-ranks] TinyLlama at full width, {MESH_RANK_LAYERS} layers, "
-        f"on the {MESH_RANK_SHAPE} mesh ({backend}, {D} ranks, vocab rows "
-        f"{r0['embed_rows']} a rank), one step on {TRAIN_BATCH} x "
-        f"{TRAIN_SEQ} tokens: loss {r0['loss']:.6f} (one device "
-        f"{r0['loss_one']:.6f}, rtol {dl:.3g}), grad_norm {r0['grad_norm']:.6g}"
-        f" ({r0['grad_norm_one']:.6g}, rtol {dg:.3g}); every gathered leaf "
-        f"within its bound: m / v at {worst_m:.3g} of theirs, params / "
-        f"master at {worst_p:.3g} of the sign-flip bound and the change "
-        f"rule; step {r0['wall_s']:.3f} s host clock"
-        + (" (gloo stages through the host)" if backend == "gloo" else "")
-        + f"; {wall:.1f} s of spawned program")
-    return {"backend": backend, "D": D, "wall_s": wall,
-            "loss": r0["loss"], "loss_one": r0["loss_one"],
-            "loss_rtol": dl, "grad_norm_rtol": dg, "mv_worst": worst_m,
-            "params_worst": worst_p, "step_s": r0["wall_s"]}
+    staging = " (gloo stages through the host)" if backend == "gloo" else ""
+    runs = {}
+    for key in outs[0]["runs"]:
+        g = runs[key] = mesh_rank_gate(key, outs)
+        errs = outs[0]["runs"][key]["errs"]
+        for path, (e, b) in sorted(errs.items(), key=lambda x: -x[1][0]
+                                   / max(x[1][1], 1e-30))[:2]:
+            log(f"[mesh-ranks] {key} {'/'.join(path)}: {e:.3g} against its "
+                f"bound {b:.3g}")
+        log(f"[mesh-ranks] {key} on the {MESH_RANK_SHAPE} mesh ({backend}, "
+            f"{D} ranks, embed {g['embed_shape']} a rank"
+            + (f", {g['expert_rows']} experts a rank" if g["expert_rows"]
+               else "") + f"): loss {g['loss']:.6f} (one device "
+            f"{g['loss_one']:.6f}, rtol {g['loss_rtol']:.3g}), grad_norm "
+            f"rtol {g['grad_norm_rtol']:.3g}; every gathered leaf within "
+            f"its bound: m / v at {g['mv_worst']:.3g} of theirs, params / "
+            f"master at {g['params_worst']:.3g} of the sign-flip bound and "
+            f"the change rule; flash launches a rank {g['launches']}")
+        for rank in range(D):
+            b, tp = g["bytes"][rank], g["tp_implied"][rank]
+            whole = tp.get("experts_whole")
+            log(f"[mesh-zero] {key} rank {rank}: params {b['params']} B, "
+                f"optimizer state {b['opt']} B as allocated, equal to the "
+                f"placed specs' (the tensor-parallel placement's "
+                f"{tp['params']} B and {tp['opt']} B; state "
+                f"{(b['params'] + b['opt']) / (tp['params'] + tp['opt']):.4f}"
+                f"x" + (f"; with the experts whole {whole['params']} B and "
+                        f"{whole['opt']} B" if whole else "")
+                + "); peak device memory of the step "
+                f"{g['peak_gib'][rank]:.3f} GiB; step {g['step_s'][rank]:.3f}"
+                f" s host clock{staging}")
+    log(f"[mesh-ranks] {len(runs)} runs in {wall:.1f} s of spawned program")
+    return {"backend": backend, "D": D, "wall_s": wall, "runs": runs}
 
 
 # ---------------------------------------------------------------------------
@@ -6827,17 +7061,25 @@ def main():
     # the comparisons' float64 buffers leave the allocator's cache: the
     # spawned ranks below share the card
     torch.cuda.empty_cache()
-    # phases 10, 11 and 14 run the launchers and the expert-parallel
-    # ranks in processes of their own, beside phase 3's host-only graph
-    # build and partition, and are waited for before any timed device work
+    # two threads run spawns in processes of their own beside phase 3's
+    # host-only graph build and partition, waited for before any timed
+    # device work: the launchers of phases 10 and 11, and phases 14, 17's
+    # (2, 2) ranks and 18 (the expert-parallel and training-mesh ranks)
     from concurrent.futures import ThreadPoolExecutor
-    pool = ThreadPoolExecutor(max_workers=1)
-    launchers_run = pool.submit(lambda: {
+    pool = ThreadPoolExecutor(max_workers=2)
+    launchers_runs = [pool.submit(lambda: {
         "shard_check": phases.run("shard-check", shard_check_path),
-        "dist_smoke": phases.run("dist-smoke", dist_smoke_path),
-        "moe_ep": phases.run("moe-ep", moe_ep_path, args.seed),
-        "mesh_ranks": phases.run("mesh-ranks", mesh_ranks_path, args.seed),
-        "serve_mesh": phases.run("serve-mesh", serve_mesh_path, args.seed)})
+        "dist_smoke": phases.run("dist-smoke", dist_smoke_path)}),
+        pool.submit(lambda: {
+            "moe_ep": phases.run("moe-ep", moe_ep_path, args.seed),
+            "mesh_ranks": phases.run("mesh-ranks", mesh_ranks_path,
+                                     args.seed),
+            "serve_mesh": phases.run("serve-mesh", serve_mesh_path,
+                                     args.seed)})]
+
+    def launchers_wait():
+        return {k: v for run in launchers_runs
+                for k, v in run.result().items()}
     # phase 3c's ranks and phase 9's spawned ranks (card work that is not
     # timed) run side by side, each from a thread of its own, beside the
     # host-only oracles of phase 3, and are both waited for at the end of
@@ -6857,12 +7099,12 @@ def main():
     # phase 3b's first runs
     split_run = []
     g, A, pg, launches, algos, runs, rr_algos = main_path(
-        torch, np, mods, args, dev, phases, ready=launchers_run.result,
+        torch, np, mods, args, dev, phases, ready=launchers_wait,
         beside=beside_3c,
         host_side=lambda g, pg: split_run.append(phases.run(
             "split-partition-start", start_split_partition, np, planlib, g,
             pg, dev)))
-    launchers = launchers_run.result()
+    launchers = launchers_wait()
     pool.shutdown()
     phases.run("sv-2^24", large_ids, torch, np, api, structs, kernel, dev)
     sharded_row = sharded_one(torch, np, mods, pg, runs, algos + rr_algos,
@@ -6942,6 +7184,10 @@ def main():
         e["launches_mesh_serve"] = {
             arch: [n[i] for n in mesh_serve[arch]["launches_per_rank"]]
             for arch, _ in SERVE_MESH_ARCHS}
+    # the (2, 2) training ranks' flash launches, each rank's, beside them
+    flash["launches_mesh_train"] = {
+        key: run["launches"]
+        for key, run in launchers["mesh_ranks"]["runs"].items()}
     flash["max_abs_err"] = max(
         [flash["max_abs_err"]]
         + [r["max_abs_err"]

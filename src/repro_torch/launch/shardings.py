@@ -18,15 +18,17 @@ reference's, rule by rule:
   axes (ZeRO-1); ``fsdp=True`` the parameters too.
 
 Every rule answers from ``mesh.shape`` and ``mesh.axis_names`` alone.  The
-trainer and the serving steps of this port execute a part of them:
-``placement_specs`` keeps the batch's data axes, the vocab rows of
-``embed`` / ``out_embed`` and the ``model`` entries of the attention
-(self and cross), MLP and SSM leaves (the tensor-parallel shards: heads,
-d_ff columns and rows, d_inner columns and SSM heads), and replicates every
-other leaf (the stored expert shards and ZeRO-1 / fsdp are not executed
-yet).  A serving cache is placed by ``cache_specs`` as it is, both axes
-and the sequence axis included.  ``shard_tree`` cuts this rank's block of
-each leaf, ``gather_tree`` puts the whole leaf back together.
+trainer and the serving steps of this port execute them through
+``placement_specs``: the batch's data axes, the vocab rows of ``embed`` /
+``out_embed``, the ``model`` entries of the attention (self and cross),
+MLP and SSM leaves (the tensor-parallel shards: heads, d_ff columns and
+rows, d_inner columns and SSM heads) and of the routed expert stacks (the
+stored expert shards: E / mp experts a rank), and every data axis of a
+train state (ZeRO-1's master, m and v; fsdp's parameters too), which
+``data_leaves`` names with the dimension each splits.  A serving cache is
+placed by ``cache_specs`` as it is, both axes and the sequence axis
+included.  ``shard_tree`` cuts this rank's block of each leaf,
+``gather_tree`` puts the whole leaf back together.
 """
 from __future__ import annotations
 
@@ -40,8 +42,8 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.launch.mesh import coords_of
 
 VOCAB_LEAVES = ("embed", "out_embed")
-BATCH_LEAVES = ("tokens", "enc_embeds", "token")
 TP_BLOCKS = ("attn", "cross", "mlp", "ssm")
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")   # under "moe": the routed stacks
 
 
 def _axsize(mesh, name) -> int:
@@ -243,44 +245,51 @@ def cache_specs(cfg: ArchConfig, shape: ShapeConfig, mesh,
     return _walk(abstract_cache, spec_for)
 
 
-def placement_specs(specs) -> Any:
-    """The part of a spec tree that this port executes: the data axes of
-    the batch's leaves, the model axis of ``embed`` / ``out_embed`` (their
-    vocab rows) and of the leaves under ``attn``, ``cross``, ``mlp`` and
-    ``ssm`` (tensor parallelism); every other entry None (replicated).
-    Walks a tree of specs (dicts and lists of spec tuples)."""
-    def keep(names, spec):
-        if names and (names[-1] in VOCAB_LEAVES or (
-                len(names) >= 2 and names[-2] in TP_BLOCKS)):
-            allowed = ("model",)
-        elif names and names[-1] in BATCH_LEAVES:
-            allowed = ("pod", "data")
-        else:
-            allowed = ()
+def _axes(e) -> tuple:
+    """The axis names of one spec entry."""
+    return () if e is None else (e if isinstance(e, tuple) else (e,))
 
-        def one(e):
-            axes = e if isinstance(e, tuple) else (e,)
-            axes = tuple(a for a in axes if a is not None and a in allowed)
-            return _entry(axes) if axes else None
-        return tuple(one(e) for e in spec)
+
+def placement_specs(specs) -> Any:
+    """The spec tree as this port executes it, which is every entry the
+    rules give: the data axes (the batch's leaves, and a train state's
+    under ``zero1`` / ``fsdp``), and the model axis of ``embed`` /
+    ``out_embed`` (their vocab rows), of the leaves under ``attn``,
+    ``cross``, ``mlp`` and ``ssm`` (tensor parallelism) and of the routed
+    expert stacks under ``moe`` (stored expert shards; the router and the
+    mirrored experts stay whole, as ``param_spec_for`` gives them).  A
+    model entry on any other leaf raises NotImplementedError: no leaf is
+    quietly held whole.  Walks a tree of specs (dicts and lists of spec
+    tuples)."""
+    def check(names, spec):
+        model = names and (names[-1] in VOCAB_LEAVES or (
+            len(names) >= 2 and (names[-2] in TP_BLOCKS or (
+                names[-2] == "moe" and names[-1] in EXPERT_LEAVES))))
+        if not model and _has(spec, "model"):
+            raise NotImplementedError(f"{'/'.join(names)}: the port does "
+                                      f"not split it over the model axis "
+                                      f"({spec})")
+        return tuple(spec)
 
     def walk(tree, path=()):
         if isinstance(tree, dict):
             return {k: walk(v, path + (k,)) for k, v in tree.items()}
         if isinstance(tree, list):
             return [walk(v, path + (str(i),)) for i, v in enumerate(tree)]
-        return keep(path, tree)
+        return check(path, tree)
     return walk(specs)
 
 
 def model_leaves(specs) -> tuple:
     """(the key paths of the leaves split over the model axis, those of
-    the leaves that stay whole but that each rank uses for its own shard
-    only: a whole leaf of an ``attn``, ``cross`` or ``ssm`` block with a
-    split sibling, ``wk`` / ``wv`` beside split query heads, the SSM's
-    ``wB`` / ``wC`` / ``conv_B`` / ``conv_C``) under a placed spec tree;
-    names and list indices as strings.  The second set's gradients must
-    be summed over the model group."""
+    the leaves that stay whole but whose gradient each rank takes from its
+    own part of the work only: a whole leaf of an ``attn``, ``cross`` or
+    ``ssm`` block with a split sibling, ``wk`` / ``wv`` beside split query
+    heads, the SSM's ``wB`` / ``wC`` / ``conv_B`` / ``conv_C``, and every
+    whole leaf under ``moe``, the router and the mirrored experts, which
+    see only the rank's token slice) under a placed spec tree; names and
+    list indices as strings.  The second set's gradients must be summed
+    over the model group; the stored expert stacks are in the first."""
     split, partial = set(), set()
 
     def walk(tree, path=()):
@@ -288,16 +297,44 @@ def model_leaves(specs) -> tuple:
             for i, v in enumerate(tree):
                 walk(v, path + (str(i),))
         elif isinstance(tree, dict):
-            shared = path and path[-1] in ("attn", "cross", "ssm") and any(
-                "model" in spec for spec in tree.values())
+            shared = path and (path[-1] == "moe" or (
+                path[-1] in ("attn", "cross", "ssm") and any(
+                    _has(spec, "model") for spec in tree.values())))
             for k, v in tree.items():
-                if shared and "model" not in v:
+                if shared and not _has(v, "model"):
                     partial.add(path + (k,))
                 walk(v, path + (k,))
-        elif "model" in tree:
+        elif _has(tree, "model"):
             split.add(path)
     walk(specs)
     return split, partial
+
+
+def _has(spec, axis) -> bool:
+    return any(axis in _axes(e) for e in spec)
+
+
+def data_leaves(specs) -> Dict[tuple, int]:
+    """{key path: the dimension split over the data axes} of every leaf of
+    a placed spec tree that is split over them (ZeRO-1's optimizer
+    leaves, fsdp's parameters); names and list indices as strings.
+    ``_zero1_spec`` puts the data axes on one dimension a leaf."""
+    out = {}
+
+    def walk(tree, path=()):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, path + (k,))
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                walk(v, path + (str(i),))
+        else:
+            dims = [d for d, e in enumerate(tree)
+                    if set(_axes(e)) & {"pod", "data"}]
+            if dims:
+                out[path], = dims
+    walk(specs)
+    return out
 
 
 def local_shape(spec, shape, mesh) -> tuple:
@@ -312,8 +349,7 @@ def _blocks(spec, shape, mesh, coords):
     a leaf of ``shape`` under ``spec``."""
     out = []
     for d, n in enumerate(shape):
-        e = spec[d] if d < len(spec) else None
-        axes = () if e is None else (e if isinstance(e, tuple) else (e,))
+        axes = _axes(spec[d] if d < len(spec) else None)
         parts, idx = 1, 0
         for a in axes:
             size = _axsize(mesh, a)
@@ -332,13 +368,15 @@ def _sharded(spec) -> bool:
 
 def shard_tree(tree, specs, mesh) -> Any:
     """This rank's block of each leaf of ``tree`` (whole tensors) under
-    ``specs`` on ``mesh`` (its ``coords``): a contiguous copy for a split
-    leaf, the leaf itself for a replicated one."""
+    ``specs`` on ``mesh`` (its ``coords``): a copy of its own for a split
+    leaf (a contiguous slice too, so that no block keeps the whole leaf's
+    storage alive), the leaf itself for a replicated one."""
     def one(path, leaf, spec):
         if not _sharded(spec):
             return leaf
         return leaf[_blocks(spec, tuple(leaf.shape), mesh,
-                            mesh.coords)].contiguous()
+                            mesh.coords)].clone(
+                                memory_format=torch.contiguous_format)
     return _zip(tree, specs, one)
 
 
@@ -346,8 +384,7 @@ def full_shape(spec, local_shape, mesh) -> tuple:
     """The whole leaf's shape from a block's."""
     out = []
     for d, n in enumerate(local_shape):
-        e = spec[d] if d < len(spec) else None
-        axes = () if e is None else (e if isinstance(e, tuple) else (e,))
+        axes = _axes(spec[d] if d < len(spec) else None)
         out.append(n * math.prod(_axsize(mesh, a) for a in axes))
     return tuple(out)
 

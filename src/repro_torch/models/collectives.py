@@ -30,6 +30,17 @@ A sum whose replicated result each rank then uses for its own shard only
 (the gated norm's sum of squares over a split d_inner) is
 ``sum_cotangents(psum_replicated(x))``: both directions sum.
 
+A leaf that fsdp splits over the data group (``DataBlock``: this rank's
+block, the split dimension) is made whole where it is used by
+``gather_data``, whose backward gives each rank the sum over the group of
+its own block of the cotangent, a reduce-scatter: each rank's cotangent is
+its own data slice's part of the whole.  A stacked leaf split on its
+layer axis holds each layer whole on one rank (its owner): that layer is
+made whole by a masked all-reduce (the owner's values, zeros elsewhere),
+whose backward is the same all-reduce of the cotangent, kept by the
+owner.  ``reduce_scatter`` and ``all_gather`` are the plain collectives of
+ZeRO-1's gradient and parameter exchange.
+
 On a group of one rank each is the identity, and none is called.  Values
 are those of the plain ``torch.distributed`` calls, so a forward under
 ``torch.no_grad`` is unchanged.
@@ -117,6 +128,87 @@ class _SplitSlices(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _all_gather_cat(g.contiguous(), ctx.group), None
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` (equal shapes) summed over ``group``, this rank's
+    block of the sum along ``dim`` returned (``dim`` a multiple of the
+    group's size)."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    xs = x.movedim(dim, 0).contiguous()
+    out = xs.new_empty((xs.shape[0] // n,) + tuple(xs.shape[1:]))
+    dist.reduce_scatter_tensor(out, xs, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's block ``x`` (equal shapes) concatenated along ``dim``
+    in the group's rank order."""
+    if group_size(group) == 1:
+        return x
+    return _all_gather_cat(x.contiguous(), group, dim)
+
+
+class _GatherData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, owner):
+        ctx.group, ctx.dim, ctx.owner = group, dim, owner
+        if dim is not None:
+            return all_gather(x, group, dim)
+        mine = dist.get_rank(group) == owner
+        y = x.clone() if mine else torch.zeros_like(x)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.dim is not None:
+            return reduce_scatter(g, ctx.group, ctx.dim), None, None, None
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        mine = dist.get_rank(ctx.group) == ctx.owner
+        return (g if mine else None), None, None, None
+
+
+def gather_data(x: torch.Tensor, group, dim=None,
+                owner: int = 0) -> torch.Tensor:
+    """The whole value of a leaf split over ``group``, differentiable:
+    ``x`` is this rank's block along ``dim``, or (``dim`` None) the whole
+    value on the group's rank ``owner`` and a stand-in of its shape and
+    dtype on the others.  The backward gives each rank the sum over the
+    group of its block of the cotangent (none to a stand-in)."""
+    if group_size(group) == 1:
+        return x
+    return _GatherData.apply(x, group, dim, owner)
+
+
+class DataBlock:
+    """A leaf that fsdp holds split over the data group: ``t``, this
+    rank's block along dimension ``dim`` (None: ``t`` is the whole value
+    on the group's rank ``owner``, a stand-in elsewhere).  ``whole()``
+    gathers it (``gather_data``); ``layer(i)`` is layer i of a stacked
+    leaf, which a split on the layer axis leaves whole on one rank."""
+
+    __slots__ = ("t", "group", "dim", "owner")
+
+    def __init__(self, t, group, dim, owner=0):
+        self.t, self.group, self.dim, self.owner = t, group, dim, owner
+
+    def layer(self, i: int) -> "DataBlock":
+        if self.dim == 0:
+            n = self.t.shape[0]
+            return DataBlock(self.t[i % n], self.group, None, i // n)
+        return DataBlock(self.t[i], self.group, self.dim - 1)
+
+    def whole(self) -> torch.Tensor:
+        return gather_data(self.t, self.group, self.dim, self.owner)
+
+
+def whole(x):
+    """``x`` made whole where it is a ``DataBlock``, else ``x``."""
+    return x.whole() if isinstance(x, DataBlock) else x
 
 
 def psum_replicated(x: torch.Tensor, group,

@@ -247,7 +247,8 @@ def n_params(params: Dict[str, Any]) -> int:
 
 def _embed_in(params, cfg: ArchConfig, ids, ctx: ModelContext):
     if ctx.mesh is not None and ctx.embed_method == "rr" and ids.dim() == 2:
-        h = emb.embed_lookup_sharded(params["embed"], ids, ctx.mesh)
+        h = emb.embed_lookup_sharded(coll.whole(params["embed"]), ids,
+                                     ctx.mesh)
     elif ctx.mesh is not None:
         raise NotImplementedError(
             f"the vocab-sharded table is looked up by 'rr' on (B, S) ids; "
@@ -294,7 +295,8 @@ def _run_encoder(params, cfg: ArchConfig, ctx: ModelContext,
     h, _, _ = apply_stage_seq(enc_embeds, params["enc"]["stages"][0],
                               enc_stage(cfg), cfg, ctx,
                               _positions(B, Se, enc_embeds.device))
-    return rms_norm(h, params["enc"]["final_norm"], cfg.norm_eps)
+    return rms_norm(h, coll.whole(params["enc"]["final_norm"]),
+                    cfg.norm_eps)
 
 
 def forward_logits(params, cfg: ArchConfig, ctx: ModelContext,
@@ -311,8 +313,8 @@ def forward_logits(params, cfg: ArchConfig, ctx: ModelContext,
         h, _, aux = apply_stage_seq(h, sp, stage, cfg, ctx, pos,
                                     enc_out=enc_out)
         aux_total = aux_total + aux
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = emb.logits_matmul(h, params["out_embed"], ctx.mesh)
+    h = rms_norm(h, coll.whole(params["final_norm"]), cfg.norm_eps)
+    logits = emb.logits_matmul(h, coll.whole(params["out_embed"]), ctx.mesh)
     return (_mask_pad_vocab(logits, cfg.vocab, _vocab_first(logits, ctx.mesh)),
             aux_total)
 

@@ -194,9 +194,11 @@ def moe_ffn_ep(x: torch.Tensor, w: dict, cfg: MoEConfig,
                ctx: MoEContext) -> tuple:
     """Expert-parallel dispatch on one rank of ``ctx``.
 
-    x: (T_loc, D), this rank's slice of the tokens; w: the full expert
-    stacks (E, ...), of which the rank runs its EP group's shard
-    ``[e * E/ep, (e+1) * E/ep)``, and the mirrored copies w*_m (n_m, ...).
+    x: (T_loc, D), this rank's slice of the tokens; w: the expert stacks,
+    of which the rank runs its EP group's shard ``[e * E/ep, (e+1) *
+    E/ep)``: the whole stacks (E, ...), whose rows it reads, or that
+    shard alone (E/ep, ...: stored expert shards), by their shape; and
+    the mirrored copies w*_m (n_m, ...).
     Route -> pack per-(rank, expert) combined buffers -> all_to_all over
     the EP group -> local experts -> all_to_all back -> combine.  The
     mirrored experts 0..n_m-1 short-circuit the network: each rank runs
@@ -221,8 +223,13 @@ def moe_ffn_ep(x: torch.Tensor, w: dict, cfg: MoEConfig,
     # recv: (ep_size senders * e_loc, cap, D) -> per local expert
     recv = recv.view(ep_size, e_loc, cap, D).transpose(0, 1).reshape(
         e_loc, ep_size * cap, D)
-    y = _expert_mlp(recv, w["w_gate"][lo:lo + e_loc],
-                    w["w_up"][lo:lo + e_loc], w["w_down"][lo:lo + e_loc])
+    stacks = [w[k] for k in ("w_gate", "w_up", "w_down")]
+    if stacks[0].shape[0] == E:
+        stacks = [t[lo:lo + e_loc] for t in stacks]
+    elif stacks[0].shape[0] != e_loc:
+        raise ValueError(f"expert stacks of {stacks[0].shape[0]} rows: "
+                         f"neither all {E} experts nor this rank's {e_loc}")
+    y = _expert_mlp(recv, *stacks)
     y = y.view(e_loc, ep_size, cap, D).transpose(0, 1).contiguous()
     back = coll.all_to_all(y, group)
     out = _unpack(back.view(E, cap, D), bg, bt, T_loc, D)

@@ -51,6 +51,14 @@ query, key and value are gathered over the model group, the key and
 value written by the rank that owns the slot, and the slots' softmax
 combined over the sequence group (``layers.decode_attention_split``);
 the SSM's conv and state blocks are its columns and heads.
+
+Under fsdp (``train_state_specs(fsdp=True)``) the training step hands the
+model its blocks of the leaves split over the data axes as
+``collectives.DataBlock``s: each layer gathers its own inside the function
+that remat recomputes, and the model gathers ``embed``, ``out_embed`` and
+the final norms where it uses them.  A moe stage's routed expert stacks
+may hold this rank's E / mp experts (stored expert shards) or all E
+(``moe_ffn_ep`` decides by their shape).
 """
 from __future__ import annotations
 
@@ -287,9 +295,18 @@ def _groups(w: dict, cfg: ArchConfig, ctx: ModelContext) -> dict:
 
 
 def _layer(sp: dict, i: int) -> dict:
-    """Layer ``i``'s weights out of a stage's stacked ones (views)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in sp.items()}
+    """Layer ``i``'s weights out of a stage's stacked ones (views; an fsdp
+    leaf's ``DataBlock.layer``)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else (
+        v.layer(i) if isinstance(v, coll.DataBlock) else v[i])
+        for k, v in sp.items()}
+
+
+def _gathered(w: dict) -> dict:
+    """A layer's weights with every fsdp block made whole over the data
+    group (``collectives.whole``)."""
+    return {k: _gathered(v) if isinstance(v, dict) else coll.whole(v)
+            for k, v in w.items()}
 
 
 def _stack(per_layer: List[dict]) -> dict:
@@ -362,7 +379,10 @@ def apply_stage_seq(h, sp, stage: StageSpec, cfg: ArchConfig,
     spec = _attn_spec(cfg, stage.window, ctx, causal=stage.kind != "enc")
 
     def layer(h, w):
-        """One layer: (h, aux loss or None, cache)."""
+        """One layer: (h, aux loss or None, cache); its fsdp blocks are
+        gathered here, inside the recomputed function, so that the backward
+        gathers them again rather than keep them."""
+        w = _gathered(w)
         cache, aux = {}, None
         groups = _groups(w, cfg, ctx)
         xn = rms_norm(h, w["norm1"], cfg.norm_eps)

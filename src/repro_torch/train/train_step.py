@@ -20,22 +20,31 @@ would sum the two gradients).  ``abstract_train_state`` gives the tree
 on the ``meta`` device, for the sharding rules.
 
 On the training mesh (``ModelContext.mesh``) each rank holds its state
-as ``launch.shardings.placement_specs`` places it: the vocab rows of
-``embed`` / ``out_embed``, its heads of the attention leaves (``wk`` /
-``wv`` whole where the kv heads do not split), its d_ff columns and rows
-of the MLP, its d_inner columns and SSM heads (``wB`` / ``wC`` /
-``conv_B`` / ``conv_C`` whole), and every other leaf whole; the
-optimizer's master, m and v the same blocks.  It takes the global batch
-and runs microbatch i's rows of its data slice, as the reference's
-sharded batch splits under microbatches (which decides the MoE layers'
-capacity).  Its gradients are its slice's part of the global loss's:
-those of the leaves used only in the token-split MoE region (router,
-experts, mirrored experts) and of the whole leaves of a split block
-(each rank's cotangent covers its own heads) are summed over the model
-group, then every one over the data group, which gives each rank the
-reference's gradient of its leaves (its shard of a split leaf).  The
-grad norm counts each split leaf's shards once, and AdamW runs on each
-rank's leaves.
+as the placed state specs say (``make_train_step``'s ``specs``, by
+default ``launch.shardings.placement_specs`` of ``train_state_specs``):
+the vocab rows of ``embed`` / ``out_embed``, its heads of the attention
+leaves (``wk`` / ``wv`` whole where the kv heads do not split), its d_ff
+columns and rows of the MLP, its d_inner columns and SSM heads (``wB`` /
+``wC`` / ``conv_B`` / ``conv_C`` whole), its E / mp routed experts, and
+every other leaf whole; under ``zero1`` its block of the optimizer's
+master, m and v over the data axes too, under ``fsdp`` also of the
+parameters (the model gathers those where it uses them,
+``collectives.DataBlock``).  It takes the global batch and runs
+microbatch i's rows of its data slice, as the reference's sharded batch
+splits under microbatches (which decides the MoE layers' capacity).  Its
+gradients are its slice's part of the global loss's.  Those of the
+leaves used only for the rank's own part of the work (the router and the
+mirrored experts, which see its token slice; the whole leaves of a split
+block, whose cotangent covers its own heads) are summed over the model
+group; then over the data group each leaf's is all-reduced where its
+optimizer state is whole, reduce-scattered to the rank's block where
+ZeRO-1 splits it, and left as it is under fsdp, where the gather's
+backward has summed it already.  That gives each rank the reference's
+gradient of its block of each leaf, once each microbatch's float32 sum is
+complete.  The grad norm counts each element once over both groups,
+AdamW runs on each rank's blocks of master, m and v, and under ZeRO-1 the
+new parameters (the master blocks, cast) are all-gathered over the data
+group.
 """
 from __future__ import annotations
 
@@ -48,6 +57,7 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch import shardings as sh
+from repro_torch.models import collectives as coll
 from repro_torch.models import embedding as emb
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models.transformer import ModelContext
@@ -85,13 +95,15 @@ def abstract_train_state(cfg: ArchConfig, model_parallel: int = 1,
 
 
 def _grads(cfg: ArchConfig, ctx: ModelContext, step_cfg: StepConfig,
-           params, batch):
+           params, batch, view=None):
     """(loss, metrics, grads) of ``loss_fn`` at ``params``: grads a tree of
     params' structure (zeros for a leaf the loss does not reach, e.g. the
-    mirrored experts' weights of a model that mirrors none, as JAX gives)."""
+    mirrored experts' weights of a model that mirrors none, as JAX gives).
+    ``view`` maps the differentiable leaves' tree to the one the model
+    reads (fsdp's ``DataBlock``s)."""
     p = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    loss, metrics = zoo.loss_fn(p, cfg, ctx, batch,
-                                aux_weight=step_cfg.aux_weight)
+    loss, metrics = zoo.loss_fn(p if view is None else view(p), cfg, ctx,
+                                batch, aux_weight=step_cfg.aux_weight)
     leaves = tree_leaves(p)
     got = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
 
@@ -103,19 +115,30 @@ def _grads(cfg: ArchConfig, ctx: ModelContext, step_cfg: StepConfig,
             grads)
 
 
-def _paths(tree, path=()):
-    """The key path of each leaf, in the walk's order."""
+def _map_paths(fn, tree, path=()):
+    """``fn(key path, leaf)`` over a tree (names and list indices as
+    strings, ``launch.shardings``' key paths); the result has its
+    structure."""
     if isinstance(tree, dict):
-        return [p for k, v in tree.items() for p in _paths(v, path + (k,))]
+        return {k: _map_paths(fn, v, path + (k,)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [p for i, v in enumerate(tree) for p in _paths(v, path + (i,))]
-    return [path]
+        return type(tree)(_map_paths(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def _keys(tree) -> list:
+    """The key path of each leaf, in the walk's order."""
+    out = []
+    _map_paths(lambda path, _: out.append(path), tree)
+    return out
 
 
 def _all_reduce(ts, group) -> None:
     """Sum each tensor of ``ts`` over ``group`` in place, in one flat
-    buffer a dtype."""
-    for dt in {t.dtype for t in ts}:
+    buffer a dtype (the dtypes in the order they first appear, the same
+    on every rank: a set's order may differ between processes)."""
+    for dt in dict.fromkeys(t.dtype for t in ts):
         part = [t for t in ts if t.dtype == dt]
         flat = torch.cat([t.reshape(-1) for t in part])
         dist.all_reduce(flat, group=group)
@@ -123,64 +146,156 @@ def _all_reduce(ts, group) -> None:
             t.copy_(v.view_as(t))
 
 
-def _mesh_paths(cfg: ArchConfig, mesh):
-    """``shardings.model_leaves`` of the placed param specs."""
-    return sh.model_leaves(sh.placement_specs(sh.param_specs(
-        cfg, mesh, zoo.abstract_params(cfg, mesh.model_size))))
+def _rows(t, dim: int, n: int):
+    """``t`` as (n, -1): row r its r-th block along ``dim``."""
+    return t.movedim(dim, 0).reshape(n, -1)
 
 
-def _key(path) -> tuple:
-    return tuple(str(k) for k in path)
+def _unrows(flat, dim: int, like_shape, n: int):
+    """The inverse of ``_rows`` for ``n`` blocks of ``like_shape`` (the
+    result's ``dim`` is ``n`` times ``like_shape``'s), in a contiguous
+    tensor of its own: ``flat`` is a part of a collective's buffer, which
+    a view would keep alive."""
+    moved = list(like_shape)
+    moved.insert(0, moved.pop(dim))
+    moved[0] *= n
+    out = flat.new_empty(moved)
+    out.view(flat.shape).copy_(flat)
+    return out.movedim(0, dim).contiguous()
 
 
-def _mesh_reduce(mesh, grads, partial) -> None:
-    """Complete each rank's gradients in place: over the model group those
-    of the MoE leaves (each rank routed its own tokens) and of the whole
-    leaves of a tensor-parallel block (``partial``: each rank's cotangent
-    covers its own heads), then every leaf's over the data group (each
-    rank ran its own rows)."""
-    leaves = tree_leaves(grads)
-    paths = _paths(grads)
+def _reduce_scatter(leaves, dims, group, n):
+    """Each leaf summed over ``group`` and cut to this rank's block along
+    its dimension in ``dims``: one reduce-scatter of a flat buffer a
+    dtype.  Returns the blocks."""
+    out = [None] * len(leaves)
+    for dt in dict.fromkeys(t.dtype for t in leaves):
+        idx = [i for i, t in enumerate(leaves) if t.dtype == dt]
+        buf = torch.cat([_rows(leaves[i], dims[i], n) for i in idx], dim=1)
+        mine = coll.reduce_scatter(buf, group, 0)[0]
+        for i, v in zip(idx, mine.split(
+                [leaves[i].numel() // n for i in idx])):
+            shape = list(leaves[i].shape)
+            shape[dims[i]] //= n
+            out[i] = _unrows(v, dims[i], shape, 1)
+    return out
+
+
+def _all_gather(blocks, dims, group, n):
+    """Each block made whole along its dimension in ``dims`` over
+    ``group``: one all-gather of a flat buffer a dtype."""
+    out = [None] * len(blocks)
+    for dt in dict.fromkeys(t.dtype for t in blocks):
+        idx = [i for i, t in enumerate(blocks) if t.dtype == dt]
+        buf = torch.cat([blocks[i].movedim(dims[i], 0).reshape(1, -1)
+                         for i in idx], dim=1)
+        every = coll.all_gather(buf, group, 0)
+        for i, v in zip(idx, every.split(
+                [blocks[i].numel() for i in idx], dim=1)):
+            out[i] = _unrows(v, dims[i], blocks[i].shape, n)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class _Placement:
+    """What the step does with each leaf on the mesh, from the placed
+    state specs: ``split`` (split over the model axis), ``partial``
+    (whole, its gradient summed over the model group), ``fsdp`` and
+    ``zero1`` ({key path: the dimension split over the data axes} of the
+    parameters, and of the optimizer state where the parameters stay
+    whole)."""
+    split: frozenset
+    partial: frozenset
+    fsdp: Dict[tuple, int]
+    zero1: Dict[tuple, int]
+
+    @classmethod
+    def of(cls, specs) -> "_Placement":
+        split, partial = sh.model_leaves(specs["params"])
+        fsdp = sh.data_leaves(specs["params"])
+        opt = sh.data_leaves(specs["opt"]["master"])
+        if any(opt.get(k) != d for k, d in fsdp.items()):
+            raise ValueError("fsdp's parameter blocks must be the "
+                             "optimizer state's")
+        return cls(frozenset(split), frozenset(partial), fsdp,
+                   {k: d for k, d in opt.items() if k not in fsdp})
+
+
+def _mesh_reduce(mesh, grads, place: _Placement):
+    """Each rank's gradients completed: over the model group those of
+    ``place.partial``, then over the data group every leaf's but fsdp's
+    (all-reduced where the optimizer state is whole, reduce-scattered to
+    this rank's block under ZeRO-1).  Returns the tree."""
+    leaves, keys = tree_leaves(grads), _keys(grads)
     if mesh.model_size > 1:
-        own = [g for g, p in zip(leaves, paths)
-               if "moe" in p or _key(p) in partial]
+        own = [g for g, k in zip(leaves, keys) if k in place.partial]
         if own:
             _all_reduce(own, mesh.model_group)
     if mesh.data_size > 1:
-        _all_reduce(leaves, mesh.data_group)
+        _all_reduce([g for g, k in zip(leaves, keys)
+                     if k not in place.fsdp and k not in place.zero1],
+                    mesh.data_group)
+        z = [i for i, k in enumerate(keys) if k in place.zero1]
+        if z:
+            blocks = _reduce_scatter([leaves[i] for i in z],
+                                     [place.zero1[keys[i]] for i in z],
+                                     mesh.data_group, mesh.data_size)
+            for i, b in zip(z, blocks):
+                leaves[i] = b
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), grads)
 
 
-def _split_squares(mesh, grads, split):
+def _split_squares(mesh, grads, place: _Placement):
     """``global_norm``'s hook on the mesh: the sum of squares of each leaf
-    split over the model group (the vocab rows, the tensor-parallel
-    shards) summed over the group, so each element counts once."""
-    idx = [i for i, p in enumerate(_paths(grads)) if _key(p) in split]
+    split over the model axis (the vocab rows, the tensor-parallel shards,
+    the stored experts) summed over the model group, and of each leaf
+    whose gradient is a block over the data axes (ZeRO-1, fsdp) over the
+    data group, so each element counts once."""
+    keys = _keys(grads)
+    groups = ((mesh.model_group, mesh.model_size, place.split),
+              (mesh.data_group, mesh.data_size,
+               set(place.fsdp) | set(place.zero1)))
 
     def fn(sq):
-        if mesh.model_size == 1 or not idx:
-            return sq
-        both = torch.stack([sq[i] for i in idx])
-        dist.all_reduce(both, group=mesh.model_group)
         sq = list(sq)
-        for j, i in enumerate(idx):
-            sq[i] = both[j]
+        for group, size, paths in groups:
+            idx = [i for i, k in enumerate(keys) if k in paths]
+            if size == 1 or not idx:
+                continue
+            both = torch.stack([sq[i] for i in idx])
+            dist.all_reduce(both, group=group)
+            for j, i in enumerate(idx):
+                sq[i] = both[j]
         return sq
     return fn
 
 
 def make_train_step(cfg: ArchConfig, ctx: ModelContext,
-                    step_cfg: StepConfig = StepConfig()):
+                    step_cfg: StepConfig = StepConfig(), specs=None):
     """``train_step(state, batch) -> (new_state, metrics)``; ``batch``
     holds tensors on the params' device ({"tokens": (B, S) int,
     "enc_embeds": ...}), the global batch on the mesh; metrics: loss, nll,
-    aux, grad_norm, lr (0-d tensors).  The step is ``train_step.update(
-    state, train_step.grads(params, batch))``: ``grads`` gives (loss,
-    metrics, gradients) complete on each rank, ``update`` the clip and
-    AdamW."""
+    aux, grad_norm, lr (0-d tensors).  ``specs``: on the mesh, the placed
+    spec tree of the state (``placement_specs`` of ``train_state_specs``
+    with its ``zero1`` / ``fsdp``; without either if None), by which the
+    state is laid out.  The step is ``train_step.update(state,
+    train_step.grads(params, batch))``: ``grads`` gives (loss, metrics,
+    gradients) complete on each rank (its blocks), ``update`` the clip
+    and AdamW."""
     mesh = ctx.mesh
     n = step_cfg.n_microbatches
+    view = place = None
     if mesh is not None:
-        split, partial = _mesh_paths(cfg, mesh)
+        if specs is None:
+            specs = sh.placement_specs(sh.train_state_specs(
+                cfg, mesh, abstract_train_state(cfg, mesh.model_size)))
+        place = _Placement.of(specs)
+        if place.fsdp and mesh.data_size > 1:
+            def view(p):
+                return _map_paths(lambda k, t: coll.DataBlock(
+                    t, mesh.data_group, place.fsdp[k])
+                    if k in place.fsdp else t, p)
 
     def rows(batch, i):
         """Microbatch i of the global batch, then this rank's data slice."""
@@ -198,7 +313,7 @@ def make_train_step(cfg: ArchConfig, ctx: ModelContext,
         return {k: v[lo:hi] for k, v in batch.items()}
 
     def single(params, batch):
-        return _grads(cfg, ctx, step_cfg, params, batch)
+        return _grads(cfg, ctx, step_cfg, params, batch, view)
 
     def accumulated(params, batch):
         acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
@@ -220,14 +335,16 @@ def make_train_step(cfg: ArchConfig, ctx: ModelContext,
         else:
             loss, metrics, g = accumulated(params, batch)
         if mesh is not None:
-            _mesh_reduce(mesh, g, partial)
+            g = _mesh_reduce(mesh, g, place)
         return loss, metrics, g
 
     def update(state, got):
         loss, metrics, g = got
         new_params, new_opt, opt_metrics = adamw_update(
             state["params"], g, state["opt"], step_cfg.opt,
-            None if mesh is None else _split_squares(mesh, g, split))
+            None if mesh is None else _split_squares(mesh, g, place))
+        if mesh is not None and place.zero1 and mesh.data_size > 1:
+            new_params = _gather_zero1(mesh, new_params, place)
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return {"params": new_params, "opt": new_opt}, metrics
 
@@ -236,6 +353,20 @@ def make_train_step(cfg: ArchConfig, ctx: ModelContext,
 
     train_step.grads, train_step.update = grads, update
     return train_step
+
+
+def _gather_zero1(mesh, params, place: _Placement):
+    """The new parameters of ZeRO-1's leaves (this rank's master blocks,
+    cast) made whole over the data group."""
+    leaves, keys = tree_leaves(params), _keys(params)
+    z = [i for i, k in enumerate(keys) if k in place.zero1]
+    whole = _all_gather([leaves[i] for i in z],
+                        [place.zero1[keys[i]] for i in z], mesh.data_group,
+                        mesh.data_size)
+    for i, w in zip(z, whole):
+        leaves[i] = w
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), params)
 
 
 def make_prefill_step(cfg: ArchConfig, ctx: ModelContext, max_len: int = 0):

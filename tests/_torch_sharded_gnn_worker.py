@@ -1,6 +1,7 @@
-"""The ranks of ``tests/test_torch_sharded_gnn.py``: spawned processes that
-join a gloo group and run the sharded GNN path's whole matrix, so each
-world size pays the start-up once.  This module imports neither JAX nor
+"""The ranks of ``tests/test_torch_sharded_gnn.py`` and
+``tests/test_torch_sharded_gnn_join.py``: spawned processes that join a
+gloo group and run a test file's part of the sharded GNN path's matrix,
+so each world size pays the start-up once a file.  This module imports neither JAX nor
 the JAX package; the test module holds what every rank writes against the
 single-device runs.
 

@@ -156,32 +156,53 @@ def _state(cfg, flat: dict) -> dict:
 
 def train_case(case: dict) -> dict:
     """A step of make_train_step on the mesh for each of the case's global
-    batches, from the case's state; the result holds the metrics of each
-    step and the gathered state (keystr -> numpy).  With ``case["ckpt"]``
-    the state is also saved there through ``save_gathered``."""
+    batches, from the case's state placed by ``train_state_specs`` with
+    the case's ``zero1`` / ``fsdp``; the result holds the metrics of each
+    step, the gathered state (keystr -> numpy) and this rank's shape of
+    every leaf, which it first holds to ``local_shape`` of its spec after
+    the last step (raising otherwise).  With ``case["ckpt"]`` the state is also saved there
+    through ``save_gathered``; with ``case["cut"]`` = k the state after k
+    steps is saved to ``case["cut_dir"]``, restored whole and placed again
+    through ``resharded`` before the next step (a resumed run)."""
     mesh = meshlib.make_mesh(case["mesh"], ("data", "model"))
     cfg = dataclasses.replace(get_config(case["arch"]).reduced(),
                               **case["over"])
     full = _state(cfg, case["state"])
+    abstract = tts.abstract_train_state(cfg, mesh.model_size, torch.float32)
     specs = sh.placement_specs(sh.train_state_specs(
-        cfg, mesh, tts.abstract_train_state(cfg, mesh.model_size,
-                                            torch.float32)))
+        cfg, mesh, abstract, zero1=case.get("zero1", False),
+        fsdp=case.get("fsdp", False)))
     state = ckpt.resharded(full, mesh, specs)
+    want = {}
+    sh._zip(abstract, specs, lambda path, leaf, spec: want.setdefault(
+        path, sh.local_shape(spec, leaf.shape, mesh)))
     opt = topt.OptConfig(**case["opt"])
     step = tts.make_train_step(
         cfg, tf.ModelContext(q_chunk=64, remat=case["remat"], mesh=mesh),
-        tts.StepConfig(n_microbatches=case["micro"], opt=opt))
+        tts.StepConfig(n_microbatches=case["micro"], opt=opt), specs)
     metrics = []
-    for b in case["batches"]:
+    for k, b in enumerate(case["batches"]):
+        if k and k == case.get("cut"):
+            ckpt.save_gathered(case["cut_dir"], k, state, specs, mesh)
+            restored, _ = ckpt.restore(case["cut_dir"], full)
+            state = ckpt.resharded(restored, mesh, specs)
         state, m = step(state, {k: torch.from_numpy(v)
                                 for k, v in b.items()})
         metrics.append({k: float(v) for k, v in m.items()})
+    got = {}
+    sh._walk(state, lambda path, t: got.setdefault(path, tuple(t.shape)))
+    bad = [(p, got.get(p), w) for p, w in want.items() if got.get(p) != w]
+    if bad or set(got) != set(want):   # each rank holds its blocks only
+        raise AssertionError(f"rank {mesh.rank}: shapes that are not "
+                             f"local_shape of their spec: {bad[:4]}")
+    local = {p: tuple(t.shape) for p, t in ckpt._leaves_with_paths(state)}
     whole = sh.gather_tree(state, specs, mesh)
     if case.get("ckpt"):
         ckpt.save_gathered(case["ckpt"], len(case["batches"]), state, specs,
                            mesh)
     return {"metrics": metrics,
             "state": {p: _np(t) for p, t in ckpt._leaves_with_paths(whole)},
+            "local_shapes": local,
             "local_vocab_rows": tuple(state["params"]["embed"].shape)}
 
 

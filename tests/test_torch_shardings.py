@@ -11,9 +11,10 @@ allocated (the port's abstract trees live on the ``meta`` device, the
 reference's are ``ShapeDtypeStruct``s).  ``abstract_params`` and
 ``abstract_train_state`` give the reference's shapes and dtypes.  Then
 ``shard_tree`` on every rank of a mesh and ``assemble`` give each leaf
-back, and ``placement_specs`` keeps exactly the batch's data axes, the
-vocab rows and the tensor-parallel ``model`` entries of the attention,
-MLP and SSM leaves.
+back (a placed train state too), and ``placement_specs`` keeps the
+reference's train state specs whole (plain, zero1, fsdp): the batch's
+data axes, the vocab rows, the tensor-parallel and expert ``model``
+entries and the optimizer's and fsdp's data axes.
 """
 import types
 
@@ -170,42 +171,114 @@ def test_shard_tree_and_assemble_round_trip(shape, axes):
                        ranks[-1])
 
 
+PLACEMENTS = {"plain": {}, "zero1": {"zero1": True}, "fsdp": {"fsdp": True}}
+
+
+@pytest.mark.parametrize("placement", list(PLACEMENTS))
 @pytest.mark.parametrize("mp", [2, 4, 16])
 @pytest.mark.parametrize("arch", ARCH_IDS)
-def test_placement_specs_keep_the_batch_and_the_vocab_rows(arch, mp):
-    """Every leaf of the zero1 train state on a ("pod", "data", "model")
-    mesh of model size ``mp``: the vocab rows, and the ``model`` entries
-    of the reference's ``param_spec_for`` for the leaves under ``attn``,
-    ``cross``, ``mlp`` and ``ssm`` (params and the optimizer's master, m
-    and v alike); every other entry None (the experts, ZeRO-1's data
-    axes).  The batch keeps its data axes."""
+def test_placement_specs_keep_the_batch_and_the_vocab_rows(arch, mp,
+                                                            placement):
+    """Every leaf of the train state placed on a ("pod", "data", "model")
+    mesh of model size ``mp`` (plain, zero1 or fsdp): the reference's
+    ``train_state_specs`` spec, entry for entry (params and the
+    optimizer's master, m and v alike): the vocab rows, the ``model``
+    entries of the leaves under ``attn``, ``cross``, ``mlp`` and ``ssm``
+    and of the routed expert stacks (stored expert shards; the router and
+    the mirrored experts whole), and the data axes that ZeRO-1 puts on
+    the optimizer state and fsdp on the parameters too, which
+    ``data_leaves`` names with their dimension.  ``model_leaves`` puts
+    the expert stacks with the split leaves and the router and mirrors
+    with those summed over the model group.  The batch keeps its data
+    axes."""
+    kw = PLACEMENTS[placement]
     cfg = tget(arch)
     mesh = types.SimpleNamespace(shape={"pod": 2, "data": 2, "model": mp},
                                  axis_names=("pod", "data", "model"))
     state = tts.abstract_train_state(cfg, mp)
     specs = tsh.placement_specs(tsh.train_state_specs(cfg, mesh, state,
-                                                      zero1=True))
+                                                      **kw))
     flat = tflat(specs, state)
-    n_model = 0
+    want_all = jflat(jsh.train_state_specs(
+        jget(arch), mesh, jts.abstract_train_state(jget(arch), mp), **kw))
+    assert _same(flat, want_all, placement) > 0
+    n_model = n_data = 0
     for path, spec in flat.items():
-        leaf = state
-        for k in path:
-            leaf = leaf[int(k)] if isinstance(leaf, list) else leaf[k]
-        want = tuple(jsh.param_spec_for(path, tuple(leaf.shape), jget(arch),
-                                        mp)) if path != ("opt", "step") \
-            else ()
-        if path[-1] in ("embed", "out_embed") or (
-                len(path) >= 2 and path[-2] in ("attn", "cross", "mlp",
-                                                 "ssm")):
-            want = tuple(e if e == "model" else None for e in want)
-        else:
-            want = (None,) * len(want)
-        assert spec == want, (path, spec, want)
-        n_model += "model" in spec
+        n_model += any("model" in tsh._axes(e) for e in spec)
+        dims = [d for d, e in enumerate(spec) if "data" in tsh._axes(e)]
+        n_data += bool(dims)
+        assert len(dims) <= 1 and all(
+            spec[d] == ("pod", "data") for d in dims), (path, spec)
+        if path[0] == "opt" and path[1] != "step":
+            # master, m and v: the params' spec, data axes as placed
+            p = flat[("params",) + path[2:]]
+            assert spec == p or (placement == "zero1" and tuple(
+                None if d in dims else e for d, e in enumerate(spec)) == p)
     assert n_model > 0
+    assert (n_data > 0) == (placement != "plain")
+    data = tsh.data_leaves(specs["opt"]["master"])
+    assert data == {k[2:]: d for k, d in tsh.data_leaves(specs).items()
+                    if k[:2] == ("opt", "master")}
+    assert bool(tsh.data_leaves(specs["params"])) == (placement == "fsdp")
+    split, partial = tsh.model_leaves(specs["params"])
+    if cfg.is_moe and cfg.moe.n_experts % mp == 0:
+        moe = [p for p in split | partial if "moe" in p]
+        assert {p[-1] for p in moe if p in split} == {
+            "w_gate", "w_up", "w_down"}
+        assert {p[-1] for p in moe if p in partial} == {
+            "router", "w_gate_m", "w_up_m", "w_down_m"}
     batch = tsh.placement_specs(tsh.batch_specs(cfg, TSHAPES["train_4k"],
                                                 mesh))
     want = {"tokens": (("pod", "data"), None)}
     if cfg.enc_dec:
         want["enc_embeds"] = (("pod", "data"), None, None)
     assert batch == want
+
+
+@pytest.mark.parametrize("placement", list(PLACEMENTS))
+@pytest.mark.parametrize("shape,axes", SHARD_MESHES,
+                         ids=lambda x: "x".join(map(str, x)))
+def test_shard_tree_and_assemble_round_trip_a_placed_state(shape, axes,
+                                                          placement):
+    """A reduced OLMoE train state (stored experts, and the data axes of
+    ZeRO-1 / fsdp on the layer axis or an inner one) cut by
+    ``shard_tree`` on every rank of the mesh: each block of
+    ``local_shape`` in a storage of its own (a block on the layer axis is
+    a contiguous slice, which must not keep the whole leaf alive), and
+    ``assemble`` gives every leaf back."""
+    cfg = tget("olmoe_1b_7b").reduced()
+    mesh0 = meshlib.Mesh(shape, axes)
+    state = tts.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                 "cpu", model_parallel=mesh0.model_size)
+    specs = tsh.placement_specs(tsh.train_state_specs(
+        cfg, mesh0, tts.abstract_train_state(cfg, mesh0.model_size),
+        **PLACEMENTS[placement]))
+    ranks = [meshlib.Mesh(shape, axes, rank=r)
+             for r in range(int(np.prod(shape)))]
+    parts = [tsh.shard_tree(state, specs, m) for m in ranks]
+    leaves = []
+    tsh._zip(state, specs, lambda path, leaf, spec: leaves.append(
+        (path, leaf, spec)))
+    n_split = 0
+    for i, (path, leaf, spec) in enumerate(leaves):
+        blocks = [tts.tree_leaves(p)[i] for p in parts]
+        split = tuple(blocks[0].shape) != tuple(leaf.shape)
+        for m, b in zip(ranks, blocks):
+            assert tuple(b.shape) == tsh.local_shape(spec, leaf.shape, m)
+            if split:       # a block of its own, not a view of the leaf
+                assert b.untyped_storage().nbytes() == \
+                    b.numel() * b.element_size(), path
+        n_split += split
+        assert torch.equal(tsh.assemble(blocks, spec, ranks[0]), leaf), path
+    assert n_split > 0
+
+
+def test_placement_specs_refuse_a_split_the_port_does_not_run():
+    """A model entry on a leaf that the port holds whole (a norm, the
+    router) raises rather than being dropped to a replicated leaf."""
+    ok = {"embed": ("model", "data"), "moe": {"w_up": (None, "model", None)}}
+    assert tsh.placement_specs(ok) == ok
+    for bad in ({"final_norm": ("model",)},
+                {"moe": {"router": (None, None, "model")}}):
+        with pytest.raises(NotImplementedError, match="model axis"):
+            tsh.placement_specs(bad)

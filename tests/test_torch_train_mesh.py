@@ -45,6 +45,7 @@ from repro.train import train_step as jts  # noqa: E402
 from repro_torch.launch.graph_run import spawn_ranks  # noqa: E402
 from repro_torch.train import checkpoint as tckpt  # noqa: E402
 from repro_torch.train import train_step as tts  # noqa: E402
+from test_torch_tp_grad import _spec_paths  # noqa: E402
 from test_torch_train import ARCHS, batch_np, cfgs, flat_torch  # noqa: E402
 from test_torch_train_step import (GNORM_RTOL, LOSS_RTOL,  # noqa: E402
                                    check_states, opt_cfgs)
@@ -70,6 +71,8 @@ JAX_CODE = textwrap.dedent("""
     out = {}
     for _, cases in rounds:
         for case in cases:
+            if case.get("port_only"):
+                continue
             cfg = dataclasses.replace(get_config(case["arch"]).reduced(),
                                       **case["over"])
             shape = tuple(case["mesh"])
@@ -85,8 +88,9 @@ JAX_CODE = textwrap.dedent("""
             cell = ShapeConfig("t", b0["tokens"].shape[1],
                                b0["tokens"].shape[0], "train")
             abstract = jts.abstract_train_state(cfg, shape[1], jnp.float32)
-            placed = sh.named(mesh, sh.train_state_specs(cfg, mesh,
-                                                         abstract))
+            placed = sh.named(mesh, sh.train_state_specs(
+                cfg, mesh, abstract, zero1=case.get("zero1", False),
+                fsdp=case.get("fsdp", False)))
             step = jax.jit(jts.make_train_step(
                 cfg, ModelContext(mesh=mesh, remat="none", q_chunk=64),
                 jts.StepConfig(n_microbatches=case["micro"],
@@ -110,16 +114,20 @@ JAX_CODE = textwrap.dedent("""
 """)
 
 
-def train_case(arch, mesh, micro=1):
+def train_case(arch, mesh, micro=1, placement=""):
     """A case of the worker's ``train`` kind: a train state drawn by the
     port's init recipe from ``torch.Generator(0)`` (keystr -> numpy; both
-    sides start from it) and STEPS global batches."""
+    sides start from it) and STEPS global batches; ``placement`` "zero1"
+    or "fsdp" sets that flag of ``train_state_specs`` on both sides."""
     jcfg, tcfg = cfgs(arch)
     state = flat_torch(tts.init_train_state(
         tcfg, torch.Generator().manual_seed(0), "cpu"))
     jo, _ = opt_cfgs()
     opt = {f.name: getattr(jo, f.name) for f in dataclasses.fields(jo)}
-    return {"kind": "train", "name": f"{arch}-{mesh[0]}x{mesh[1]}-m{micro}",
+    name = f"{arch}-{mesh[0]}x{mesh[1]}-m{micro}"
+    return {"kind": "train", "name": name + (f"-{placement}" if placement
+                                             else ""),
+            "zero1": placement == "zero1", "fsdp": placement == "fsdp",
             "arch": arch, "over": ARCHS[arch], "mesh": mesh, "micro": micro,
             "remat": "full", "opt": opt, "state": state,
             "batches": [batch_np(jcfg, seed=10 + k, b=B, s=S)
@@ -185,8 +193,35 @@ def check_case(case, want, got):
                  _jax_tree(arch, want["state"]), STEPS,
                  _jax_tree(arch, case["state"]))
     _, tcfg = cfgs(arch)
+    dp, mp = case["mesh"]
     assert got["local_vocab_rows"] == (
-        tcfg.padded_vocab(case["mesh"][1]) // case["mesh"][1], tcfg.d_model)
+        tcfg.padded_vocab(mp) // mp,
+        tcfg.d_model // (dp if case.get("fsdp") else 1))
+    check_local_shapes(case, got)
+    if tcfg.is_moe:       # stored expert shards: E / mp experts a rank
+        stacks = {p: s for p, s in got["local_shapes"].items()
+                  if "['moe']['w_" in p and not p.endswith("_m']")}
+        assert len(stacks) == 12      # 3 stacks of params, master, m, v
+        assert {s[1] for s in stacks.values()} == {
+            tcfg.moe.n_experts // mp}, stacks
+
+
+def check_local_shapes(case, got):
+    """Rank 0's shape of every leaf is ``local_shape`` of its placed spec
+    (``placement_specs`` of ``train_state_specs`` with the case's flags)
+    on the case's mesh: each rank holds its blocks only."""
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import shardings as tsh
+    _, tcfg = cfgs(case["arch"])
+    mesh = meshlib.Mesh(case["mesh"], ("data", "model"))
+    abstract = tts.abstract_train_state(tcfg, mesh.model_size)
+    specs = dict(_spec_paths(tsh.placement_specs(tsh.train_state_specs(
+        tcfg, mesh, abstract, zero1=case["zero1"], fsdp=case["fsdp"]))))
+    shapes = dict(tckpt._leaves_with_paths(abstract))
+    assert set(got["local_shapes"]) == set(shapes)
+    for path, shape in got["local_shapes"].items():
+        assert shape == tsh.local_shape(specs[path], shapes[path].shape,
+                                        mesh), (case["name"], path, shape)
 
 
 MAIN_ARCHS = ("tinyllama_1_1b", "hymba_1_5b", "olmoe_1b_7b",
