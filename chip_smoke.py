@@ -310,12 +310,37 @@ Phases; any failure exits non-zero and prints no result:
    state, placed and after the step, to what the placed specs imply;
    ``[mesh-ranks]`` lines and ``[mesh-zero]`` lines (each rank's bytes
    beside the tensor-parallel placement's, its peak device memory and
-   its step's host seconds).
-Two threads run processes of their own beside phase 3's host set-up
+   its step's host seconds); each rank's collectives of each step are
+   recorded (``launch.comm_stats.record_collectives``) for phase 20.
+19. the four examples of ``examples/torch/`` in a spawned process of its
+   own, each through its ``main``: at the reference's defaults on the
+   card (quickstart at 20,000 vertices, graph_analytics at 10,000,
+   serve_lm's three reduced archs, train_lm's 200 steps), then the two
+   graph examples again with ``--device cpu``.  Gates: every integer the
+   graph examples return (``msgs_*`` and ``per_worker_*`` counts,
+   supersteps, rounds, labels) equal between card and CPU; train_lm's
+   losses finite and falling; serve_lm's tokens 4 x 16 (its logits
+   finite).  ``[examples]`` lines: seconds, the counts, ``loss a -> b``.
+20. the dry run of the production mesh (``launch/dryrun.py``: rank 0's
+   program on ``meta`` tensors in a fake world of 256 or 512 ranks; no
+   device) in a spawned process of its own: ``DRYRUN_ARCHS`` x the four
+   shapes on the 16 x 16 and 2 x 16 x 16 meshes, one ``[dryrun]`` line a
+   cell (the roofline's three terms at the H100's published rates, FLOPs
+   and argument bytes a chip, the collectives); then phase 17's (2, 2)
+   runs at their own dtype (float32), depth and batch in a fake world of
+   4.  Gate 1: each run's params and optimizer-state bytes a rank equal,
+   byte for byte, what every rank of phase 17's (2, 2) ranks held placed
+   and after its step (``[mesh-zero]``); gate 2: the recorded
+   collectives (kind, bytes, operand shapes and dtypes, group size, in
+   order) equal rank 0's record of the same step.  And phase 16's
+   TinyLlama step (the (1, 1) mesh) for its FLOPs beside
+   ``train_products``, term by term.
+Four threads run processes of their own beside phase 3's host set-up
 (graph build and partition), started once the kernels are built and
-waited for before phase 3's first timed run: phases 10 and 11, and
-phase 14, phase 17's (2, 2) ranks and phase 18's ranks (the "launchers'
-thread"); phase 13 runs after phase 8.  Two more spawns whose card work
+waited for before phase 3's first timed run: phases 10 and 11; phase 14,
+phase 17's (2, 2) ranks and phase 18's ranks (the "launchers' thread");
+phase 19; phase 20 (whose gates run after the wait); phase 13 runs after
+phase 8.  Two more spawns whose card work
 is not timed run beside host-only phases of the main thread: phase 3c's
 ranks and phase 9's spawned ranks (its comparison with world size 1
 comes in phase 9), side by side, beside phase 3's scipy oracles (through
@@ -449,8 +474,16 @@ import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
-FP32_OPS_PER_S = 67e12             # H100 SXM float32 outside tensor cores
+sys.path.insert(0, str(ROOT / "src"))
+try:    # the card's published rates, as the dry run's roofline has them
+    from repro_torch.launch.roofline import FP32_FLOPS, HBM_BW
+except ImportError as exc:
+    print(f"chip_smoke: FAILED: no src/repro_torch beside "
+          f"{Path(__file__).name} ({exc}): run it from a checkout of the "
+          "repository", file=sys.stderr, flush=True)
+    sys.exit(1)
+HBM_BYTES_PER_S = HBM_BW           # H100 SXM device memory rate
+FP32_OPS_PER_S = FP32_FLOPS        # H100 SXM float32 outside tensor cores
 KERNEL_SOURCE = "src/repro_torch/csrc/segment_combine.cu"
 KERNEL_REPLACES = "src/repro/kernels/segment_combine/kernel.py:60"
 VEC_KERNEL_REPLACES = "src/repro/kernels/segment_combine/kernel.py:84"
@@ -480,6 +513,10 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 64
 OLMOE_ARCH = "olmoe_1b_7b"
 # OLMoE's layers checked in the forms (b) and (c) of phase 13
 OLMOE_CHECK_LAYERS = 4
+# the OLMoE prefill's device ms on an H100 80GB HBM3 at 700 W when the MoE
+# dispatch packed only the kept pairs (nonzero, bincount), printed beside
+# the static-shape dispatch's (the dump-row scatter)
+OLMOE_PREFILL_BEFORE_MS = 574.893
 WHISPER_ARCH = "whisper_medium"
 WHISPER_PROMPT = 384         # + 64 generated: 448, Whisper's text context
 WHISPER_CHECK_LAYERS = 4     # encoder and decoder layers of (b) and (c)
@@ -704,6 +741,29 @@ SERVE_MESH_CHECK_LAYERS = 2
 SERVE_MESH_FLOOR = 1e-4
 SERVE_MESH_CHAIN_FLOOR = 1e-3
 SERVE_MESH_JOIN_S = 600
+# phase 19: the four examples of examples/torch/ through their main() in a
+# spawned process of its own at the reference's defaults on the card
+# (quickstart at 20,000 vertices, graph_analytics at 10,000, serve_lm's
+# three reduced archs, train_lm's 200 steps), then the two graph examples
+# again with --device cpu (EXAMPLES_CPU_THREADS threads: the process runs
+# beside phase 3's host work): every integer they return (msgs_* and
+# per_worker_* counts, supersteps, rounds, labels) equal between card and
+# CPU; train_lm's losses finite and falling
+EXAMPLES = ("quickstart", "graph_analytics", "serve_lm", "train_lm")
+EXAMPLES_CPU = ("quickstart", "graph_analytics")
+EXAMPLES_CPU_THREADS = 2
+EXAMPLES_TIMEOUT_S = 900
+# phase 20: the dry run of the production mesh (launch/dryrun.py: rank 0's
+# program on meta tensors in a fake world; no device) in a spawned process
+# of its own: DRYRUN_ARCHS x every shape on the 16 x 16 and 2 x 16 x 16
+# meshes (the whole matrix takes about 8 minutes on a CPU: these four
+# cover the dense, MoE, local/global and hybrid SSM stage kinds); then
+# phase 17's (2, 2) runs (mesh_rank_archs) at float32 in a fake world of
+# MESH_RANKS, gated against that phase's ranks of the same call; and
+# phase 16's TinyLlama step on the (1, 1) mesh, its FLOPs beside
+# train_products
+DRYRUN_ARCHS = ("tinyllama_1_1b", "olmoe_1b_7b", "gemma3_4b", "hymba_1_5b")
+DRYRUN_TIMEOUT_S = 900
 
 
 def fail(msg: str) -> None:
@@ -4142,7 +4202,9 @@ def olmoe_path(torch, np, args, dev, phases):
                  * mc.d_ff_expert / HBM_BYTES_PER_S * 1e3)
     pre_bound_ms = prefill_ops(cfg, B, S) / FP32_OPS_PER_S * 1e3
     log(f"[serve] {cfg.name}: batch={B} prompt={S} gen={G}: prefill "
-        f"{prefill_ms:.3f} ms device ({B * S / prefill_ms * 1e3:.0f} prompt "
+        f"{prefill_ms:.3f} ms device (beside {OLMOE_PREFILL_BEFORE_MS} ms "
+        f"with the dispatch's data-dependent shapes; "
+        f"{B * S / prefill_ms * 1e3:.0f} prompt "
         f"tokens/s; its products' bound {pre_bound_ms:.3f} ms at "
         f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s float32), decode "
         f"{float(np.mean(decode_ms)):.3f} ms a step (median "
@@ -6465,7 +6527,8 @@ def mesh_rank_arch(torch, cfg, step_cfg, B, S, placements, mesh, dev, seed,
     (the same on every rank), then for each placement of ``placements``
     ("tp": ``train_state_specs`` plain; "zero1", "fsdp": that flag) this
     rank's blocks of the train state, one step of make_train_step on the
-    global batch of B x S with its flash launches, peak memory, host
+    global batch of B x S with its flash launches, its collectives
+    (``record_collectives``, for phase 20's gate 2), peak memory, host
     seconds and bytes, and the new state held to the one-device step on
     rank 0 (``mesh_rank_errs``).  Adds a run a placement to ``out``.
     ``warm_up``: one step of the tensor-parallel placement first, outside
@@ -6474,6 +6537,7 @@ def mesh_rank_arch(torch, cfg, step_cfg, B, S, placements, mesh, dev, seed,
     H100 at 700 W)."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.launch import shardings as sh
+    from repro_torch.launch.comm_stats import record_collectives
     from repro_torch.models import model_zoo as zoo
     from repro_torch.models import moe
     from repro_torch.models.transformer import ModelContext
@@ -6520,7 +6584,8 @@ def mesh_rank_arch(torch, cfg, step_cfg, B, S, placements, mesh, dev, seed,
         moe.record = [] if cfg.is_moe else None
         t0 = time.perf_counter()
         try:
-            new, m = step(local, batch)
+            with record_collectives() as rec:
+                new, m = step(local, batch)
             torch.cuda.synchronize()
             recs = moe.record
         finally:
@@ -6538,7 +6603,8 @@ def mesh_rank_arch(torch, cfg, step_cfg, B, S, placements, mesh, dev, seed,
                "placed": placed,
                "new": state_bytes(sh, new, specs, abstract, mesh),
                "tp_implied": tp_implied,
-               "embed_shape": tuple(new["params"]["embed"].shape)}
+               "embed_shape": tuple(new["params"]["embed"].shape),
+               "collectives": [dataclasses.asdict(op) for op in rec.ops]}
         if cfg.is_moe:
             run["expert_rows"] = new["params"]["stages"][0]["layers"][
                 "moe"]["w_gate"].shape[1]
@@ -6556,22 +6622,43 @@ def mesh_rank_arch(torch, cfg, step_cfg, B, S, placements, mesh, dev, seed,
     torch.cuda.empty_cache()
 
 
+def mesh_rank_archs():
+    """The (2, 2) ranks' models, each (cfg, step config, B, S,
+    placements): TinyLlama at full width with its depth cut to
+    MESH_RANK_LAYERS under the tensor-parallel placement, ZeRO-1 and
+    fsdp, then OLMoE-1B-7B at full width with its depth cut to
+    MESH_OLMOE_LAYERS under fsdp (see MESH_RANK_SHAPE's and MESH_OLMOE's
+    comments).  A run's key is "<cfg.name> <placement>"."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.train import train_step as ts
+    tiny = dataclasses.replace(get_config(TRAIN_ARCH),
+                               n_layers=MESH_RANK_LAYERS)
+    olmoe = get_config(OLMOE_ARCH)
+    olmoe = dataclasses.replace(
+        olmoe, n_layers=MESH_OLMOE_LAYERS, moe=dataclasses.replace(
+            olmoe.moe, capacity_factor=olmoe.moe.n_experts
+            / olmoe.moe.top_k))
+    return [(tiny, ts.StepConfig(), TRAIN_BATCH, TRAIN_SEQ,
+             ("tp", "zero1", "fsdp")),
+            (olmoe, ts.StepConfig(aux_weight=0.0), MESH_OLMOE_BATCH,
+             MESH_OLMOE_SEQ, ("fsdp",))]
+
+
 def mesh_rank(rank, D, backend, init_method, seed, out_path):
     """One rank of the (2, 2) mesh (see MESH_RANK_SHAPE's and
     MESH_OLMOE's comments): TinyLlama at full width with its depth cut to
     MESH_RANK_LAYERS under the tensor-parallel placement, ZeRO-1 and fsdp,
     then OLMoE-1B-7B at full width with its depth cut to
     MESH_OLMOE_LAYERS under fsdp with its experts stored, a step each
-    (``mesh_rank_arch``); rank 0 holds each run to the one-device step.
-    Writes its figures."""
+    (``mesh_rank_archs``, ``mesh_rank_arch``: each step's collectives
+    recorded); rank 0 holds each run to the one-device step.  Writes its
+    figures."""
     sys.path.insert(0, str(ROOT / "src"))
     import datetime
     import pickle
     import torch
     import torch.distributed as dist
-    from repro_torch.configs.base import get_config
     from repro_torch.launch import mesh as meshlib
-    from repro_torch.train import train_step as ts
     dev = torch.device("cuda", rank if backend == "nccl" else 0)
     torch.cuda.set_device(dev)
     dist.init_process_group(
@@ -6580,19 +6667,10 @@ def mesh_rank(rank, D, backend, init_method, seed, out_path):
     try:
         mesh = meshlib.make_mesh(MESH_RANK_SHAPE, ("data", "model"))
         out = {"rank": rank, "runs": {}}
-        tiny = dataclasses.replace(get_config(TRAIN_ARCH),
-                                   n_layers=MESH_RANK_LAYERS)
-        mesh_rank_arch(torch, tiny, ts.StepConfig(), TRAIN_BATCH, TRAIN_SEQ,
-                       ("tp", "zero1", "fsdp"), mesh, dev, seed, out,
-                       warm_up=True)
-        olmoe = get_config(OLMOE_ARCH)
-        olmoe = dataclasses.replace(
-            olmoe, n_layers=MESH_OLMOE_LAYERS, moe=dataclasses.replace(
-                olmoe.moe, capacity_factor=olmoe.moe.n_experts
-                / olmoe.moe.top_k))
-        mesh_rank_arch(torch, olmoe, ts.StepConfig(aux_weight=0.0),
-                       MESH_OLMOE_BATCH, MESH_OLMOE_SEQ, ("fsdp",), mesh,
-                       dev, seed, out)
+        for i, (cfg, step_cfg, B, S, placements) in enumerate(
+                mesh_rank_archs()):
+            mesh_rank_arch(torch, cfg, step_cfg, B, S, placements, mesh, dev,
+                           seed, out, warm_up=i == 0)
         Path(f"{out_path}.{rank}").write_bytes(pickle.dumps(out))
     finally:
         meshlib.destroy()
@@ -6650,6 +6728,8 @@ def mesh_rank_gate(key, outs):
             "launches": launches,
             "bytes": [{p: r["new"][p][0] for p in ("params", "opt")}
                       for r in runs],
+            "placed": [{p: r["placed"][p][0] for p in ("params", "opt")}
+                       for r in runs],
             "tp_implied": [r["tp_implied"] for r in runs],
             "embed_shape": r0["embed_shape"],
             "expert_rows": r0.get("expert_rows")}
@@ -6704,7 +6784,11 @@ def mesh_ranks_path(seed):
                 f"{g['peak_gib'][rank]:.3f} GiB; step {g['step_s'][rank]:.3f}"
                 f" s host clock{staging}")
     log(f"[mesh-ranks] {len(runs)} runs in {wall:.1f} s of spawned program")
-    return {"backend": backend, "D": D, "wall_s": wall, "runs": runs}
+    # rank 0's recorded collectives of each run, for phase 20's gate 2
+    # (kept apart from the summary line)
+    return {"backend": backend, "D": D, "wall_s": wall, "runs": runs,
+            "collectives": {k: r["collectives"]
+                            for k, r in outs[0]["runs"].items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -7015,6 +7099,297 @@ def serve_mesh_path(seed):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phases 19 and 20: the examples (a spawned process, on the card and the
+# CPU) and the dry run of the production mesh (a spawned process, on no
+# device), both beside phase 3's host set-up
+# ---------------------------------------------------------------------------
+
+def spawned(worker, name: str, timeout_s: float):
+    """Run ``worker(path)`` in a spawned process of its own (``path`` a
+    fresh temporary directory; its lines go to ``log.txt`` there, its
+    result to ``out.pkl``).  Returns (the result, its log lines, wall
+    seconds); fails, with the log's tail, unless it exits 0 in time."""
+    import multiprocessing
+    import pickle
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix=f"{name}-") as tmp:
+        d = Path(tmp)
+        proc = multiprocessing.get_context("spawn").Process(
+            target=worker, args=(tmp,), daemon=True)
+        t0 = time.perf_counter()
+        proc.start()
+        proc.join(timeout_s)
+        wall = time.perf_counter() - t0
+        if proc.is_alive():
+            proc.terminate()
+            proc.join()
+        lines = ((d / "log.txt").read_text().splitlines()
+                 if (d / "log.txt").exists() else [])
+        if proc.exitcode != 0 or not (d / "out.pkl").exists():
+            for line in lines[-40:]:
+                log(f"[{name}] | {line}")
+            fail(f"the {name} process exited {proc.exitcode} after "
+                 f"{wall:.1f} s (limit {timeout_s} s)")
+        with open(d / "out.pkl", "rb") as f:
+            return pickle.load(f), lines, wall
+
+
+def worker_log(path):
+    """A spawned phase's own stdout and stderr: ``log.txt`` in ``path``."""
+    sys.stdout = sys.stderr = open(Path(path) / "log.txt", "w", buffering=1)
+
+
+def write_result(path, out) -> None:
+    import pickle
+    d = Path(path)
+    with open(d / "out.tmp", "wb") as f:
+        pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
+    (d / "out.tmp").rename(d / "out.pkl")
+
+
+def host_tree(x):
+    """A returned tree with its tensors as numpy arrays."""
+    if isinstance(x, dict):
+        return {k: host_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(host_tree(v) for v in x)
+    if hasattr(x, "cpu"):
+        return x.cpu().numpy()
+    return x
+
+
+def examples_worker(path):
+    """Phase 19's process: each example of ``EXAMPLES`` through its
+    ``main`` at the reference's defaults on the card, then those of
+    ``EXAMPLES_CPU`` again with ``--device cpu``; pickles each returned
+    dict (tensors as arrays) with its seconds."""
+    worker_log(path)
+    import importlib.util
+    import torch
+    torch.set_num_threads(EXAMPLES_CPU_THREADS)
+    out = {}
+    runs = [(n, []) for n in EXAMPLES] + [(n, ["--device", "cpu"])
+                                          for n in EXAMPLES_CPU]
+    for name, argv in runs:
+        spec = importlib.util.spec_from_file_location(
+            f"example_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        key = name + (" cpu" if argv else "")
+        print(f"== {key}", flush=True)
+        t0 = time.perf_counter()
+        got = mod.main(argv)
+        if not argv:
+            torch.cuda.synchronize()
+        out[key] = {"result": host_tree(got),
+                    "seconds": time.perf_counter() - t0}
+    write_result(path, out)
+
+
+def integer_leaves(np, tree, path=()) -> dict:
+    """{path: value} of every integer a returned tree holds: ints, lists
+    of ints and integer arrays (as tuples)."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(integer_leaves(np, v, path + (k,)))
+    elif isinstance(tree, (bool, int, np.integer)):
+        out[path] = int(tree)
+    elif isinstance(tree, list) and all(isinstance(v, (int, np.integer))
+                                        for v in tree):
+        out[path] = tuple(int(v) for v in tree)
+    elif isinstance(tree, np.ndarray) and tree.dtype.kind in "iub":
+        out[path] = (tree.shape, tree.tobytes())
+    return out
+
+
+def examples_path():
+    """Phase 19 (see EXAMPLES' comment): the examples' process and its
+    gates: card and CPU equal in every integer of the graph examples
+    (counts, supersteps, rounds, labels), train_lm's losses finite and
+    falling, serve_lm's tokens of the expected shape; ``[examples]``
+    lines."""
+    import numpy as np
+    out, _, wall = spawned(examples_worker, "examples", EXAMPLES_TIMEOUT_S)
+    summary = {"wall_s": wall,
+               "seconds": {k: v["seconds"] for k, v in out.items()}}
+    for name in EXAMPLES_CPU:
+        card = integer_leaves(np, out[name]["result"])
+        cpu = integer_leaves(np, out[name + " cpu"]["result"])
+        bad = sorted(k for k in set(card) | set(cpu)
+                     if card.get(k) != cpu.get(k))
+        if bad or not card:
+            fail(f"[examples] {name}: card and CPU differ at {bad[:8]}")
+        counts = {"/".join(map(str, k)): v for k, v in card.items()
+                  if isinstance(v, int)}
+        summary[name] = counts
+        log(f"[examples] {name} (default scale) on the card in "
+            f"{out[name]['seconds']:.3f} s, on the CPU in "
+            f"{out[name + ' cpu']['seconds']:.3f} s: equal in all "
+            f"{len(card)} integer results (counts, supersteps, rounds, "
+            f"per-worker loads, labels): {json.dumps(counts)}")
+    pr = out["graph_analytics"]["result"]["pagerank"]["state"]
+    pr_cpu = out["graph_analytics cpu"]["result"]["pagerank"]["state"]
+    w = [out[k]["result"]["msf"]["weight"]
+         for k in ("graph_analytics", "graph_analytics cpu")]
+    summary["pagerank_rel"] = float(np.abs(pr - pr_cpu).max()
+                                    / np.abs(pr_cpu).max())
+    log(f"[examples] graph_analytics: PageRank card against CPU "
+        f"{summary['pagerank_rel']:.3g} of the max; MSF weight {w[0]!r} "
+        f"on the card, {w[1]!r} on the CPU")
+    toks = out["serve_lm"]["result"]
+    for arch, t in toks.items():
+        if tuple(t.shape) != (4, 16):
+            fail(f"[examples] serve_lm {arch}: tokens of shape "
+                 f"{tuple(t.shape)}, expected (4, 16)")
+    log(f"[examples] serve_lm on the card in "
+        f"{out['serve_lm']['seconds']:.3f} s: {', '.join(toks)} (reduced) "
+        "each 4 x 16 tokens, finite logits")
+    losses = out["train_lm"]["result"]["losses"]
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        fail(f"[examples] train_lm: losses {losses[:3]} ... {losses[-3:]} "
+             "must stay finite and fall")
+    summary["train_lm"] = {"steps": len(losses), "first": losses[0],
+                           "last": losses[-1], "min": min(losses)}
+    log(f"[examples] train_lm (tinyllama_1_1b reduced, batch 8 x 128) on "
+        f"the card: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+        f"{len(losses)} steps (min {min(losses):.4f}) in "
+        f"{out['train_lm']['seconds']:.3f} s")
+    log(f"[examples] {wall:.1f} s of spawned program")
+    return summary
+
+
+def dryrun_worker(path):
+    """Phase 20's process, on no device: ``lower_cell`` of DRYRUN_ARCHS x
+    every shape on both production meshes; the (2, 2) ranks' runs
+    (``mesh_rank_archs``) at float32 in a fake world of MESH_RANKS; phase
+    16's TinyLlama step on the (1, 1) mesh.  Pickles the artifacts."""
+    worker_log(path)
+    import torch
+    from repro_torch.configs.base import SHAPES, ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+    out = {"cells": [], "mesh_runs": {}}
+    for multi_pod in (False, True):
+        for arch in DRYRUN_ARCHS:
+            for shape in SHAPES:
+                art = dryrun.lower_cell(arch, shape, multi_pod)
+                art.pop("flops_by_op", None)
+                out["cells"].append(art)
+                print(art["arch"], art["shape"], art["mesh"], art["status"],
+                      flush=True)
+    for cfg, step_cfg, B, S, placements in mesh_rank_archs():
+        for placement in placements:
+            flags = {} if placement == "tp" else {placement: True}
+            with dryrun.fake_world(MESH_RANKS):
+                mesh = meshlib.make_mesh(MESH_RANK_SHAPE, ("data", "model"))
+                art = dryrun.run_cell(cfg, ShapeConfig("mesh", S, B, "train"),
+                                      mesh, dtype=torch.float32,
+                                      step_cfg=step_cfg, **flags)
+            out["mesh_runs"][f"{cfg.name} {placement}"] = art
+    with dryrun.fake_world(1):
+        mesh = meshlib.make_mesh((1, 1), ("data", "model"))
+        out["phase16"] = dryrun.run_cell(
+            get_config(TRAIN_ARCH),
+            ShapeConfig("phase16", TRAIN_SEQ, TRAIN_BATCH, "train"), mesh,
+            dtype=torch.float32)
+    write_result(path, out)
+
+
+def kinds_text(coll) -> str:
+    return ", ".join(f"{k} {v['count']} x {v['bytes']} B"
+                     for k, v in coll.items() if v["count"] and k != "total")
+
+
+def dryrun_path():
+    """Phase 20's process and its lines (see DRYRUN_ARCHS' comment): one
+    ``[dryrun]`` line a cell.  Returns its artifacts for ``dryrun_gates``,
+    which waits for the (2, 2) ranks."""
+    out, _, wall = spawned(dryrun_worker, "dryrun", DRYRUN_TIMEOUT_S)
+    for art in out["cells"]:
+        name = f"{art['arch']}.{art['shape']}.{art['mesh']}"
+        if art["status"] != "ok":
+            log(f"[dryrun] {name}: {art['status']} ({art['reason']})")
+            continue
+        r, ma = art["roofline"], art["memory_analysis"]
+        log(f"[dryrun] {name}: {r['dominant']}-bound, compute "
+            f"{r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s (unfused "
+            f"upper bound), collective {r['collective_s']:.4g} s; "
+            f"{art['flops_per_chip']:.6g} FLOPs a chip (useful "
+            f"{r['useful_ratio']:.4f}), arguments "
+            f"{ma['argument_size_in_bytes'] / 1e9:.3f} GB a chip, temp "
+            f"{ma['temp_size_in_bytes'] / 1e9:.3f} GB, collectives "
+            f"{kinds_text(art['collectives'])}; roofline fraction "
+            f"{r['roofline_fraction']:.4f} ({art['timing']['run_s']:.1f} s "
+            "on meta)")
+    ok = sum(a["status"] == "ok" for a in out["cells"])
+    log(f"[dryrun] {ok} cells ok, {len(out['cells']) - ok} skipped, on the "
+        f"16 x 16 and 2 x 16 x 16 meshes (H100 SXM published rates: "
+        f"{HBM_BW / 1e12:.2f} TB/s, 989.4 TFLOP/s bfloat16, 50 GB/s a "
+        f"GPU across nodes); {wall:.1f} s of spawned program")
+    return {"wall_s": wall, "out": out}
+
+
+def dryrun_gates(dry, mesh_ranks):
+    """Phase 20's gates against phase 17's (2, 2) ranks of this call:
+    (1) each run's dry-run bytes of params and optimizer state a rank
+    equal, byte for byte, what every rank held placed and after its step
+    (``[mesh-zero]``); (2) the dry run's recorded collectives (kind,
+    bytes, operand shapes and dtypes, group size, in order) equal rank
+    0's record of the same step.  Then phase 16's shape: the dry run's
+    FLOPs beside ``train_products``."""
+    from repro_torch.configs.base import get_config
+    out = dry["out"]
+    figures = {}
+    for key, art in out["mesh_runs"].items():
+        args = art["memory_analysis"]["arguments"]
+        want = {"params": args["params"], "opt": args["opt"]}
+        ran = mesh_ranks["runs"][key]
+        for when in ("placed", "bytes"):
+            for rank, got in enumerate(ran[when]):
+                if got != want:
+                    fail(f"[dryrun] gate 1, {key}: rank {rank} held {got} "
+                         f"bytes ({when}), the dry run places {want}")
+        rec = mesh_ranks["collectives"][key]
+        if art["ops"] != rec:
+            diff = next((i for i, (a, b) in enumerate(zip(art["ops"], rec))
+                         if a != b), min(len(art["ops"]), len(rec)))
+            fail(f"[dryrun] gate 2, {key}: the dry run records "
+                 f"{len(art['ops'])} collectives, rank 0 {len(rec)}; first "
+                 f"difference at {diff}: "
+                 f"{art['ops'][diff] if diff < len(art['ops']) else None} "
+                 f"against {rec[diff] if diff < len(rec) else None}")
+        figures[key] = {"params": want["params"], "opt": want["opt"],
+                        "collectives": art["collectives"]}
+        log(f"[dryrun] gate 1 and 2, {key} on the {MESH_RANK_SHAPE} mesh "
+            f"(float32, fake world of {MESH_RANKS}): params "
+            f"{want['params']} B and optimizer state {want['opt']} B a "
+            f"rank, equal to every rank's [mesh-zero] bytes placed and "
+            f"after its step; {len(rec)} collectives equal to rank 0's "
+            f"record call for call ({kinds_text(art['collectives'])}); "
+            f"{art['flops_per_chip']:.6g} FLOPs a rank")
+    p16 = out["phase16"]
+    prods = train_products(get_config(TRAIN_ARCH), TRAIN_BATCH, TRAIN_SEQ,
+                           remat=True)
+    flops = p16["flops_per_chip"]
+    by_op = ", ".join(f"{k} {v:.6g}" for k, v in sorted(
+        p16["flops_by_op"].items()))
+    log(f"[dryrun] {TRAIN_ARCH} at phase 16's shape (B={TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, float32, remat full; the (1, 1) mesh): "
+        f"{flops:.6g} FLOPs on meta ({by_op}) beside train_products: dense "
+        f"{prods['dense']:.6g}, attention forward {prods['attn_fwd']:.6g}, "
+        f"attention backward {prods['attn_bwd']:.6g}, total "
+        f"{prods['total']:.6g}; beyond the dense products the dry run "
+        f"counts {flops - prods['dense']:.6g} against the kernel path's "
+        f"{prods['attn_fwd'] + prods['attn_bwd']:.6g} (the dry run takes "
+        f"the plain attention: every key up to each query chunk's end); "
+        f"ratio {flops / prods['total']:.4f}")
+    return {"mesh_runs": figures, "phase16_flops": flops,
+            "phase16_products": prods, "wall_s": dry["wall_s"]}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=4_000_000,
@@ -7061,12 +7436,13 @@ def main():
     # the comparisons' float64 buffers leave the allocator's cache: the
     # spawned ranks below share the card
     torch.cuda.empty_cache()
-    # two threads run spawns in processes of their own beside phase 3's
+    # four threads run spawns in processes of their own beside phase 3's
     # host-only graph build and partition, waited for before any timed
-    # device work: the launchers of phases 10 and 11, and phases 14, 17's
-    # (2, 2) ranks and 18 (the expert-parallel and training-mesh ranks)
+    # device work: the launchers of phases 10 and 11; phases 14, 17's
+    # (2, 2) ranks and 18 (the expert-parallel and training-mesh ranks);
+    # phase 19 (the examples); phase 20 (the dry run, on no device)
     from concurrent.futures import ThreadPoolExecutor
-    pool = ThreadPoolExecutor(max_workers=2)
+    pool = ThreadPoolExecutor(max_workers=4)
     launchers_runs = [pool.submit(lambda: {
         "shard_check": phases.run("shard-check", shard_check_path),
         "dist_smoke": phases.run("dist-smoke", dist_smoke_path)}),
@@ -7075,7 +7451,10 @@ def main():
             "mesh_ranks": phases.run("mesh-ranks", mesh_ranks_path,
                                      args.seed),
             "serve_mesh": phases.run("serve-mesh", serve_mesh_path,
-                                     args.seed)})]
+                                     args.seed)}),
+        pool.submit(lambda: {"examples": phases.run("examples",
+                                                    examples_path)}),
+        pool.submit(lambda: {"dryrun": phases.run("dryrun", dryrun_path)})]
 
     def launchers_wait():
         return {k: v for run in launchers_runs
@@ -7106,6 +7485,11 @@ def main():
             pg, dev)))
     launchers = launchers_wait()
     pool.shutdown()
+    mesh_ops = launchers["mesh_ranks"].pop("collectives")
+    examples = launchers.pop("examples")
+    dryrun = phases.run("dryrun-gates", dryrun_gates,
+                        launchers.pop("dryrun"),
+                        dict(launchers["mesh_ranks"], collectives=mesh_ops))
     phases.run("sv-2^24", large_ids, torch, np, api, structs, kernel, dev)
     sharded_row = sharded_one(torch, np, mods, pg, runs, algos + rr_algos,
                               ref_fn, dev, phases)
@@ -7294,6 +7678,8 @@ def main():
     log(f"[moe] summary {json.dumps(olmoe['moe'])}")
     log(f"[mesh-train] summary {json.dumps(train['mesh'])}")
     log(f"[serve-mesh] summary {json.dumps(mesh_serve)}")
+    log(f"[examples] summary {json.dumps(examples)}")
+    log(f"[dryrun] summary {json.dumps(dryrun)}")
     log(json.dumps({"kernels": [entry, vec_entry] + serve_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}),

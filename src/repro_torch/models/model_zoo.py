@@ -28,6 +28,7 @@ reference's stub audio front end, through ``forward_logits`` and
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict
 
@@ -378,12 +379,22 @@ def _build_cache(cfg: ArchConfig, B: int, seq_len: int, mk):
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class _Leaf:
+    """A cache leaf's shape and dtype without a tensor: what the placement
+    rules and ``local_shape`` read (a tensor, even on the ``meta`` device,
+    would count as an allocation of the whole global cache to a dry
+    run's recorders)."""
+    shape: tuple
+    dtype: torch.dtype = torch.float32
+
+
 def cache_placement(cfg: ArchConfig, B: int, seq_len: int, mesh):
     """``cache_specs`` of the cache for a global batch ``B`` at context
     ``seq_len`` on ``mesh``."""
     shape = ShapeConfig("serve", seq_len, B, "decode")
     return sh.cache_specs(cfg, shape, mesh, _build_cache(
-        cfg, B, seq_len, lambda s, _: torch.empty(s, device="meta")))
+        cfg, B, seq_len, lambda s, _: _Leaf(tuple(s))))
 
 
 def build_cache(cfg: ArchConfig, B: int, seq_len: int, ctx: ModelContext,
@@ -397,8 +408,8 @@ def build_cache(cfg: ArchConfig, B: int, seq_len: int, ctx: ModelContext,
         return _build_cache(cfg, B, seq_len, lambda s, t: torch.zeros(
             s, dtype=types[t], device=device))
     specs = cache_placement(cfg, B, seq_len, ctx.mesh)
-    whole = _build_cache(cfg, B, seq_len, lambda s, t: torch.empty(
-        s, dtype=types[t], device="meta"))
+    whole = _build_cache(cfg, B, seq_len,
+                         lambda s, t: _Leaf(tuple(s), types[t]))
     return sh._zip(whole, specs, lambda _, t, spec: torch.zeros(
         sh.local_shape(spec, t.shape, ctx.mesh), dtype=t.dtype,
         device=device))

@@ -79,11 +79,21 @@ def router_probs(x: torch.Tensor, w_router: torch.Tensor, top_k: int):
     return gates.to(x.dtype), idx, probs
 
 
+def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """How often each of 0..n-1 occurs in ``ids`` (int64, (n,)): a
+    ``bincount`` of a known length, as a scatter of ones, so that its
+    shape does not depend on the values (it runs on the ``meta`` device,
+    where ``bincount`` has no kernel)."""
+    ids = ids.reshape(-1).long()
+    return torch.zeros(n, dtype=torch.long, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
 def load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
                       n_experts: int) -> torch.Tensor:
     """Switch-transformer auxiliary loss: E * <f_e> . <p_e>, f_e the mean
     over tokens of the times expert e was chosen."""
-    f = torch.bincount(idx.reshape(-1).long(), minlength=n_experts).float()
+    f = _counts(idx, n_experts).float()
     f = f / idx.shape[0]
     p = probs.float().mean(0)
     return n_experts * torch.sum(f * p)
@@ -114,7 +124,7 @@ def _slots(idx: torch.Tensor, n_experts: int, cap: int,
     send = ~mirrored_mask[flat_e]
     key = torch.where(send, flat_e, n_experts)    # pairs not sent: apart
     order = torch.sort(key, stable=True).indices
-    counts = torch.bincount(key, minlength=n_experts + 1)
+    counts = _counts(key, n_experts + 1)
     first = torch.cumsum(counts, dim=0) - counts
     slot = torch.empty_like(flat_e)
     slot[order] = (torch.arange(key.numel(), device=key.device)
@@ -131,32 +141,36 @@ def _pack(x, idx, gates, n_experts, cap, mirrored_mask):
       buf_gate  (E, C)    gate weight per slot
       buf_tok   (E, C)    source token index (-1: empty)
     Tokens whose expert is mirrored (``mirrored_mask`` (E,) bool) are
-    excluded: they never become network messages.  Only the kept pairs
-    are written; each (expert, slot) receives at most one."""
+    excluded: they never become network messages.  Each kept pair is
+    written to its (expert, slot), which receives no other; every other
+    pair goes to one dump row past the buffer's end, which is cut off (the
+    reference's scatter), so that every shape is static."""
     T, D = x.shape
     k = idx.shape[1]
     flat_e, slot, _, keep = _slots(idx, n_experts, cap, mirrored_mask)
-    sel = keep.nonzero()[:, 0]
-    dest = flat_e[sel] * cap + slot[sel]
-    tok = torch.div(sel, k, rounding_mode="floor")
     rows = n_experts * cap
-    buf = x.new_zeros(rows, D).index_copy_(0, dest, x[tok])
-    buf_gate = gates.new_zeros(rows).index_copy_(
-        0, dest, gates.reshape(-1)[sel])
-    buf_tok = torch.full((rows,), -1, dtype=torch.int32,
-                         device=x.device).index_copy_(0, dest, tok.int())
+    dest = torch.where(keep, flat_e * cap + slot, rows)
+    tok = torch.div(torch.arange(T * k, device=x.device), k,
+                    rounding_mode="floor")
+    buf = x.new_zeros(rows + 1, D).index_copy_(0, dest, x[tok])[:rows]
+    buf_gate = gates.new_zeros(rows + 1).index_copy_(
+        0, dest, gates.reshape(-1))[:rows]
+    buf_tok = torch.full((rows + 1,), -1, dtype=torch.int32,
+                         device=x.device).index_copy_(0, dest,
+                                                      tok.int())[:rows]
     return (buf.view(n_experts, cap, D), buf_gate.view(n_experts, cap),
             buf_tok.view(n_experts, cap))
 
 
 def _unpack(y_buf, buf_gate, buf_tok, T, D):
     """Combine expert outputs back per source token (receiver-side
-    combine): out[tok] += y * gate over the occupied slots."""
+    combine): out[tok] += y * gate over the occupied slots; the empty
+    slots add into a dump row past the end, which is cut off (the
+    reference's scatter: static shapes)."""
     flat_y = y_buf.reshape(-1, D) * buf_gate.reshape(-1)[:, None]
-    flat_t = buf_tok.reshape(-1)
-    sel = (flat_t >= 0).nonzero()[:, 0]
-    return y_buf.new_zeros(T, D).index_add_(0, flat_t[sel].long(),
-                                            flat_y[sel])
+    flat_t = buf_tok.reshape(-1).long()
+    tgt = torch.where(flat_t >= 0, flat_t, T)
+    return y_buf.new_zeros(T + 1, D).index_add_(0, tgt, flat_y)[:T]
 
 
 def _record(idx, n_experts, cap, mirrored_mask, buf_tok, aux):
@@ -167,9 +181,9 @@ def _record(idx, n_experts, cap, mirrored_mask, buf_tok, aux):
     record.append({
         "tokens": idx.shape[0], "pairs": flat_e.numel(), "cap": cap,
         "rows": buf_tok.numel(),
-        "load": torch.bincount(flat_e, minlength=n_experts),
-        "kept": torch.bincount(torch.where(keep, flat_e, n_experts),
-                               minlength=n_experts + 1)[:n_experts],
+        "load": _counts(flat_e, n_experts),
+        "kept": _counts(torch.where(keep, flat_e, n_experts),
+                        n_experts + 1)[:n_experts],
         "sent": send.sum(), "occupied": (buf_tok >= 0).sum(),
         "aux": aux.detach()})
 

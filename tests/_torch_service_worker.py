@@ -4,7 +4,8 @@ on the same graph, running the same client program (a mixed batch, a
 fold, another batch, then a batch that ranks other than 0 submit with
 other sources: rank 0's queue must be the one served everywhere), then
 each scenario of the spec on a service of its own (the elastic
-repartition and the profile overflow).  Each rank writes what it
+repartition and the profile overflow); a spec without a batch runs its
+scenarios alone.  Each rank writes what it
 answered.  This module imports neither JAX nor the JAX package.
 
 A spec (pickled by the test) holds the graph (``n``, ``src``, ``dst``,
@@ -67,6 +68,38 @@ def scenario(sc: dict, D: int) -> dict:
     return out
 
 
+def client_program(spec: dict, D: int, rank: int) -> dict:
+    """The spec's client program on a service of the spec's graph: a
+    batch, a fold, the probe and the batch again, then every rank
+    submitting the probe with its own sources (only rank 0's queue is
+    served).  Returns the answers, batch records and labels."""
+    g = structs.Graph(spec["n"], spec["src"], spec["dst"], spec["w"])
+    svc = GraphService(g, config=EngineConfig(
+        layout="csr", balance="edges", devices=D), device="cpu",
+        **spec["service"])
+    svc.warmup()
+    client = GraphClient(svc)
+    out = {"warm_traces": svc.traces}
+    ptrs = {k: t.data_ptr() for k, t in texec._tensors(svc.sg)}
+    out["pre"] = answers(client.request(
+        [Query(k, s) for k, s in spec["batch"]]))
+    out["pre_batch"] = batch_record(svc)
+    svc.mutate(structs.EdgeDelta(**spec["delta"]))
+    out["post"] = answers(client.request(
+        [Query(k, s) for k, s in spec["probe"] + spec["batch"]]))
+    out["post_batch"] = batch_record(svc)
+    out["storage_kept"] = ptrs == {
+        k: t.data_ptr() for k, t in texec._tensors(svc.sg)}
+    # every rank submits, but only rank 0's queue is served
+    mine = spec["probe"] if rank == 0 else [
+        (k, (s + 1 + rank) % g.n) for k, s in spec["probe"]]
+    tickets = svc.submit([Query(k, s) for k, s in mine])
+    svc.pump()
+    out["rank0_queue"] = answers([svc.take_result(t) for t in tickets])
+    out["labels"] = np.asarray(svc._labels_now()[1])
+    return out
+
+
 def rank_main(rank: int, D: int, store: str, spec_path: str,
               out_path: str) -> None:
     torch.set_num_threads(1)
@@ -76,32 +109,9 @@ def rank_main(rank: int, D: int, store: str, spec_path: str,
     try:
         with open(spec_path, "rb") as f:
             spec = pickle.load(f)
-        g = structs.Graph(spec["n"], spec["src"], spec["dst"], spec["w"])
-        svc = GraphService(g, config=EngineConfig(
-            layout="csr", balance="edges", devices=D), device="cpu",
-            **spec["service"])
-        svc.warmup()
-        client = GraphClient(svc)
-        out = {"warm_traces": svc.traces}
-        ptrs = {k: t.data_ptr() for k, t in texec._tensors(svc.sg)}
-        out["pre"] = answers(client.request(
-            [Query(k, s) for k, s in spec["batch"]]))
-        out["pre_batch"] = batch_record(svc)
-        svc.mutate(structs.EdgeDelta(**spec["delta"]))
-        out["post"] = answers(client.request(
-            [Query(k, s) for k, s in spec["probe"] + spec["batch"]]))
-        out["post_batch"] = batch_record(svc)
-        out["storage_kept"] = ptrs == {
-            k: t.data_ptr() for k, t in texec._tensors(svc.sg)}
-        # every rank submits, but only rank 0's queue is served
-        mine = spec["probe"] if rank == 0 else [
-            (k, (s + 1 + rank) % g.n) for k, s in spec["probe"]]
-        tickets = svc.submit([Query(k, s) for k, s in mine])
-        svc.pump()
-        out["rank0_queue"] = answers([svc.take_result(t) for t in tickets])
-        out["rank"], out["world"] = dist.get_rank(), dist.get_world_size()
-        out["labels"] = np.asarray(svc._labels_now()[1])
-        del svc, client
+        out = {"rank": dist.get_rank(), "world": dist.get_world_size()}
+        if "batch" in spec:
+            out.update(client_program(spec, D, rank))
         out["scenarios"] = {name: scenario(sc, D) for name, sc in
                             sorted(spec.get("scenarios", {}).items())}
         with open(f"{out_path}.{rank}", "wb") as f:

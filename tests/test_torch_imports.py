@@ -22,7 +22,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + sorted(
         (ROOT / "tests").glob("_torch_*worker.py")) + sorted(
-            (ROOT / "tools").glob("*.py"))
+            (ROOT / "tools").glob("*.py")) + sorted(
+                (ROOT / "examples" / "torch").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 # the launchers, fault tolerance, the MoE layer, LM training and its mesh:
 # each a module of its own that must stay free of JAX, also when imported
@@ -40,7 +41,10 @@ STANDALONE = ("repro_torch.launch.shard_check",
               "repro_torch.models.layers", "repro_torch.models.ssm",
               "repro_torch.models.transformer",
               "repro_torch.models.model_zoo",
-              "_torch_serve_mesh_worker", "_torch_train_mesh_worker")
+              "_torch_serve_mesh_worker", "_torch_train_mesh_worker",
+              # the dry run of the production mesh and its ranks
+              "repro_torch.launch.roofline", "repro_torch.launch.comm_stats",
+              "repro_torch.launch.dryrun", "_torch_dryrun_worker")
 
 
 def _imported_roots(path: Path):
@@ -91,6 +95,30 @@ def test_launchers_and_fault_tolerance_import_no_jax(module):
         [str(ROOT / "src"), str(home)]))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    timeout=120)
+
+
+def test_importing_the_dry_run_initialises_no_cuda():
+    """The dry run runs on no device: importing it (and its models and
+    step factories) leaves CUDA uninitialised."""
+    code = ("import torch, repro_torch.launch.dryrun\n"
+            "assert not torch.cuda.is_initialized()\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
+
+
+@pytest.mark.parametrize("example", ["quickstart", "graph_analytics",
+                                     "serve_lm", "train_lm"])
+def test_examples_default_to_cuda_and_raise_without_it(no_cuda, example):
+    """The port's examples ask for the card unless ``--device cpu``."""
+    import importlib.util
+    path = ROOT / "examples" / "torch" / f"{example}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{example}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        mod.main(["10"] if example in ("quickstart", "graph_analytics",
+                                       "train_lm") else [])
 
 
 def test_launchers_refuse_cuda_without_a_card(no_cuda):
