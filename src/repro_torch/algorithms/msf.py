@@ -13,12 +13,14 @@ Per round:
      subvertices, the bottleneck the request-respond channel removes.
 
 The reference's ``lax.while_loop`` of pointer jumps is a Python loop here,
-with one host read of its "changed" vote per jump (``RunResult.jump_reads``).
+with one host read of its "changed" vote per jump (``RunResult.jump_reads``,
+and the counter ``host_reads`` of ``repro_torch.tracing``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.algorithms.sv import _acc
 from repro_torch.api import EngineConfig, RunResult
 from repro_torch.core import bsp
@@ -109,11 +111,13 @@ def run(pg: PartitionedGraph, config: EngineConfig | None = None, *,
             Dj = D1
             changed = bool(g.gany(D1 != D))
             jump_reads += 1
+            tracing.count("host_reads")
             while changed:
                 DD, s = gather(g, Dj, Dj, vmask)
                 jumps = _acc(jumps, s)
                 changed = bool(g.gany(DD != Dj))
                 jump_reads += 1
+                tracing.count("host_reads")
                 Dj = DD
             if jumps:
                 stats = _acc(stats, jumps)

@@ -32,6 +32,7 @@ from typing import Any, Optional, Tuple, Union
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core import cost_model
 from repro_torch.graph import structs
 
@@ -149,21 +150,24 @@ class Engine:
         device, or a host Graph partitioned on the fly — then ``M`` is
         required).  Under ``devices`` the partition may live anywhere:
         the sharded executor reads only its host tables, and this rank
-        runs on the engine's device."""
+        runs on the engine's device.  The job is one ``engine.run`` span
+        (``repro_torch.tracing``), which carries the counters' changes."""
         if algo not in ALGORITHMS:
             raise ValueError(f"unknown algo {algo!r}; one of "
                              f"{sorted(ALGORITHMS)}")
         sharded = self.config.devices is not None
         if sharded:
             algo_params = dict(algo_params, device=self.device)
-        if isinstance(graph, structs.PartitionedGraph):
-            pg = graph
-            if not sharded and pg.device != self.device:
-                raise ValueError(f"the partition lives on {pg.device}, "
-                                 f"the engine runs on {self.device}")
-        else:
-            if M is None:
-                raise ValueError("partitioning a Graph on the fly needs M")
-            pg = self.partition(graph, M, tau=tau, seed=seed)
-        mod = importlib.import_module(ALGORITHMS[algo])
-        return mod.run(pg, self.config, **algo_params)
+        with tracing.span(tracing.JOB, algo=algo):
+            if isinstance(graph, structs.PartitionedGraph):
+                pg = graph
+                if not sharded and pg.device != self.device:
+                    raise ValueError(f"the partition lives on {pg.device}, "
+                                     f"the engine runs on {self.device}")
+            else:
+                if M is None:
+                    raise ValueError("partitioning a Graph on the fly "
+                                     "needs M")
+                pg = self.partition(graph, M, tau=tau, seed=seed)
+            mod = importlib.import_module(ALGORITHMS[algo])
+            return mod.run(pg, self.config, **algo_params)

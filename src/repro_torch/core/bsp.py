@@ -18,6 +18,12 @@ integer vectors, numpy arrays for floats.
 process a device: there ``vote`` makes ``halted`` the same on every rank
 before the host reads it, and ``reduce`` sums every rank's partial stats
 (int64 totals and the history) once, after the last superstep.
+
+Spans (``repro_torch.tracing``): ``bsp.run``; each superstep a
+``bsp.superstep`` with two children, ``bsp.enqueue`` (the step and the
+stats' accumulation) and ``bsp.halt_read`` (the vote and the read);
+``bsp.stats_read`` around the totals' copy.  The counter ``host_reads``
+counts the halt reads and each total copied.
 """
 from __future__ import annotations
 
@@ -26,18 +32,23 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
+
 
 def finalize_totals(acc: Dict[str, torch.Tensor]) -> Dict[str, object]:
     """Device totals as host numbers: Python ints for integer scalars,
-    ``np.int64`` arrays for integer vectors, numpy arrays for floats."""
+    ``np.int64`` arrays for integer vectors, numpy arrays for floats.
+    Each total is one host read."""
     out = {}
-    for k, a in acc.items():
-        a = a.cpu().numpy()
-        if np.issubdtype(a.dtype, np.integer):
-            a = a.astype(np.int64)
-            out[k] = int(a) if a.ndim == 0 else a
-        else:
-            out[k] = a
+    with tracing.span("bsp.stats_read"):
+        for k, a in acc.items():
+            a = a.cpu().numpy()
+            tracing.count("host_reads")
+            if np.issubdtype(a.dtype, np.integer):
+                a = a.astype(np.int64)
+                out[k] = int(a) if a.ndim == 0 else a
+            else:
+                out[k] = a
     return out
 
 
@@ -56,26 +67,35 @@ def run(step: Callable, state, max_supersteps: int,
     acc: Dict[str, torch.Tensor] = {}
     hist: Optional[Dict[str, torch.Tensor]] = None
     n = 0
-    while n < max_supersteps:
-        state, halted, stats = step(state, n)
-        if not acc:
-            acc = {k: torch.zeros_like(
-                v, dtype=(v.dtype if v.dtype.is_floating_point
-                          else torch.int64)) for k, v in stats.items()}
-            if record_history:
-                hist = {k: torch.zeros((max_supersteps,) + tuple(v.shape),
-                                       dtype=v.dtype, device=v.device)
-                        for k, v in stats.items()}
-        for k, v in stats.items():
-            acc[k] += v
-            if hist is not None:
-                hist[k][n] = v
-        n += 1
-        if vote is not None:
-            halted = vote(halted)
-        if bool(halted):            # the one host read of the superstep
-            break
-    if reduce is not None:
-        for a in list(acc.values()) + list((hist or {}).values()):
-            reduce(a)
-    return state, finalize_totals(acc), n, hist
+    with tracing.span("bsp.run"):
+        while n < max_supersteps:
+            with tracing.span("bsp.superstep"):
+                with tracing.span("bsp.enqueue"):
+                    state, halted, stats = step(state, n)
+                    if not acc:
+                        acc = {k: torch.zeros_like(
+                            v, dtype=(v.dtype if v.dtype.is_floating_point
+                                      else torch.int64))
+                            for k, v in stats.items()}
+                        if record_history:
+                            hist = {k: torch.zeros(
+                                (max_supersteps,) + tuple(v.shape),
+                                dtype=v.dtype, device=v.device)
+                                for k, v in stats.items()}
+                    for k, v in stats.items():
+                        acc[k] += v
+                        if hist is not None:
+                            hist[k][n] = v
+                n += 1
+                with tracing.span("bsp.halt_read"):
+                    if vote is not None:
+                        halted = vote(halted)
+                    tracing.count("host_reads")
+                    stop = bool(halted)   # the one host read of the superstep
+            if stop:
+                break
+        if reduce is not None:
+            for a in list(acc.values()) + list((hist or {}).values()):
+                reduce(a)
+        totals = finalize_totals(acc)
+    return state, totals, n, hist

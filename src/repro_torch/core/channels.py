@@ -29,6 +29,10 @@ The pg-level entry points (``broadcast``, ``gather``, ``gather_edges``,
 ``scatter_state``, ``scatter_edges``) also take one rank's
 ``exec.ShardedGraph``; they then route to the sharded implementations of
 ``core/exec.py``, whose stats are that rank's part of the totals.
+
+Spans (``repro_torch.tracing``): each pg-level entry point is the loop
+span ``channels.<name>``, ``push_mirror`` is ``channels.mirror``, and the
+message accounting alone is ``channels.count``.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import plan as planlib
 from repro_torch.core.plan import (EdgeMap, Payload, feat_mask, feat_shape,
                                    identity_of, per_worker, scatter_hits,
@@ -156,10 +161,12 @@ def push_combined(targets: torch.Tensor, values: Payload,
     own = torch.arange(M, device=device)
     base = {}
     if count:
-        raw_cross = mask & (torch.div(targets, n_loc, rounding_mode="floor")
-                            != own[:, None])
-        base = {"msgs_basic": raw_cross.sum(),
-                "per_worker_basic": raw_cross.sum(dim=1)}
+        with tracing.span("channels.count"):
+            raw_cross = mask & (torch.div(targets, n_loc,
+                                          rounding_mode="floor")
+                                != own[:, None])
+            base = {"msgs_basic": raw_cross.sum(),
+                    "per_worker_basic": raw_cross.sum(dim=1)}
 
     if isinstance(values, EdgeMap) and (backend == "dense" or plan is None):
         values = values.materialize().view(targets.shape + (values.feat,))
@@ -214,10 +221,11 @@ def push_combined_flat(targets: torch.Tensor, values: Payload,
     wlog = src_worker if log_t is None else log_t[src_worker]
     base = {}
     if count:
-        cross = mask & (torch.div(targets, n_loc, rounding_mode="floor")
-                        != wlog)
-        base = {"msgs_basic": cross.sum(),
-                "per_worker_basic": per_worker(wlog, cross, M)}
+        with tracing.span("channels.count"):
+            cross = mask & (torch.div(targets, n_loc, rounding_mode="floor")
+                            != wlog)
+            base = {"msgs_basic": cross.sum(),
+                    "per_worker_basic": per_worker(wlog, cross, M)}
 
     if isinstance(values, EdgeMap) and (backend == "dense" or plan is None):
         values = values.materialize()
@@ -247,6 +255,7 @@ def push_combined_flat(targets: torch.Tensor, values: Payload,
     return inbox, _stats(msgs, pw, base, count)
 
 
+@tracing.traced("channels.mirror")
 def push_mirror(pg: PartitionedGraph, vals: torch.Tensor,
                 active: torch.Tensor, op: str, relay: str = "none",
                 backend: str = "dense", count: bool = True
@@ -302,13 +311,16 @@ def push_mirror(pg: PartitionedGraph, vals: torch.Tensor,
         return inbox, {}
     # mask-driven accounting: an ACTIVE mirrored vertex is broadcast to its
     # hosting workers whatever its value (even one equal to the identity)
-    sent = torch.where(mir_act, pg.mir_nworkers.long(), 0)
-    owner_w = torch.div(safe, pg.n_loc, rounding_mode="floor").clamp(
-        0, pg.M - 1)
-    return inbox, {"msgs_mirror": sent.sum(),
-                   "per_worker_mirror": per_worker(owner_w, sent, pg.M)}
+    with tracing.span("channels.count"):
+        sent = torch.where(mir_act, pg.mir_nworkers.long(), 0)
+        owner_w = torch.div(safe, pg.n_loc, rounding_mode="floor").clamp(
+            0, pg.M - 1)
+        stats = {"msgs_mirror": sent.sum(),
+                 "per_worker_mirror": per_worker(owner_w, sent, pg.M)}
+    return inbox, stats
 
 
+@tracing.traced("channels.broadcast")
 def broadcast(pg: PartitionedGraph, vals: torch.Tensor,
               active: torch.Tensor, op: str, relay: str = "none",
               use_mirroring: bool = True, backend: str = "dense",
@@ -446,17 +458,18 @@ def rr_gather(vals: torch.Tensor, targets: torch.Tensor,
         (M, R) + feat))
     out = torch.where(feat_mask(tmask, out, 2), out, 0)
 
-    remote_u = uvalid & (owner != own)
-    tw = torch.div(targets, n_loc, rounding_mode="floor")
-    raw_remote = tmask & (tw != own)
-    stats = {
-        "msgs_rr": 2 * remote_u.sum(),
-        "msgs_basic": 2 * raw_remote.sum(),
-        "per_worker_rr": remote_u.sum(dim=1) + per_worker(
-            owner.reshape(-1), remote_u.reshape(-1), M),
-        "per_worker_basic": raw_remote.sum(dim=1) + per_worker(
-            tw.clamp(0, M - 1).reshape(-1), raw_remote.reshape(-1), M),
-    }
+    with tracing.span("channels.count"):
+        remote_u = uvalid & (owner != own)
+        tw = torch.div(targets, n_loc, rounding_mode="floor")
+        raw_remote = tmask & (tw != own)
+        stats = {
+            "msgs_rr": 2 * remote_u.sum(),
+            "msgs_basic": 2 * raw_remote.sum(),
+            "per_worker_rr": remote_u.sum(dim=1) + per_worker(
+                owner.reshape(-1), remote_u.reshape(-1), M),
+            "per_worker_basic": raw_remote.sum(dim=1) + per_worker(
+                tw.clamp(0, M - 1).reshape(-1), raw_remote.reshape(-1), M),
+        }
     return out, stats
 
 
@@ -496,23 +509,24 @@ def rr_gather_flat(vals: torch.Tensor, targets: torch.Tensor,
     tw = torch.div(targets, n_loc, rounding_mode="floor")
     owner = tw.clamp(0, M - 1)
     raw_remote = tmask & (tw != wlog)
-    if dedup:
-        # distinct (worker, target) = segment heads of the shared sort
-        _, ws, ts, first = planlib.sort_by_worker_target(worker, t)
-        ws_log = ws if log_t is None else log_t[ws]
-        ts_w = torch.div(ts, n_loc, rounding_mode="floor")
-        remote_u = first & (ts < n_pad) & (ts_w != ws_log)
-        u_w, u_owner = ws_log, ts_w.clamp(0, M - 1)
-    else:
-        remote_u, u_w, u_owner = raw_remote, wlog, owner
-    stats = {
-        "msgs_rr": 2 * remote_u.sum(),
-        "msgs_basic": 2 * raw_remote.sum(),
-        "per_worker_rr": (per_worker(u_w, remote_u, M)
-                          + per_worker(u_owner, remote_u, M)),
-        "per_worker_basic": (per_worker(wlog, raw_remote, M)
-                             + per_worker(owner, raw_remote, M)),
-    }
+    with tracing.span("channels.count"):
+        if dedup:
+            # distinct (worker, target) = segment heads of the shared sort
+            _, ws, ts, first = planlib.sort_by_worker_target(worker, t)
+            ws_log = ws if log_t is None else log_t[ws]
+            ts_w = torch.div(ts, n_loc, rounding_mode="floor")
+            remote_u = first & (ts < n_pad) & (ts_w != ws_log)
+            u_w, u_owner = ws_log, ts_w.clamp(0, M - 1)
+        else:
+            remote_u, u_w, u_owner = raw_remote, wlog, owner
+        stats = {
+            "msgs_rr": 2 * remote_u.sum(),
+            "msgs_basic": 2 * raw_remote.sum(),
+            "per_worker_rr": (per_worker(u_w, remote_u, M)
+                              + per_worker(u_owner, remote_u, M)),
+            "per_worker_basic": (per_worker(wlog, raw_remote, M)
+                                 + per_worker(owner, raw_remote, M)),
+        }
     return out, stats
 
 
@@ -546,6 +560,7 @@ def scatter_combine_flat(vals: torch.Tensor, targets: torch.Tensor,
 # pg-level wrappers: layout-dispatching channel entry points
 # ---------------------------------------------------------------------------
 
+@tracing.traced("channels.gather")
 def gather(pg: PartitionedGraph, vals: torch.Tensor, targets: torch.Tensor,
            tmask: torch.Tensor, dedup: bool = True
            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -557,6 +572,7 @@ def gather(pg: PartitionedGraph, vals: torch.Tensor, targets: torch.Tensor,
     return rr_gather(vals, targets, tmask, pg.M, pg.n_loc, dedup)
 
 
+@tracing.traced("channels.gather_edges")
 def gather_edges(pg: PartitionedGraph, vals: torch.Tensor,
                  targets: torch.Tensor, tmask: torch.Tensor,
                  dedup: bool = True
@@ -575,6 +591,7 @@ def gather_edges(pg: PartitionedGraph, vals: torch.Tensor,
     return rr_gather(vals, targets, tmask, pg.M, pg.n_loc, dedup)
 
 
+@tracing.traced("channels.scatter_state")
 def scatter_state(pg: PartitionedGraph, base: torch.Tensor,
                   targets: torch.Tensor, upd: torch.Tensor,
                   mask: torch.Tensor, op: str, backend: str = "dense"
@@ -589,6 +606,7 @@ def scatter_state(pg: PartitionedGraph, base: torch.Tensor,
                            backend=backend)
 
 
+@tracing.traced("channels.scatter_edges")
 def scatter_edges(pg: PartitionedGraph, base: torch.Tensor,
                   targets: torch.Tensor, upd: torch.Tensor,
                   mask: torch.Tensor, op: str, backend: str = "dense"

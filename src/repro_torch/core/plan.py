@@ -37,6 +37,12 @@ kernel and CPU tensors to its plain version; ``"kernel"`` always calls the
 kernel (CPU tensors then raise); ``"ref"`` always takes the plain version.
 The plan's index arrays are uploaded to the device once and cached on the
 plan (``device_plan``).
+
+Spans (``repro_torch.tracing``): the loop spans ``plan.combine_with_plan``,
+``plan.combine_sorted`` and ``plan.combine_sorted_flat``, with the message
+accounting inside them as ``channels.count``; the set-up spans
+``plan.build`` (a ``get_plan`` miss) and ``plan.upload`` (a
+``device_plan`` miss).
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels.segment_combine import kernel as sc_kernel
 from repro_torch.kernels.segment_combine.ref import (
     segment_combine_blocks_ref, sentinels)
@@ -229,17 +236,20 @@ def device_plan(plan: EdgePlan, device) -> DevicePlan:
         def up(a, dtype):
             return torch.as_tensor(np.ascontiguousarray(a), device=device
                                    ).to(dtype)
-        seg_blk = up(plan.seg_blk, torch.int64)
-        row_seg = up(plan.row_seg, torch.int64)
-        dp = DevicePlan(
-            row_gather=up(plan.row_gather, torch.int64),
-            row_valid=up(plan.row_valid, torch.bool),
-            row_local=up(plan.row_local, torch.int32),
-            row_seg=row_seg,
-            row_blk=seg_blk[row_seg],
-            seg_blk=seg_blk,
-            seg_worker=up(plan.seg_worker, torch.int64),
-            gather_max=int(plan.row_gather.max()) if plan.n_rows else -1)
+        with tracing.setup_span("plan.upload", device=key,
+                                rows=plan.n_rows):
+            seg_blk = up(plan.seg_blk, torch.int64)
+            row_seg = up(plan.row_seg, torch.int64)
+            dp = DevicePlan(
+                row_gather=up(plan.row_gather, torch.int64),
+                row_valid=up(plan.row_valid, torch.bool),
+                row_local=up(plan.row_local, torch.int32),
+                row_seg=row_seg,
+                row_blk=seg_blk[row_seg],
+                seg_blk=seg_blk,
+                seg_worker=up(plan.seg_worker, torch.int64),
+                gather_max=(int(plan.row_gather.max()) if plan.n_rows
+                            else -1))
         plan.device_cache[key] = dp
     return dp
 
@@ -439,6 +449,7 @@ def _combine_plan_vec(plan: EdgePlan, dp: DevicePlan, values: EdgeMap,
                      values.feat)[:, :plan.n_loc]
 
 
+@tracing.traced("plan.combine_with_plan")
 def combine_with_plan(plan: EdgePlan, flat_vals: Payload, op: str,
                       count_cross: bool = True,
                       log_of: Optional[np.ndarray] = None,
@@ -498,14 +509,16 @@ def combine_with_plan(plan: EdgePlan, flat_vals: Payload, op: str,
         if flat_hits is None:
             raise ValueError("count_cross=True needs the per-lane send "
                              "mask (flat_hits)")
-        seg_log = dp.seg_worker
-        if log_of is not None:
-            seg_log = torch.as_tensor(np.asarray(log_of), device=device
-                                      ).long()[seg_log]
-        owner = dp.seg_blk // plan.B_per_w
-        cross = plan_seg_hits(plan, flat_hits) & (owner != seg_log)[:, None]
-        per_seg = cross.sum(dim=1)
-        stats = (per_seg.sum(), per_worker(seg_log, per_seg, M_out))
+        with tracing.span("channels.count"):
+            seg_log = dp.seg_worker
+            if log_of is not None:
+                seg_log = torch.as_tensor(np.asarray(log_of), device=device
+                                          ).long()[seg_log]
+            owner = dp.seg_blk // plan.B_per_w
+            cross = (plan_seg_hits(plan, flat_hits)
+                     & (owner != seg_log)[:, None])
+            per_seg = cross.sum(dim=1)
+            stats = (per_seg.sum(), per_worker(seg_log, per_seg, M_out))
     return inbox, stats
 
 
@@ -568,11 +581,14 @@ def _flat_combine(real: torch.Tensor, seg_t: torch.Tensor,
     buf = scatter_op(op, buf, torch.where(real, seg_t, 0),
                      torch.where(feat_mask(real, seg_val, 1), seg_val,
                                  ident))
-    cross = real & (torch.div(seg_t, n_loc, rounding_mode="floor") != seg_w)
-    return (buf.view((M, n_loc) + feat),
-            (cross.sum(), per_worker(seg_w, cross, M)))
+    with tracing.span("channels.count"):
+        cross = real & (torch.div(seg_t, n_loc, rounding_mode="floor")
+                        != seg_w)
+        counts = (cross.sum(), per_worker(seg_w, cross, M))
+    return buf.view((M, n_loc) + feat), counts
 
 
+@tracing.traced("plan.combine_sorted")
 def combine_sorted(targets: torch.Tensor, values: torch.Tensor,
                    mask: torch.Tensor, op: str, M: int, n_loc: int
                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
@@ -623,6 +639,7 @@ def sorted_segments_flat(targets: torch.Tensor, values: torch.Tensor,
     return real, seg_t, seg_val, seg_w, ident
 
 
+@tracing.traced("plan.combine_sorted_flat")
 def combine_sorted_flat(targets: torch.Tensor, values: torch.Tensor,
                         mask: torch.Tensor, src_worker: torch.Tensor,
                         op: str, M: int, n_loc: int,
@@ -666,6 +683,14 @@ def get_plan(pg, kind: str, nb: Optional[int] = None,
         return cache[key]
     if kind not in ("eg", "all", "mir"):
         raise ValueError(f"unknown plan kind: {kind!r}")
+    with tracing.setup_span("plan.build", kind=kind):
+        plan = _build_plan(pg, kind, nb, eb)
+    cache[key] = plan
+    return plan
+
+
+def _build_plan(pg, kind: str, nb: int, eb: Optional[int]) -> EdgePlan:
+    """Pack the plan of one edge set from the partition's host arrays."""
     h = pg.host
     if pg.layout == "csr":
         # flat edges feed the packer directly.  A split partition combines
@@ -681,16 +706,13 @@ def get_plan(pg, kind: str, nb: Optional[int] = None,
             # mirror fan-out is local: source worker == hosting worker
             dst = h["mir_edst"]
             sw = h["mir_pw"] if split else dst // pg.n_loc
-        plan = build_edge_plan_flat(sw, dst // pg.n_loc, dst % pg.n_loc,
+        return build_edge_plan_flat(sw, dst // pg.n_loc, dst % pg.n_loc,
                                     M_src, pg.M, pg.n_loc, nb, eb)
-    elif kind in ("eg", "all"):
+    if kind in ("eg", "all"):
         dst = h[f"{kind}_dst"]
-        plan = build_edge_plan(dst // pg.n_loc, dst % pg.n_loc,
+        return build_edge_plan(dst // pg.n_loc, dst % pg.n_loc,
                                h[f"{kind}_mask"], pg.M, pg.n_loc, nb, eb)
-    else:
-        edst = h["mir_edst"]
-        own = np.broadcast_to(np.arange(pg.M)[:, None], edst.shape)
-        plan = build_edge_plan(own, edst, h["mir_emask"], pg.M, pg.n_loc,
-                               nb, eb)
-    cache[key] = plan
-    return plan
+    edst = h["mir_edst"]
+    own = np.broadcast_to(np.arange(pg.M)[:, None], edst.shape)
+    return build_edge_plan(own, edst, h["mir_emask"], pg.M, pg.n_loc, nb,
+                           eb)

@@ -42,6 +42,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import cost_model
 from repro_torch.graph import partitioner as partitioner_mod
 from repro_torch.graph.partitioner import BALANCES  # noqa: F401 (re-export)
@@ -332,7 +333,21 @@ def partition(g: Graph, M: int, tau: Optional[int] = None,
     the five balance modes, ``hosts`` placement, a pinned ``perm``), and
     every array comes out equal to the reference's.  ``device`` defaults
     to the GPU and raises where there is none (pass ``device="cpu"``).
+    The call is the set-up span ``partition`` (``repro_torch.tracing``),
+    its phases the spans ``partition.assign``, ``.relabel``,
+    ``.msg_edges``, ``.mirrors``, ``.pair_counts``, ``.split`` and
+    ``.upload``.
     """
+    with tracing.setup_span("partition"):
+        return _partition(g, M, tau, seed, layout, balance, split_factor,
+                          hosts, perm, device)
+
+
+def _partition(g: Graph, M: int, tau: Optional[int], seed: int,
+               layout: str, balance: str, split_factor: float,
+               hosts: Optional[int], perm: Optional[np.ndarray],
+               device: Optional[DeviceLike]) -> PartitionedGraph:
+    """``partition``'s body, each phase a set-up span."""
     dev = resolve_device(device)
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; use one of {LAYOUTS}")
@@ -345,112 +360,118 @@ def partition(g: Graph, M: int, tau: Optional[int] = None,
     n_loc = -(-g.n // M)
     pinned_perm = perm is not None
     tau_eff = tau if tau is not None else g.n + 1
-    if pinned_perm:
-        # an explicit perm is final: the partitioner layer (and the host
-        # regroup) is bypassed, and ``tau`` is the EFFECTIVE threshold
-        perm = np.asarray(perm, np.int64)
-        if perm.shape != (g.n,):
-            raise ValueError(f"perm must have shape ({g.n},), got "
-                             f"{perm.shape}")
-    else:
-        p9r = partitioner_mod.partitioner_for(
-            balance, tau=tau, seed=seed, split_factor=split_factor)
-        perm, spec = p9r.assign(g, M, hosts)
-        if spec.vc_thresh is not None:
-            tau_eff = min(tau_eff, int(spec.vc_thresh))
-    n_ids = M * n_loc
-    inv = np.full(n_ids, -1, np.int64)
-    inv[perm] = np.arange(g.n)
-    src = perm[g.src]
-    dst = perm[g.dst]
-    w = g.weight if g.weight is not None else np.ones(g.m, np.float32)
+    with tracing.setup_span("partition.assign"):
+        if pinned_perm:
+            # an explicit perm is final: the partitioner layer (and the host
+            # regroup) is bypassed, and ``tau`` is the EFFECTIVE threshold
+            perm = np.asarray(perm, np.int64)
+            if perm.shape != (g.n,):
+                raise ValueError(f"perm must have shape ({g.n},), got "
+                                 f"{perm.shape}")
+        else:
+            p9r = partitioner_mod.partitioner_for(
+                balance, tau=tau, seed=seed, split_factor=split_factor)
+            perm, spec = p9r.assign(g, M, hosts)
+            if spec.vc_thresh is not None:
+                tau_eff = min(tau_eff, int(spec.vc_thresh))
+    with tracing.setup_span("partition.relabel"):
+        n_ids = M * n_loc
+        inv = np.full(n_ids, -1, np.int64)
+        inv[perm] = np.arange(g.n)
+        src = perm[g.src]
+        dst = perm[g.dst]
+        w = g.weight if g.weight is not None else np.ones(g.m, np.float32)
 
-    owner = src // n_loc
-    deg = np.bincount(src, minlength=n_ids)
-    mirrored = deg >= tau_eff                      # per (new) vertex id
+        owner = src // n_loc
+        deg = np.bincount(src, minlength=n_ids)
+        mirrored = deg >= tau_eff                      # per (new) vertex id
 
     # ---- Ch_msg edges: sources below threshold -------------------------
     # one stable sort by owner, then per-worker slices
-    lo = ~mirrored[src]
-    oorder = np.argsort(owner, kind="stable")
-    osrc, odst, ow_, olo = src[oorder], dst[oorder], w[oorder], lo[oorder]
-    bounds = np.searchsorted(owner[oorder], np.arange(M + 1))
-    if layout == "csr":
-        all_src = osrc.astype(np.int32)
-        all_dst = odst.astype(np.int32)
-        all_w = ow_.astype(np.float32)
-        all_mask = np.ones(len(osrc), bool)
-        all_off = bounds.astype(np.int64)
-        eg_src = osrc[olo].astype(np.int32)
-        eg_dst = odst[olo].astype(np.int32)
-        eg_w = ow_[olo].astype(np.float32)
-        eg_mask = np.ones(len(eg_src), bool)
-        eg_off = np.searchsorted(owner[oorder][olo],
-                                 np.arange(M + 1)).astype(np.int64)
-    else:
-        eg_rows_s, eg_rows_d, eg_rows_w = [], [], []
-        all_rows_s, all_rows_d, all_rows_w = [], [], []
-        for wk in range(M):
-            sl = slice(bounds[wk], bounds[wk + 1])
-            all_rows_s.append((osrc[sl] % n_loc).astype(np.int32))
-            all_rows_d.append(odst[sl].astype(np.int32))
-            all_rows_w.append(ow_[sl].astype(np.float32))
-            keep = olo[sl]
-            eg_rows_s.append((osrc[sl][keep] % n_loc).astype(np.int32))
-            eg_rows_d.append(odst[sl][keep].astype(np.int32))
-            eg_rows_w.append(ow_[sl][keep].astype(np.float32))
-        eg_src, eg_mask = _pad_rows(eg_rows_s, 0, np.int32)
-        eg_dst, _ = _pad_rows(eg_rows_d, 0, np.int32)
-        eg_w, _ = _pad_rows(eg_rows_w, 0.0, np.float32)
-        all_src, all_mask = _pad_rows(all_rows_s, 0, np.int32)
-        all_dst, _ = _pad_rows(all_rows_d, 0, np.int32)
-        all_w, _ = _pad_rows(all_rows_w, 0.0, np.float32)
-        eg_off = all_off = None
+    with tracing.setup_span("partition.msg_edges"):
+        lo = ~mirrored[src]
+        oorder = np.argsort(owner, kind="stable")
+        osrc, odst, ow_, olo = src[oorder], dst[oorder], w[oorder], lo[oorder]
+        bounds = np.searchsorted(owner[oorder], np.arange(M + 1))
+        if layout == "csr":
+            all_src = osrc.astype(np.int32)
+            all_dst = odst.astype(np.int32)
+            all_w = ow_.astype(np.float32)
+            all_mask = np.ones(len(osrc), bool)
+            all_off = bounds.astype(np.int64)
+            eg_src = osrc[olo].astype(np.int32)
+            eg_dst = odst[olo].astype(np.int32)
+            eg_w = ow_[olo].astype(np.float32)
+            eg_mask = np.ones(len(eg_src), bool)
+            eg_off = np.searchsorted(owner[oorder][olo],
+                                     np.arange(M + 1)).astype(np.int64)
+        else:
+            eg_rows_s, eg_rows_d, eg_rows_w = [], [], []
+            all_rows_s, all_rows_d, all_rows_w = [], [], []
+            for wk in range(M):
+                sl = slice(bounds[wk], bounds[wk + 1])
+                all_rows_s.append((osrc[sl] % n_loc).astype(np.int32))
+                all_rows_d.append(odst[sl].astype(np.int32))
+                all_rows_w.append(ow_[sl].astype(np.float32))
+                keep = olo[sl]
+                eg_rows_s.append((osrc[sl][keep] % n_loc).astype(np.int32))
+                eg_rows_d.append(odst[sl][keep].astype(np.int32))
+                eg_rows_w.append(ow_[sl][keep].astype(np.float32))
+            eg_src, eg_mask = _pad_rows(eg_rows_s, 0, np.int32)
+            eg_dst, _ = _pad_rows(eg_rows_d, 0, np.int32)
+            eg_w, _ = _pad_rows(eg_rows_w, 0.0, np.float32)
+            all_src, all_mask = _pad_rows(all_rows_s, 0, np.int32)
+            all_dst, _ = _pad_rows(all_rows_d, 0, np.int32)
+            all_w, _ = _pad_rows(all_rows_w, 0.0, np.float32)
+            eg_off = all_off = None
 
     # ---- mirrors: group each high-deg vertex's edges by dst worker -----
-    mir_vertex_ids = np.flatnonzero(mirrored)          # sorted global ids
-    n_mir = max(len(mir_vertex_ids), 1)
-    mir_slot_of = np.full((M, n_loc), -1, np.int32)
-    mir_slot_of.reshape(-1)[mir_vertex_ids] = np.arange(len(mir_vertex_ids))
+    with tracing.setup_span("partition.mirrors"):
+        mir_vertex_ids = np.flatnonzero(mirrored)          # sorted global ids
+        n_mir = max(len(mir_vertex_ids), 1)
+        mir_slot_of = np.full((M, n_loc), -1, np.int32)
+        mir_slot_of.reshape(-1)[mir_vertex_ids] = np.arange(
+            len(mir_vertex_ids))
 
-    hi = mirrored[src]
-    hsrc, hdst, hw = src[hi], dst[hi], w[hi]
-    dst_owner = hdst // n_loc
-    es_all = np.zeros(0, np.int32)
-    edg_all = np.zeros(0, np.int64)                    # global dst ids
-    ew_all = np.zeros(0, np.float32)
-    hb = np.zeros(M + 1, np.int64)
-    nworkers = np.zeros(n_mir, np.int64)
-    if len(hsrc):
-        # sort once by (dst worker, src, dst), then slice per hosting worker
-        order = np.lexsort((hdst, hsrc, dst_owner))
-        hsrc, hdst, hw, dst_owner = (hsrc[order], hdst[order], hw[order],
-                                     dst_owner[order])
-        mir_idx_of = np.full(n_ids, -1, np.int64)
-        mir_idx_of[mir_vertex_ids] = np.arange(len(mir_vertex_ids))
-        es_all = mir_idx_of[hsrc].astype(np.int32)
-        edg_all = hdst.astype(np.int64)
-        ew_all = hw.astype(np.float32)
-        hb = np.searchsorted(dst_owner, np.arange(M + 1)).astype(np.int64)
-        # workers per mirrored vertex
-        pair = np.unique(hsrc * np.int64(M) + dst_owner)
-        cnt = np.bincount((pair // M).astype(np.int64), minlength=n_ids)
-        nworkers = cnt[mir_vertex_ids] if len(mir_vertex_ids) else nworkers
-    if layout == "csr":
-        mir_esrc = es_all
-        mir_edst = edg_all.astype(np.int32)            # global dst ids
-        mir_ew = ew_all
-        mir_emask = np.ones(len(es_all), bool)
-        mir_eoff = hb
-    else:
-        rows_es = [es_all[hb[ow]:hb[ow + 1]] for ow in range(M)]
-        rows_ed = [(edg_all[hb[ow]:hb[ow + 1]] % n_loc).astype(np.int32)
-                   for ow in range(M)]
-        rows_ew = [ew_all[hb[ow]:hb[ow + 1]] for ow in range(M)]
-        mir_esrc, mir_emask = _pad_rows(rows_es, 0, np.int32)
-        mir_edst, _ = _pad_rows(rows_ed, 0, np.int32)
-        mir_ew, _ = _pad_rows(rows_ew, 0.0, np.float32)
-        mir_eoff = None
+        hi = mirrored[src]
+        hsrc, hdst, hw = src[hi], dst[hi], w[hi]
+        dst_owner = hdst // n_loc
+        es_all = np.zeros(0, np.int32)
+        edg_all = np.zeros(0, np.int64)                    # global dst ids
+        ew_all = np.zeros(0, np.float32)
+        hb = np.zeros(M + 1, np.int64)
+        nworkers = np.zeros(n_mir, np.int64)
+        if len(hsrc):
+            # sort once by (dst worker, src, dst), then slice per hosting
+            # worker
+            order = np.lexsort((hdst, hsrc, dst_owner))
+            hsrc, hdst, hw, dst_owner = (hsrc[order], hdst[order], hw[order],
+                                         dst_owner[order])
+            mir_idx_of = np.full(n_ids, -1, np.int64)
+            mir_idx_of[mir_vertex_ids] = np.arange(len(mir_vertex_ids))
+            es_all = mir_idx_of[hsrc].astype(np.int32)
+            edg_all = hdst.astype(np.int64)
+            ew_all = hw.astype(np.float32)
+            hb = np.searchsorted(dst_owner, np.arange(M + 1)).astype(np.int64)
+            # workers per mirrored vertex
+            pair = np.unique(hsrc * np.int64(M) + dst_owner)
+            cnt = np.bincount((pair // M).astype(np.int64), minlength=n_ids)
+            nworkers = cnt[mir_vertex_ids] if len(mir_vertex_ids) else nworkers
+        if layout == "csr":
+            mir_esrc = es_all
+            mir_edst = edg_all.astype(np.int32)            # global dst ids
+            mir_ew = ew_all
+            mir_emask = np.ones(len(es_all), bool)
+            mir_eoff = hb
+        else:
+            rows_es = [es_all[hb[ow]:hb[ow + 1]] for ow in range(M)]
+            rows_ed = [(edg_all[hb[ow]:hb[ow + 1]] % n_loc).astype(np.int32)
+                       for ow in range(M)]
+            rows_ew = [ew_all[hb[ow]:hb[ow + 1]] for ow in range(M)]
+            mir_esrc, mir_emask = _pad_rows(rows_es, 0, np.int32)
+            mir_edst, _ = _pad_rows(rows_ed, 0, np.int32)
+            mir_ew, _ = _pad_rows(rows_ew, 0.0, np.float32)
+            mir_eoff = None
 
     deg_pad = deg.astype(np.int32).reshape(M, n_loc)
     vmask = np.zeros((M, n_loc), bool)
@@ -458,11 +479,12 @@ def partition(g: Graph, M: int, tau: Optional[int] = None,
 
     # per-destination caps: distinct (source worker, destination vertex)
     # pairs per worker pair
-    pkey = np.unique(owner.astype(np.int64) * n_ids + dst)
-    pair_counts = np.zeros((M, M), np.int64)
-    np.add.at(pair_counts,
-              ((pkey // n_ids).astype(np.int64),
-               ((pkey % n_ids) // n_loc).astype(np.int64)), 1)
+    with tracing.setup_span("partition.pair_counts"):
+        pkey = np.unique(owner.astype(np.int64) * n_ids + dst)
+        pair_counts = np.zeros((M, M), np.int64)
+        np.add.at(pair_counts,
+                  ((pkey // n_ids).astype(np.int64),
+                   ((pkey % n_ids) // n_loc).astype(np.int64)), 1)
 
     mir_ids_arr = np.full(n_mir, M * n_loc, np.int32)
     mir_ids_arr[:len(mir_vertex_ids)] = mir_vertex_ids
@@ -471,39 +493,41 @@ def partition(g: Graph, M: int, tau: Optional[int] = None,
     M_phys, phys_log = M, None
     phys_eg = phys_all = phys_mir = None
     eg_pw = all_pw = mir_pw = None
-    if balance == "split":
-        load = np.diff(eg_off) + np.diff(hb)
-        k = cost_model.choose_split(load, split_factor)
-        M_phys = int(k.sum())
-        phys_log = np.repeat(np.arange(M, dtype=np.int64), k)
-        phys_eg = _refine_offsets(eg_off, k)
-        phys_all = _refine_offsets(all_off, k)
-        phys_mir = _refine_offsets(hb, k)
-        pids = np.arange(M_phys, dtype=np.int32)
-        eg_pw = np.repeat(pids, np.diff(phys_eg))
-        all_pw = np.repeat(pids, np.diff(phys_all))
-        mir_pw = np.repeat(pids, np.diff(phys_mir))
-        if len(hsrc):
-            # Theorem-1 accounting at shard granularity: a mirrored vertex
-            # is broadcast once per *physical shard* hosting its edges
-            spair = np.unique(es_all.astype(np.int64) * M_phys + mir_pw)
-            nworkers = np.bincount(spair // M_phys, minlength=n_mir)
+    with tracing.setup_span("partition.split"):
+        if balance == "split":
+            load = np.diff(eg_off) + np.diff(hb)
+            k = cost_model.choose_split(load, split_factor)
+            M_phys = int(k.sum())
+            phys_log = np.repeat(np.arange(M, dtype=np.int64), k)
+            phys_eg = _refine_offsets(eg_off, k)
+            phys_all = _refine_offsets(all_off, k)
+            phys_mir = _refine_offsets(hb, k)
+            pids = np.arange(M_phys, dtype=np.int32)
+            eg_pw = np.repeat(pids, np.diff(phys_eg))
+            all_pw = np.repeat(pids, np.diff(phys_all))
+            mir_pw = np.repeat(pids, np.diff(phys_mir))
+            if len(hsrc):
+                # Theorem-1 accounting at shard granularity: a mirrored vertex
+                # is broadcast once per *physical shard* hosting its edges
+                spair = np.unique(es_all.astype(np.int64) * M_phys + mir_pw)
+                nworkers = np.bincount(spair // M_phys, minlength=n_mir)
 
     # the reference's device arrays are 32-bit (jax_enable_x64 is off), so
     # the one int64 count array crosses the boundary as int32 here too
-    return from_numpy(dict(
-        n=g.n, M=M, n_loc=n_loc, tau=int(tau_eff), perm=perm, inv_perm=inv,
-        eg_src=eg_src, eg_dst=eg_dst, eg_mask=eg_mask, eg_w=eg_w,
-        all_src=all_src, all_dst=all_dst, all_mask=all_mask, all_w=all_w,
-        mir_ids=mir_ids_arr, mir_slot_of=mir_slot_of,
-        mir_nworkers=nworkers.astype(np.int32),
-        mir_esrc=mir_esrc, mir_edst=mir_edst, mir_emask=mir_emask,
-        mir_ew=mir_ew, deg=deg_pad, vmask=vmask,
-        layout=layout, eg_off=eg_off, all_off=all_off, mir_eoff=mir_eoff,
-        balance=balance, split_factor=split_factor, M_phys=M_phys,
-        phys_log=phys_log, phys_eg_off=phys_eg, phys_all_off=phys_all,
-        phys_mir_off=phys_mir, eg_pw=eg_pw, all_pw=all_pw, mir_pw=mir_pw,
-        pair_counts=pair_counts, hosts=hosts), device=dev)
+    with tracing.setup_span("partition.upload"):
+        return from_numpy(dict(
+            n=g.n, M=M, n_loc=n_loc, tau=int(tau_eff), perm=perm, inv_perm=inv,
+            eg_src=eg_src, eg_dst=eg_dst, eg_mask=eg_mask, eg_w=eg_w,
+            all_src=all_src, all_dst=all_dst, all_mask=all_mask, all_w=all_w,
+            mir_ids=mir_ids_arr, mir_slot_of=mir_slot_of,
+            mir_nworkers=nworkers.astype(np.int32),
+            mir_esrc=mir_esrc, mir_edst=mir_edst, mir_emask=mir_emask,
+            mir_ew=mir_ew, deg=deg_pad, vmask=vmask,
+            layout=layout, eg_off=eg_off, all_off=all_off, mir_eoff=mir_eoff,
+            balance=balance, split_factor=split_factor, M_phys=M_phys,
+            phys_log=phys_log, phys_eg_off=phys_eg, phys_all_off=phys_all,
+            phys_mir_off=phys_mir, eg_pw=eg_pw, all_pw=all_pw, mir_pw=mir_pw,
+            pair_counts=pair_counts, hosts=hosts), device=dev)
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,10 @@ checkout, and loaded with ``ctypes``.  A library's file name carries a
 digest of its source and the flags, so a changed source is rebuilt and an
 unchanged one is reused.  ``build_libraries`` starts one ``nvcc`` for each
 source that needs a build, all at once, and waits for them together.
+
+Spans (``repro_torch.tracing``): the set-up spans ``kernels.build`` (the
+nvcc runs of one ``build_libraries``) and ``kernels.load`` (a library's
+first load, its build included).
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Sequence, Tuple
+
+from repro_torch import tracing
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -51,15 +57,28 @@ def build_libraries(specs: Sequence[Tuple[Path, str]]) -> List[dict]:
     Returns one ``{"name", "path", "seconds", "built", "log"}`` per spec
     (``log`` is nvcc's ``-Xptxas -v`` report of registers and shared
     memory; empty when nothing was built)."""
-    out, running = [], []
+    out, todo = [], []
     for src, name in specs:
         path = library_path(src, name)
         info = {"name": name, "path": path, "seconds": 0.0, "built": False,
                 "log": ""}
         out.append(info)
-        if path.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        if not path.exists():
+            todo.append((info, src))
+    if todo:
+        with tracing.setup_span("kernels.build",
+                                names=[i["name"] for i, _ in todo]):
+            _run_nvcc(todo)
+    return out
+
+
+def _run_nvcc(todo: List[Tuple[dict, Path]]) -> None:
+    """One nvcc for each ``(info, source)``, all at once; each library is
+    moved into place as it finishes."""
+    running = []
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for info, src in todo:
+        path = info["path"]
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                                  str(src)], stdout=subprocess.PIPE,
@@ -75,7 +94,6 @@ def build_libraries(specs: Sequence[Tuple[Path, str]]) -> List[dict]:
         info.update(seconds=time.perf_counter() - t0, built=True, log=log)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return out
 
 
 def load_library(src: Path, name: str,
@@ -84,7 +102,8 @@ def load_library(src: Path, name: str,
     sets the ``argtypes`` and ``restype`` of its C functions once."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build_libraries([(src, name)])[0]["path"]))
-        declare(lib)
+        with tracing.setup_span("kernels.load", name=name):
+            lib = ctypes.CDLL(str(build_libraries([(src, name)])[0]["path"]))
+            declare(lib)
         _loaded[name] = lib
     return lib
