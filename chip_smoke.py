@@ -6,9 +6,9 @@
 Phases; any failure exits non-zero and prints no result:
 
 1. device: CUDA must be present; prints the card's name and power limit
-   (nvidia-smi) and builds the three kernel sources from ``src/``
-   (segment_combine, flash_attention, ssd_scan: one nvcc each, started
-   together), printing each ``-Xptxas -v`` report.
+   (nvidia-smi) and builds the four kernel sources from ``src/``
+   (segment_combine, flash_attention, ssd_scan, worker_count: one nvcc
+   each, started together), printing each ``-Xptxas -v`` report.
 2. kernels vs plain: random cases (sum/min/max x int32/float32/float16/
    bfloat16 x several (eb, nb), eb=0 and eb=2048 with nb=1024 among them,
    for the vector kernel x F in {1, 3, 32, 64, 130}, and 256 for the half
@@ -25,7 +25,14 @@ Phases; any failure exits non-zero and prints no result:
    kernel bit for bit.  Then ``plan._combine_rows`` on a float16 payload:
    the kernel's +-65504 sentinels come back as +-inf, bitwise; and both
    kernels timed on float32, float16 and bfloat16 values at the Ch_msg
-   plan's shape (``half_timing``; the entries' ``payload_types``).
+   plan's shape (``half_timing``; the entries' ``payload_types``).  Then
+   the worker_count kernel (``plan.per_worker``'s tally) against its
+   plain version on CPU copies at phase 3's per_worker shapes (int64
+   sorted edge owners and int32 sorted segment owners with bool flags, a
+   few ids at -1 and M; random owners with int64 and int32 counts; two
+   unaligned views), every total equal, and timed at the
+   ``per_worker_basic`` shape beside its plain version and
+   ``torch.bincount``.
 3. the algorithms at full size: a weighted, symmetrized
    ``powerlaw(n, avg_deg=8)`` graph (n=4M: 62.5M directed edges, the scale
    of LiveJournal) with the GCN's normalized weights (``normalize_adjacency``,
@@ -41,7 +48,10 @@ Phases; any failure exits non-zero and prints no result:
    kernel's launch counter must show 3 launches per Hash-Min superstep
    (Ch_msg values, Ch_msg hit counts, Ch_mir fan-out), 2 per S-V superstep
    (the ``all`` plan's values and hit counts) and none in MSF and
-   attribute broadcast, whose combines have runtime targets.  ``[reqresp]``
+   attribute broadcast, whose combines have runtime targets; the
+   worker_count kernel's (the tracing counter, read before and after each
+   run) ``WC_PER_SS`` a superstep, 3/3/3/13/26/4, and MSF 2 more a
+   pointer jump.  ``[reqresp]``
    lines give the paper's Fig. 13 comparison: msgs_rr against msgs_basic
    and the busiest worker's load with and without Ch_req (Theorem 3).
    Then S-V on ids that straddle 2^24 (n = 2^24 + 4, M = 2): the labels
@@ -436,7 +446,7 @@ process of their own (no GIL shared with the main thread) from phase
    their shapes, ms a prefill and a decode step (gloo staging through the
    host on one card: not a speed of the port), the gates' figures.
 
-One JSON line ``{"kernels": [...]}`` with all four kernels (the flash
+One JSON line ``{"kernels": [...]}`` with all five kernels (the flash
 and SSD entries carry ``half_types``, phase 7's step-0 timings on
 float32, bfloat16 and float16 inputs beside their bounds, and the flash
 entry phase 16's summary and its timed steps' launches under
@@ -456,8 +466,10 @@ mesh),
 the Hymba prefill's timed launches, ``timed`` says so; the scalar
 entry's ``launches`` also counts rank 0's launches in phases 10 and 11
 and the vector entry's those
-of phase 10's rank 0 and of the drill, each listed under its own key),
-then the last line
+of phase 10's rank 0 and of the drill, each listed under its own key;
+the worker_count entry's ``launches`` counts every launch in the
+script's own process, ``launches_main_path`` phase 3's timed runs), then
+the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -487,6 +499,18 @@ FP32_OPS_PER_S = FP32_FLOPS        # H100 SXM float32 outside tensor cores
 KERNEL_SOURCE = "src/repro_torch/csrc/segment_combine.cu"
 KERNEL_REPLACES = "src/repro/kernels/segment_combine/kernel.py:60"
 VEC_KERNEL_REPLACES = "src/repro/kernels/segment_combine/kernel.py:84"
+WC_SOURCE = "src/repro_torch/csrc/worker_count.cu"
+WC_REPLACES = ("none: the JAX package's zeros(M).at[w].add(c) is an XLA "
+               "scatter")
+# The worker_count kernel's launches (plan.per_worker on CUDA tensors) a
+# superstep of phase 3's runs: the broadcast algorithms' Ch_msg flags,
+# plan segments and mirror fan-out; S-V's request-respond gathers, its
+# broadcast and its sorted combines; attribute broadcast's one gather;
+# MSF's election and its gathers, and 2 more a pointer jump beyond the
+# first read of each superstep (res.jump_reads - supersteps jumps)
+WC_PER_SS = {"hashmin": 3, "pagerank": 3, "sssp": 3, "sv": 13, "msf": 26,
+             "attr_bcast": 4}
+WC_PER_JUMP = 2
 GCN = {"feat_dim": 32, "hidden": 64, "n_classes": 8, "lr": 1e-2}
 GCN_EPOCHS = 4
 GCN_CLIP, ADAM_EPS = 1.0, 1e-8     # the GCN step's clip norm, AdamW's eps
@@ -803,15 +827,16 @@ def card_line() -> str:
 
 
 def build_kernels():
-    """Build the three kernel sources, one nvcc each, all started together,
+    """Build the four kernel sources, one nvcc each, all started together,
     and print each build's -Xptxas -v report."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.segment_combine import kernel as sc
     from repro_torch.kernels.ssd_scan import kernel as ssd
+    from repro_torch.kernels.worker_count import kernel as wc
     t0 = time.perf_counter()
     infos = _build.build_libraries([(m.SOURCE, m.LIB_NAME)
-                                    for m in (sc, flash, ssd)])
+                                    for m in (sc, flash, ssd, wc)])
     for info in infos:
         log(f"[build] {info['path'].name}: built={info['built']} in "
             f"{info['seconds']:.2f} s")
@@ -1062,6 +1087,70 @@ def random_vec_cases(torch, np, kernel, ref_fn, dev, seed):
         f"half types) match the plain version (max |err| {max_err:.3g}); "
         "F=1 equals the scalar kernel bit for bit")
     return max_err
+
+
+def worker_count_cases(torch, np, dev, n, M, iters):
+    """The worker_count kernel against its plain version on CPU copies of
+    the same inputs, at phase 3's per_worker shapes: ``m`` (the powerlaw
+    graph's ~15.6 n directed edges) int64 edge owners sorted by worker
+    with bool flags (``per_worker_basic``), int32 sorted segment owners
+    with bool flags (S-V's ``seg_row``), ``n`` random owners with int64
+    and int32 counts (Ch_req), and unaligned views of the first two (one
+    id a load).  A few ids at -1 and M must add nothing.  Every total must
+    be equal; then the kernel, its plain version on the card and
+    ``torch.bincount`` (the library yardstick, with its where copy) timed
+    at the ``per_worker_basic`` shape."""
+    from repro_torch.kernels.worker_count import kernel as wc
+    from repro_torch.kernels.worker_count.ref import worker_count_ref
+    m = n * 125 // 8
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def sorted_ids(k, dtype):
+        return torch.sort(torch.randint(-1, M + 1, (k,), device=dev,
+                                        generator=gen)).values.to(dtype)
+    flags = torch.rand(m, device=dev, generator=gen) < 0.5
+    owners = sorted_ids(m, torch.int64)
+    segs = sorted_ids(m, torch.int32)
+    req = torch.randint(0, M, (n,), device=dev, generator=gen)
+    cnt64 = torch.randint(0, 2 ** 40, (n,), device=dev, generator=gen)
+    cnt32 = torch.randint(0, 1000, (n,), device=dev, generator=gen,
+                          dtype=torch.int32)
+    cases = [("edge owners int64, bool", owners, flags, True),
+             ("seg_row int32, bool", segs, flags, True),
+             ("Ch_req int64, int64 counts", req, cnt64, True),
+             ("Ch_req int32, int32 counts", req.int(), cnt32, True),
+             ("edge owners int64, bool, view [1:]", owners[1:], flags[1:],
+              False),
+             ("seg_row int32, bool, view [3:]", segs[3:], flags[3:], False)]
+    before = wc.launches()
+    for name, ids, counts, aligned in cases:
+        if wc._aligned(ids, counts) != aligned:
+            fail(f"worker_count case {name}: aligned={not aligned}, the "
+                 "case does not take the load it names")
+        got = wc.worker_count(ids, counts, M)
+        torch.cuda.synchronize()
+        want = worker_count_ref(ids.cpu(), counts.cpu(), M)
+        if not torch.equal(got.cpu(), want):
+            fail(f"worker_count kernel != plain version: {name}, "
+                 f"{ids.numel()} ids, M={M}")
+    if wc.launches() - before != len(cases):
+        fail(f"worker_count: {wc.launches() - before} launches for "
+             f"{len(cases)} cases")
+    row = {"n": m, "M": M, "ids": "int64 sorted", "counts": "bool",
+           "bytes": m * (owners.element_size() + 1) + 8 * M,
+           "ms": cuda_ms(torch, lambda: wc.launch(owners, flags, M), iters),
+           "plain_ms": cuda_ms(torch, lambda: worker_count_ref(
+               owners, flags, M), iters),
+           "library_ms": cuda_ms(torch, lambda: torch.bincount(
+               torch.where(flags & (owners >= 0), owners, M),
+               minlength=M + 1)[:M], iters)}
+    row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+    log(f"[kernel] worker_count: {len(cases)} cases at phase 3's per_worker "
+        f"shapes ({m} and {n} ids, M={M}, aligned and unaligned) equal the "
+        f"plain version; at {m} sorted int64 ids and bool flags: kernel "
+        f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f}, bincount "
+        f"{row['library_ms']:.3f}, bound {row['bound_ms']:.3f} (bytes)")
+    return row
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -1398,6 +1487,7 @@ def main_path(torch, np, mods, args, dev, phases, ready=None, beside=None,
     call that waits for it, made before the profiles; ``host_side(g,
     pg)`` starts host work of a later phase at the same point."""
     api, structs, gen, cost_model, planlib, kernel = mods
+    from repro_torch.kernels.worker_count import kernel as wc
     from repro_torch.train.gcn import normalize_adjacency
     g = phases.run("graph", lambda: normalize_adjacency(gen.powerlaw(
         args.n, avg_deg=8, seed=args.seed, weighted=True).symmetrized()))
@@ -1448,23 +1538,33 @@ def main_path(torch, np, mods, args, dev, phases, ready=None, beside=None,
     runs = {}
     counter = kernel.segment_combine_blocks
     counter.launches = counter.launches_vec = 0   # the path starts here
+    wc_launches = 0
     for algo, params in algos + rr_algos:
         # the first run pays the caching allocator's growth; the second
         # is the steady state
         for tag in ("cold", "warm"):
-            before = counter.launches
+            before, wc_before = counter.launches, wc.launches()
             res, dev_ms, host_s = phases.run(
                 f"{algo}-{tag}", timed, torch,
                 lambda: eng.run(algo, pg, **params))
             launches = counter.launches - before
+            wc_n = wc.launches() - wc_before
+            wc_want = WC_PER_SS[algo] * res.n_supersteps + (
+                0 if res.jump_reads is None
+                else WC_PER_JUMP * (res.jump_reads - res.n_supersteps))
+            if wc_n != wc_want:
+                fail(f"{algo}: {wc_n} worker_count launches in "
+                     f"{res.n_supersteps} supersteps, expected {wc_want}: "
+                     "a per_worker tally did not go through the kernel")
+            wc_launches += wc_n
             key = "msgs_total" if "msgs_total" in res.stats else "msgs_rr"
             jumps = ("" if res.jump_reads is None else
                      f"; {res.jump_reads} host reads in its pointer jumping")
             log(f"[run] {algo} ({tag}): {res.n_supersteps} supersteps, "
                 f"{dev_ms:.3f} ms on the device clock "
                 f"({dev_ms / res.n_supersteps:.3f} ms per superstep), "
-                f"{host_s:.3f} s host; {launches} kernel launches; "
-                f"{key}={res.stats[key]}{jumps}")
+                f"{host_s:.3f} s host; {launches} kernel launches, {wc_n} "
+                f"worker_count; {key}={res.stats[key]}{jumps}")
             if launches != per_ss[algo] * res.n_supersteps:
                 fail(f"{algo}: {launches} kernel launches in "
                      f"{res.n_supersteps} supersteps, expected "
@@ -1547,7 +1647,7 @@ def main_path(torch, np, mods, args, dev, phases, ready=None, beside=None,
                          ("sv", {}), ("msf", {})]:
         phases.run(f"profile-{algo}", profile_run, torch,
                    lambda: eng.run(algo, pg, **params), algo)
-    return g, A, pg, main_launches, algos, runs, rr_algos
+    return g, A, pg, (main_launches, wc_launches), algos, runs, rr_algos
 
 
 def rr_oracles(torch, np, structs, g, A, pg, runs, cc, attr):
@@ -7433,6 +7533,8 @@ def main():
                             ref_fn, dev)
     vec_err = phases.run("vec-kernel-vs-plain", random_vec_cases, torch, np,
                          kernel, ref_fn, dev, args.seed)
+    wc_row = phases.run("worker-count-vs-plain", worker_count_cases, torch,
+                        np, dev, args.n, args.workers, args.iters)
     # the comparisons' float64 buffers leave the allocator's cache: the
     # spawned ranks below share the card
     torch.cuda.empty_cache()
@@ -7477,7 +7579,7 @@ def main():
     # of their own from phase 3's oracles on, through the S-V check and
     # phase 3b's first runs
     split_run = []
-    g, A, pg, launches, algos, runs, rr_algos = main_path(
+    g, A, pg, (launches, wc_main), algos, runs, rr_algos = main_path(
         torch, np, mods, args, dev, phases, ready=launchers_wait,
         beside=beside_3c,
         host_side=lambda g, pg: split_run.append(phases.run(
@@ -7673,6 +7775,21 @@ def main():
         f"{vec_entry['library_ms']:.3f} ({vec_entry['library_ms'] / E:.3f}), "
         f"bound {vec_entry['bound_ms']:.3f} ({vec_entry['bound_ms'] / E:.3f})"
         f"; {ratio_text(vec_entry)}")
+    # every launch in this process: phase 2's cases and timings, phase 3's
+    # runs (and its dense, profiled and sharded runs, the GCN's counts)
+    from repro_torch.kernels.worker_count import kernel as wc
+    wc_entry = {
+        "name": "worker_count", "route": "cuda", "source": WC_SOURCE,
+        "replaces": WC_REPLACES, "launches": wc.launches(),
+        "launches_main_path": wc_main, "max_abs_err": 0,
+        "ms": wc_row["ms"], "plain_ms": wc_row["plain_ms"],
+        "bound_ms": wc_row["bound_ms"], "bound_by": "bytes",
+        "library_ms": wc_row["library_ms"], "per_launch": [wc_row]}
+    log(f"[kernel] worker_count: {wc_main} launches in the algorithm runs "
+        f"({wc_entry['launches']} in this process): kernel "
+        f"{wc_entry['ms']:.3f} ms, plain {wc_entry['plain_ms']:.3f}, "
+        f"library {wc_entry['library_ms']:.3f}, bound "
+        f"{wc_entry['bound_ms']:.3f} at the per_worker_basic shape")
     log(f"[service] summary {json.dumps(service)}")
     log(f"[launchers] summary {json.dumps(launchers)}")
     log(f"[moe] summary {json.dumps(olmoe['moe'])}")
@@ -7680,7 +7797,8 @@ def main():
     log(f"[serve-mesh] summary {json.dumps(mesh_serve)}")
     log(f"[examples] summary {json.dumps(examples)}")
     log(f"[dryrun] summary {json.dumps(dryrun)}")
-    log(json.dumps({"kernels": [entry, vec_entry] + serve_entries}))
+    log(json.dumps({"kernels": [entry, vec_entry, wc_entry]
+                    + serve_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}),
           flush=True)

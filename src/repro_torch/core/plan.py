@@ -56,6 +56,7 @@ from repro_torch import tracing
 from repro_torch.kernels.segment_combine import kernel as sc_kernel
 from repro_torch.kernels.segment_combine.ref import (
     segment_combine_blocks_ref, sentinels)
+from repro_torch.kernels.worker_count.kernel import worker_count
 
 DEFAULT_NB = 128
 DEFAULT_EB = 128
@@ -106,16 +107,11 @@ def scatter_op(op: str, buf: torch.Tensor, idx: torch.Tensor,
 def per_worker(worker: torch.Tensor, counts: torch.Tensor, M: int
                ) -> torch.Tensor:
     """(M,) int64 totals of ``counts`` (bool flags or integer counts) by
-    worker id — the reference's ``zeros(M).at[worker].add(counts)``.  A
-    histogram, not ``index_add_``: on the card ``bincount`` keeps per-block
-    bins in shared memory, where ``index_add_`` would put every atomic on
-    one of M addresses (tens of millions of edge flags a superstep)."""
-    if counts.dtype == torch.bool:
-        return torch.bincount(torch.where(counts, worker.long(), M),
-                              minlength=M + 1)[:M]
-    # float64 weights are exact for integer totals below 2^53
-    return torch.bincount(worker.long(), weights=counts.double(),
-                          minlength=M)[:M].long()
+    worker id — the reference's ``zeros(M).at[worker].add(counts)``; ids
+    outside ``[0, M)`` add nothing.  CUDA tensors go to the worker_count
+    kernel, which reads nothing back to the host; CPU tensors to its plain
+    version."""
+    return worker_count(worker, counts, M)
 
 
 def scatter_hits(n: int, idx: torch.Tensor, hits: torch.Tensor

@@ -211,6 +211,7 @@ def test_every_kernel_builds_through_the_one_helper():
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.ssd_scan import kernel as sk
-    sources = {m.SOURCE for m in (tkernel, fk, sk)}
+    from repro_torch.kernels.worker_count import kernel as wk
+    sources = {m.SOURCE for m in (tkernel, fk, sk, wk)}
     assert sources == set(_build.CSRC.glob("*.cu"))
-    assert len({m.LIB_NAME for m in (tkernel, fk, sk)}) == 3
+    assert len({m.LIB_NAME for m in (tkernel, fk, sk, wk)}) == 4
